@@ -7,7 +7,15 @@ setup(
         "TPU-native multi-task learning framework for dense scene "
         "understanding (JAX/Flax/Pallas)"
     ),
-    packages=find_packages(include=["vision_mtl_tpu", "vision_mtl_tpu.*"]),
+    packages=find_packages(
+        include=[
+            "vision_mtl_tpu",
+            "vision_mtl_tpu.*",
+            "vision_mtl_tpu_torch",
+            "vision_mtl_tpu_torch.*",
+        ]
+    ),
+    package_data={"vision_mtl_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

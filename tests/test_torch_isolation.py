@@ -1,0 +1,80 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, and its entry points refuse to run on a missing card unless the
+caller asks for the CPU."""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import vision_mtl_tpu_torch
+from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+from vision_mtl_tpu_torch.metrics import init_metrics
+from vision_mtl_tpu_torch.models.registry import build_model
+from vision_mtl_tpu_torch.predict import predict
+from vision_mtl_tpu_torch.serving import BatchingServer, Predictor
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(
+            vision_mtl_tpu_torch.__path__, prefix="vision_mtl_tpu_torch."
+        )
+    )
+
+
+def test_port_imports_nothing_of_jax():
+    modules = _port_modules()
+    assert "vision_mtl_tpu_torch.serve" in modules and len(modules) >= 15
+    code = textwrap.dedent(
+        f"""
+        import importlib, runpy, sys
+        for name in {modules!r}:
+            importlib.import_module(name)
+        runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+        bad = sorted(
+            m for m in sys.modules
+            if m in ("jax", "flax", "vision_mtl_tpu")
+            or m.startswith(("jax.", "flax.", "vision_mtl_tpu."))
+        )
+        print(",".join(bad))
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"the port loaded: {out.stdout.strip()}"
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = fetch_data_cfg("synthetic")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model("mtan", cfg)
+    model = build_model("mtan", cfg, dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(model, 1, cfg.height, cfg.width)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchingServer(model, cfg.height, cfg.width)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_metrics(cfg.num_classes)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict([{"img": np.zeros((1, cfg.height, cfg.width, 3), np.float32)}], model, 7)
+
+
+def test_predictor_rejects_a_model_elsewhere():
+    cfg = fetch_data_cfg("synthetic")
+    model = build_model("mtan", cfg, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="move the model"):
+        Predictor(model, 1, cfg.height, cfg.width, device="meta")
+    with pytest.raises(ValueError, match="eval"):
+        Predictor(model.train(), 1, cfg.height, cfg.width, device="cpu")

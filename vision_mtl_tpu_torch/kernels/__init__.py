@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels for Hopper, one module each, beside their plain
+PyTorch versions. ``KERNELS`` maps each kernel's name to its module, whose
+``SOURCE`` names its ``csrc/<SOURCE>.cu`` and whose ``launches`` counter the
+wrapper bumps once per launch."""
+
+from __future__ import annotations
+
+import typing as t
+
+from vision_mtl_tpu_torch.kernels import confmat, fused_gate
+from vision_mtl_tpu_torch.kernels._build import build
+
+KERNELS = {
+    "fused_attention_gate": fused_gate,
+    "confusion_matrix": confmat,
+}
+
+
+def build_all() -> None:
+    """Compile every kernel in parallel (one nvcc per source)."""
+    build(mod.SOURCE for mod in KERNELS.values())
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches.reset()
+
+
+def launch_counts() -> t.Dict[str, int]:
+    return {name: mod.launches.value for name, mod in KERNELS.items()}

@@ -1,0 +1,151 @@
+"""MTAN's inference-mode attention gate: CUDA kernel and its plain version.
+
+Counterpart of ``vision_mtl_tpu/ops/pallas/fused_gate.py`` (``fold_bn``,
+``fused_attention_gate``). In eval mode the gate chain
+
+    attn = sigmoid(BN2(conv1x1_2(relu(BN1(conv1x1_1(x))))));  out = shared * attn
+
+is two per-pixel products with affine BNs, folded by :func:`fold_bn` into
+``(w, c)`` pairs. The CUDA kernel (``csrc/fused_gate.cu``) keeps the
+``(N, hidden)`` intermediate in shared memory; :func:`fused_attention_gate_plain`
+computes the same function with PyTorch ops and is what runs for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import typing as t
+
+import torch
+
+from vision_mtl_tpu_torch.kernels._build import LaunchCounter, load
+
+SOURCE = "fused_gate"
+MAX_HIDDEN = 128
+MAX_C2 = 512
+
+launches = LaunchCounter()
+
+_SIGNATURE = (
+    [ctypes.c_void_p] * 7
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p]
+)
+
+
+def fold_bn(
+    conv_bias: t.Optional[torch.Tensor],
+    bn_scale: torch.Tensor,
+    bn_bias: torch.Tensor,
+    bn_mean: torch.Tensor,
+    bn_var: torch.Tensor,
+    eps: float = 1e-5,
+) -> t.Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (scale, const) with BN(conv(x)) == conv_nobias(x)*scale+const."""
+    inv = bn_scale / torch.sqrt(bn_var + eps)
+    b = conv_bias if conv_bias is not None else 0.0
+    return inv, (b - bn_mean) * inv + bn_bias
+
+
+def fused_attention_gate_plain(
+    x: torch.Tensor,
+    shared: torch.Tensor,
+    w1: torch.Tensor,
+    c1: torch.Tensor,
+    w2: torch.Tensor,
+    c2: torch.Tensor,
+) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: f32 math, output in shared's
+    dtype."""
+    cin, c2ch = x.shape[-1], shared.shape[-1]
+    h = torch.relu(x.reshape(-1, cin).float() @ w1.float() + c1.float())
+    attn = torch.sigmoid(h @ w2.float() + c2.float())
+    out = shared.reshape(-1, c2ch).float() * attn
+    return out.to(shared.dtype).reshape(shared.shape)
+
+
+def fused_attention_gate(
+    x: torch.Tensor,
+    shared: torch.Tensor,
+    w1: torch.Tensor,
+    c1: torch.Tensor,
+    w2: torch.Tensor,
+    c2: torch.Tensor,
+) -> torch.Tensor:
+    """out = shared * sigmoid(relu(x@w1 + c1) @ w2 + c2), NHWC.
+
+    Args:
+      x: (B, H, W, Cin) gate input (folded-BN scales pre-multiplied into w1).
+      shared: (B, H, W, C2) features to modulate, same dtype as x.
+      w1: (Cin, hidden); c1: (hidden,) — first conv1x1 + folded BN1.
+      w2: (hidden, C2); c2: (C2,) — second conv1x1 + folded BN2.
+
+    CPU tensors take :func:`fused_attention_gate_plain`. CUDA tensors launch
+    the kernel (f32 or bf16 activations, f32 weights, all contiguous) or
+    raise; there is no fallback.
+    """
+    if x.device.type == "cpu":
+        return fused_attention_gate_plain(x, shared, w1, c1, w2, c2)
+    _check(x, shared, w1, c1, w2, c2)
+    b, h, w, cin = x.shape
+    hidden, c2ch = w2.shape
+    n = b * h * w
+    out = torch.empty_like(shared)
+    if n == 0:
+        return out
+    fn = load(SOURCE, "vmtl_fused_attention_gate", _SIGNATURE)
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), shared.data_ptr(), w1.data_ptr(), c1.data_ptr(),
+            w2.data_ptr(), c2.data_ptr(), out.data_ptr(),
+            n, cin, hidden, c2ch, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_attention_gate: kernel launch failed, CUDA error {rc}")
+    launches.add()
+    return out
+
+
+def _check(x, shared, w1, c1, w2, c2) -> None:
+    tensors = {"x": x, "shared": shared, "w1": w1, "c1": c1, "w2": w2, "c2": c2}
+    for name, v in tensors.items():
+        if v.device != x.device or v.device.type != "cuda":
+            raise ValueError(
+                f"fused_attention_gate: {name} is on {v.device}; the kernel "
+                f"takes CUDA tensors on one device (x is on {x.device})"
+            )
+        if not v.is_contiguous():
+            raise ValueError(f"fused_attention_gate: {name} is not contiguous")
+    if x.dtype not in (torch.float32, torch.bfloat16) or shared.dtype != x.dtype:
+        raise TypeError(
+            "fused_attention_gate: x and shared must both be float32 or both "
+            f"bfloat16, got {x.dtype} and {shared.dtype}"
+        )
+    for name in ("w1", "c1", "w2", "c2"):
+        if tensors[name].dtype != torch.float32:
+            raise TypeError(f"fused_attention_gate: {name} must be float32")
+    if x.dim() != 4 or shared.dim() != 4 or x.shape[:3] != shared.shape[:3]:
+        raise ValueError(
+            f"fused_attention_gate: x {tuple(x.shape)} and shared "
+            f"{tuple(shared.shape)} must be NHWC with the same B, H, W"
+        )
+    cin, c2ch = x.shape[-1], shared.shape[-1]
+    hidden = w1.shape[-1] if w1.dim() == 2 else -1
+    if (
+        w1.shape != (cin, hidden)
+        or c1.shape != (hidden,)
+        or w2.shape != (hidden, c2ch)
+        or c2.shape != (c2ch,)
+    ):
+        raise ValueError(
+            f"fused_attention_gate: weight shapes w1 {tuple(w1.shape)}, c1 "
+            f"{tuple(c1.shape)}, w2 {tuple(w2.shape)}, c2 {tuple(c2.shape)} do "
+            f"not fit Cin={cin}, C2={c2ch}"
+        )
+    if hidden % 4 or not 0 < hidden <= MAX_HIDDEN or c2ch % 4 or not 0 < c2ch <= MAX_C2:
+        raise ValueError(
+            f"fused_attention_gate: the kernel takes hidden and C2 that are "
+            f"multiples of 4, hidden <= {MAX_HIDDEN} and C2 <= {MAX_C2}; got "
+            f"hidden={hidden}, C2={c2ch}"
+        )

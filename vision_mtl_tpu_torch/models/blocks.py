@@ -1,0 +1,170 @@
+"""Shared NHWC building blocks, eval semantics (counterpart of
+``vision_mtl_tpu/models/blocks.py``).
+
+Every block takes and returns NHWC tensors. PyTorch's convolutions and
+BatchNorm want channels at dim 1, so the blocks work on the NCHW view of
+their input: a permutation of an NHWC tensor is a ``channels_last`` tensor
+and costs no copy. Parameters and BN statistics are float32; convolutions
+compute in the block's ``dtype`` (bfloat16 by default), BN computes in f32
+and returns its input's dtype, as in the JAX package.
+
+Only eval mode is ported: a block in training mode raises.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as t
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+TRAIN_MODE_NOT_PORTED = (
+    "train mode is not ported yet: see ROADMAP.md, queue A, item 2 "
+    "(MTAN training); call .eval() for inference"
+)
+
+
+def _to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _uniform_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    # torch's Conv2d default: kaiming_uniform(a=sqrt(5)) == U(+-1/sqrt(fan_in)),
+    # the same bound as its bias init
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        p.uniform_(-bound, bound, generator=generator)
+
+
+class Conv(nn.Module):
+    """Conv2d on NHWC with torch padding ``(k-1)//2``; weight OIHW."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        features: int,
+        kernel_size: t.Tuple[int, int] = (3, 3),
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        kh, kw = kernel_size
+        self.padding = ((kh - 1) // 2, (kw - 1) // 2)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_ch, kh, kw))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        _uniform_(self.weight, fan_in, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv2d(
+            _to_nchw(x).to(self.dtype), self.weight.to(self.dtype), bias,
+            padding=self.padding,
+        )
+        return _to_nhwc(y)
+
+
+class ConvTranspose(nn.Module):
+    """Stride-2 2x2 transposed conv on NHWC (flax ``nn.ConvTranspose`` with
+    ``padding="VALID"``); weight in torch's (in, out, kh, kw) layout."""
+
+    def __init__(self, in_ch: int, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(in_ch, features, 2, 2))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        _uniform_(self.weight, fan_in, generator)
+        _uniform_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(
+            _to_nchw(x).to(self.dtype), self.weight.to(self.dtype),
+            self.bias.to(self.dtype), stride=2,
+        )
+        return _to_nhwc(y)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm with the running statistics, eps 1e-5."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(TRAIN_MODE_NOT_PORTED)
+        y = F.batch_norm(
+            _to_nchw(x), self.running_mean, self.running_var,
+            self.weight, self.bias, False, 0.0, self.eps,
+        )
+        return _to_nhwc(y)
+
+
+class ConvBNAct(nn.Module):
+    """conv (no bias) -> BN -> ReLU."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        features: int,
+        kernel_size: t.Tuple[int, int] = (3, 3),
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.Conv_0 = Conv(in_ch, features, kernel_size, use_bias=False, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 -> BN -> ReLU) * 2."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        features: int,
+        mid_features: t.Optional[int] = None,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        mid = mid_features or features
+        self.ConvBNAct_0 = ConvBNAct(in_ch, mid, dtype=dtype)
+        self.ConvBNAct_1 = ConvBNAct(mid, features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvBNAct_1(self.ConvBNAct_0(x))
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel_size=2, stride=2) NHWC; odd sizes are floored."""
+    return _to_nhwc(F.max_pool2d(_to_nchw(x), 2))
+
+
+def init_weights(model: nn.Module, seed: int) -> None:
+    """Fresh torch-default weights for every block of ``model``, drawn from
+    one ``torch.Generator`` seeded with ``seed`` in module order."""
+    generator = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)

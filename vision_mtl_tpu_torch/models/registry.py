@@ -1,0 +1,44 @@
+"""Model zoo (counterpart of ``vision_mtl_tpu/models/registry.py``).
+
+Only MTAN is ported so far, at its trained config: encoder_first_channel=32,
+4 encoder levels, hidden=128 (13,277,908 parameters at 19 classes).
+"""
+
+from __future__ import annotations
+
+import typing as t
+
+import torch
+from torch import nn
+
+from vision_mtl_tpu_torch.cfg import DataConfig
+from vision_mtl_tpu_torch.device import resolve_device
+
+
+def build_model(
+    model_name: str,
+    data_cfg: DataConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    device: t.Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> nn.Module:
+    """The named model in eval mode on ``device``, with fresh weights drawn
+    from ``seed``; raises if ``device`` is CUDA and no card is present."""
+    dev = resolve_device(device)
+    if model_name == "mtan":
+        from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
+
+        model = MTANMiniUnet(
+            map_tasks_to_num_channels={"depth": 1, "segm": data_cfg.num_classes},
+            task_subnets_hidden_channels=128,
+            encoder_first_channel=32,
+            encoder_num_channels=4,
+            dtype=dtype,
+            seed=seed,
+        )
+        return model.to(dev)
+    if model_name in ("basic", "csnet"):
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported yet: see ROADMAP.md, queue A"
+        )
+    raise NotImplementedError(f"Unknown model name: {model_name}")

@@ -1,0 +1,52 @@
+"""Inference/eval sweep (counterpart of ``vision_mtl_tpu/predict.py``):
+run the predict-eval step over batches, collect per-batch
+``{"segm","depth"}`` predictions, and accumulate predict-stage metrics when
+the batches carry ground truth."""
+
+from __future__ import annotations
+
+import typing as t
+
+import numpy as np
+import torch
+from torch import nn
+
+from vision_mtl_tpu_torch.device import resolve_device
+from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics
+from vision_mtl_tpu_torch.train.step import make_predict_eval_step
+
+
+def predict(
+    batches: t.Iterable[t.Mapping[str, np.ndarray]],
+    model: nn.Module,
+    num_classes: int,
+    loss_segm_weight: float = 1.0,
+    loss_depth_weight: float = 1.0,
+    device: t.Union[str, torch.device] = "cuda",
+) -> t.Tuple[t.List[t.Dict[str, np.ndarray]], t.Dict[str, float]]:
+    """Returns (list of per-batch pred dicts, predict-stage metrics).
+
+    ``batches`` yields dicts of numpy arrays: "img" (B,H,W,3) float32 or
+    uint8, and optionally "mask" (B,H,W), "depth" (B,H,W,1) float32 or
+    uint16, "valid" (B,) 0/1 weights of a padded final batch. Predictions of
+    padded rows are dropped. Without ground truth the metrics are ``{}``.
+    """
+    dev = resolve_device(device)
+    step = make_predict_eval_step(
+        model, loss_segm_weight=loss_segm_weight, loss_depth_weight=loss_depth_weight
+    )
+    mstate = init_metrics(num_classes, dev)
+    preds: t.List[t.Dict[str, np.ndarray]] = []
+    for batch in batches:
+        dbatch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+        batch_preds, mstate, _ = step(dbatch, mstate)
+        host_preds = {k: v.cpu().numpy() for k, v in batch_preds.items()}
+        if "valid" in batch:
+            n_valid = int(np.sum(np.asarray(batch["valid"])))
+            host_preds = {k: v[:n_valid] for k, v in host_preds.items()}
+        preds.append(host_preds)
+    if float(mstate.num_steps) == 0.0:
+        return preds, {}
+    predict_metrics = {f"predict/{k}": float(v) for k, v in compute_metrics(mstate).items()}
+    return preds, predict_metrics
+
