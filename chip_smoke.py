@@ -5,18 +5,25 @@
 
 Builds the hand-written CUDA kernels from ``vision_mtl_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of MTAN's main
-path, then drives that path at the trained width (Cityscapes 128x256, 19
-classes, seeded random weights): a ``BatchingServer`` answering concurrent
-requests, a timed ``Predictor(8)``, and a predict-eval sweep with metrics.
-The launch counters show that the path went through both kernels. Any
-mismatch or error ends the run with a non-zero exit; without a CUDA card it
-exits 2 and prints no result.
+paths, then drives those paths at the trained width (Cityscapes 128x256, 19
+classes, seeded random weights): serving (a ``BatchingServer`` answering
+concurrent requests, a timed ``Predictor(8)``), a predict-eval sweep with
+metrics, and training (``create_train_state`` + ``make_train_step`` for a
+few warm-up and timed bf16 steps at batch 8, then one ``make_eval_step``).
+The launch counters, set to 0 before each path and read after it, show
+that each path went through its kernels. Any mismatch or error ends the run
+with a non-zero exit; without a CUDA card it exits 2 and prints no result.
 
 Tolerances, kernel against plain version:
-  * fused_attention_gate, f32: max |diff| <= 1e-4 (sums of up to 640 f32
-    products taken in another order);
-  * fused_attention_gate, bf16: |diff| <= 2^-7 |plain| + 1e-6 elementwise
-    (one bf16 rounding step of the f32 result);
+  * fused_attention_gate and the output of fused_attention_gate_train, f32:
+    max |diff| <= 1e-4 (sums of up to 640 f32 products taken in another
+    order);
+  * the same in bf16: |diff| <= 2^-7 |plain| + 1e-6 elementwise (one bf16
+    rounding step of the f32 result);
+  * the batch statistics of fused_attention_gate_train:
+    |diff| <= 1e-5 |plain| + 1e-6 (the plain version sums in f64), and
+    bit-identical on a second launch (the kernel's sums run in a fixed
+    order);
   * confusion_matrix: exact (integer counts).
 
 The model's output is held against a reference too: the f32 forward on the
@@ -25,15 +32,32 @@ CPU (plain versions) on one full-width image, max |diff| <= 1e-4 of the
 output's largest magnitude and argmax agreement >= 99.9%; the served bf16
 answers against a direct ``Predictor(8)`` (>= 99% argmax agreement, depth
 within 0.05); the predict-eval accuracy against an independent numpy count.
+Training is held against the CPU too: one f32 train step of the same seeded
+model at batch 2 on the card (kernels, no TF32) and on the CPU (plain
+versions): loss within 1e-4 relative and running statistics within 1e-5
+(relative beyond magnitude 1). Their gradients are held to a witness, the
+same step in f64 on the CPU: the card's relative L2 distance from it, over
+the whole gradient and per parameter, must stay within 3 times the CPU f32
+step's (its worst parameter's, per parameter). Where the gradient is 0 up to
+rounding (a bias feeding a batch-statistic BN, ``ZERO_GRAD``) both f32 sides
+must stay under 1e-3 of the model's largest gradient. A control shows that
+these limits can fail: the CPU f32 step with a gate whose input and weights
+are rounded to bf16 must fall outside them. The bf16 steps must give finite
+losses, and the loss on a repeated batch must fall.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes moved (each input read once, each output written once)
-at 3.35 TB/s and the operations at the peak for their type (the gate's
+at 3.35 TB/s and the operations at the peak for their type (the gates'
 products are f32: 67 TFLOP/s outside the tensor cores), from the H100 SXM
-data sheet at 700 W.
+data sheet at 700 W. The train-mode gate's function needs each of its two
+products once, 2N(Cin hidden + hidden C2) operations, as the eval gate's
+does; its three passes recompute them (the first three times, the second
+twice), and ``bound_three_passes_ms`` states that design's own bound
+beside it.
 
-Lines before the last: per-shape gate results, the model's numbers, the
-``kernels`` JSON line, the card's name and power limit. The last line is
+Lines before the last: per-shape results of both gates, the serving and
+evaluation numbers, the training numbers, the ``kernels`` JSON line, the
+card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,6 +65,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +80,25 @@ BUCKETS = (1, 4, 8)
 N_REQUESTS = 16
 N_EVAL_BATCHES = 3
 GATES_PER_FORWARD = 16
+LR = 1e-3
+TRAIN_WARMUP = 3
+TRAIN_TIMED = 12
+TRAIN_BATCHES = 4  # cycled: each batch is seen every 4 steps
+# device kernels by name, first match wins
+PROFILE_CATEGORIES = (
+    ("gate kernels (eval and train)", ("gate_kernel<",)),
+    ("confusion matrix", ("confmat_kernel",)),
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
+    ("matrix products (cuBLAS)", ("gemm", "gemv")),
+    ("batch norm", ("batch_norm",)),
+    ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "Functor", "fill")),
+)
+# parameters whose gradient is 0 up to rounding: biases that feed a
+# batch-statistic BN (the gates' b1, b2; the attention modules' 3x3 conv
+# biases, each followed by a BatchNorm)
+ZERO_GRAD = re.compile(r"(GateChain_0\.b[12]|_attn_\d+_task\d+\.Conv_\d\.bias)$")
 # (level, Cin, C2, H, W) of MTAN's gates at 128x256, hidden 128
 GATE_SHAPES = [
     ("enc0", 3, 32, 128, 256),
@@ -88,6 +132,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def gate_output_ok(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |diff|, within tolerance) of a gate kernel's output against its
+    plain version's: 1e-4 in f32, one bf16 rounding step in bf16."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if got.dtype == torch.float32:
+        ok = err <= 1e-4
+    else:
+        ok = bool((diff <= want.float().abs() * 2**-7 + 1e-6).all())
+    return err, ok and bool(torch.isfinite(got).all())
+
+
 def bound(nbytes: float, flops: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -110,13 +166,8 @@ def check_gate(dev, fused_gate) -> tuple:
             got = fused_gate.fused_attention_gate(*args)
             want = fused_gate.fused_attention_gate_plain(*args)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                ok = err <= 1e-4
-            else:
-                ok = bool((diff <= want.float().abs() * 2**-7 + 1e-6).all())
-            if not ok or not torch.isfinite(got).all():
+            err, ok = gate_output_ok(got, want)
+            if not ok:
                 fail(f"fused_attention_gate {level} {dtype}: max |diff| {err}")
             n = BATCH * h * w
             es = x.element_size()
@@ -134,6 +185,85 @@ def check_gate(dev, fused_gate) -> tuple:
             totals["err"] = max(totals["err"], err)
             if dtype == torch.bfloat16:  # the main path's dtype: 2 tasks per level
                 for k in ("ms", "plain_ms", "bound_ms"):
+                    totals[k] += 2 * row[k]
+                by_flops += 2 * flops / F32_FLOPS_PER_S
+                by_bytes += 2 * nbytes / HBM_BYTES_PER_S
+    totals["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
+    return rows, totals
+
+
+def check_gate_train(dev, fused_gate_train) -> tuple:
+    """The train-mode gate against its plain version at the MTAN gate
+    shapes: output, the four statistics, and the same bits from a second
+    launch; and the time of its backward (PyTorch ops)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows = []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_three_passes_ms": 0.0,
+              "backward_ms": 0.0, "err": 0.0}
+    by_flops = by_bytes = 0.0
+    for level, cin, c2, h, w in GATE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            def uniform(*shape, bound=1.0):
+                return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+            args = (
+                torch.randn(BATCH, h, w, cin, generator=gen, device=dev).to(dtype),
+                torch.randn(BATCH, h, w, c2, generator=gen, device=dev).to(dtype),
+                uniform(cin, HIDDEN, bound=cin**-0.5), uniform(HIDDEN, bound=cin**-0.5),
+                uniform(HIDDEN) * 0.5 + 1.0, uniform(HIDDEN, bound=0.3),
+                uniform(HIDDEN, c2, bound=HIDDEN**-0.5), uniform(c2, bound=HIDDEN**-0.5),
+                uniform(c2) * 0.5 + 1.0, uniform(c2, bound=0.3),
+            )
+            with torch.no_grad():
+                got = fused_gate_train.fused_attention_gate_train(*args)
+                again = fused_gate_train.fused_attention_gate_train(*args)
+                want = fused_gate_train.fused_attention_gate_train_plain(*args)
+            torch.cuda.synchronize()
+            err, ok = gate_output_ok(got[0], want[0])
+            if not ok:
+                fail(f"fused_attention_gate_train {level} {dtype}: output max |diff| {err}")
+            stat_err = 0.0
+            for name, g, r in zip(("mean1", "var1", "mean2", "var2"), got[1:], want[1:]):
+                d = (g - r).abs()
+                stat_err = max(stat_err, float(d.max()))
+                if not bool((d <= 1e-5 * r.abs() + 1e-6).all()):
+                    fail(f"fused_attention_gate_train {level} {dtype}: {name} max |diff| "
+                         f"{float(d.max())}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"fused_attention_gate_train {level} {dtype}: a second launch differs")
+            n = BATCH * h * w
+            # x and shared read, out written; weights read, statistics written
+            nbytes = args[0].element_size() * n * (cin + 2 * c2) + 4 * (
+                cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2 + 3 * c2 + 2 * (HIDDEN + c2)
+            )
+            flops = 2.0 * n * (cin * HIDDEN + HIDDEN * c2)
+            b_ms, b_by = bound(nbytes, flops)
+            b3_ms, _ = bound(nbytes, 2.0 * n * (3 * cin * HIDDEN + 2 * HIDDEN * c2))
+            with torch.no_grad():
+                row = {
+                    "level": level, "dtype": str(dtype).replace("torch.", ""),
+                    "N": n, "Cin": cin, "C2": c2, "max_abs_err": err,
+                    "stats_max_abs_err": stat_err,
+                    "ms": time_ms(lambda: fused_gate_train.fused_attention_gate_train(*args)),
+                    "plain_ms": time_ms(
+                        lambda: fused_gate_train.fused_attention_gate_train_plain(*args)
+                    ),
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_three_passes_ms": b3_ms,
+                }
+            # the Function's backward (PyTorch ops), timed as forward +
+            # backward less the forward
+            leaves = [a.detach().requires_grad_() for a in args]
+            cot = torch.randn(got[0].shape, generator=gen, device=dev).to(dtype)
+
+            def forward_backward():
+                out = fused_gate_train.fused_attention_gate_train(*leaves)[0]
+                torch.autograd.grad(out, leaves, cot)
+
+            row["backward_ms"] = time_ms(forward_backward) - row["ms"]
+            rows.append(row)
+            totals["err"] = max(totals["err"], err)
+            if dtype == torch.bfloat16:  # the main path's dtype: 2 tasks per level
+                for k in ("ms", "plain_ms", "bound_ms", "bound_three_passes_ms", "backward_ms"):
                     totals[k] += 2 * row[k]
                 by_flops += 2 * flops / F32_FLOPS_PER_S
                 by_bytes += 2 * nbytes / HBM_BYTES_PER_S
@@ -210,7 +340,8 @@ def serve_requests(model, cfg, dev, kernels) -> dict:
         stats = server.stats()
     counts = kernels.launch_counts()
     forwards = len(BUCKETS) + stats["batches"]
-    if counts["fused_attention_gate"] != GATES_PER_FORWARD * forwards or counts["confusion_matrix"]:
+    if (counts["fused_attention_gate"] != GATES_PER_FORWARD * forwards
+            or counts["confusion_matrix"] or counts["fused_attention_gate_train"]):
         fail(f"serving: launches {counts} for {forwards} forwards")
     if stats["requests"] != N_REQUESTS or stats["batched_images"] != N_REQUESTS:
         fail(f"serving: stats {stats}")
@@ -256,35 +387,51 @@ def time_predictor(model, cfg, dev, kernels) -> dict:
 
 
 def profile_forward(model, x, n: int = 5) -> dict:
-    """Device time by kernel over ``n`` forwards, from torch.profiler: where
-    a forward's time goes and how long the card idles. Reports "not
+    """Device time by kernel over ``n`` forwards (see :func:`profile_device`)."""
+
+    def forward():
+        with torch.inference_mode():
+            model(x)
+
+    return profile_device(forward, n)
+
+
+def profile_device(fn, n: int) -> dict:
+    """Device time by kernel over ``n`` calls of ``fn``, from torch.profiler:
+    where a call's time goes and how long the card idles. Reports "not
     measured" if the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / n * 1e3
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
     kernels = [
         (e.key, e.self_device_time_total / 1e3 / n, e.count // n)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        # a user annotation (Optimizer.step) spans kernels counted on their own
+        and not getattr(e, "is_user_annotation", False)
     ]
     if not kernels:
         return {"device_busy_ms": "not measured", "wall_ms_profiled": wall_ms}
     busy = sum(ms for _, ms, _ in kernels)
     kernels.sort(key=lambda k: -k[1])
+    by_category: dict = {}
+    for name, ms, _ in kernels:
+        cat = next((c for c, keys in PROFILE_CATEGORIES if any(k in name for k in keys)), "other")
+        by_category[cat] = by_category.get(cat, 0.0) + ms
     return {
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-        "device_ops_per_forward": sum(c for _, _, c in kernels),
-        "top": [{"name": k[:80], "ms": ms, "calls": c} for k, ms, c in kernels[:10]],
+        "device_ops_per_call": sum(c for _, _, c in kernels),
+        "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
+        "top": [{"name": k[:80], "ms": ms, "calls": c} for k, ms, c in kernels[:12]],
     }
 
 
@@ -308,7 +455,7 @@ def predict_eval(model, cfg, dev, kernels) -> dict:
     preds, metrics = predict(batches, model, c, device=dev)
     counts = kernels.launch_counts()
     if counts != {"fused_attention_gate": GATES_PER_FORWARD * N_EVAL_BATCHES,
-                  "confusion_matrix": N_EVAL_BATCHES}:
+                  "fused_attention_gate_train": 0, "confusion_matrix": N_EVAL_BATCHES}:
         fail(f"predict-eval: launches {counts}")
     if not all(np.isfinite(v) for v in metrics.values()) or len(metrics) != 7:
         fail(f"predict-eval: metrics {metrics}")
@@ -327,13 +474,201 @@ def predict_eval(model, cfg, dev, kernels) -> dict:
     return {"launches": counts, "metrics": metrics, "valid_pixels": n_valid}
 
 
+def train_batches(cfg, n: int, batch: int, seed: int) -> list:
+    """Seeded synthetic batches in the compact wire format (uint8 img, int32
+    mask, uint16 depth), learnable: the class and the depth are functions of
+    the pixel, so the loss on a repeated batch falls as the model trains."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        img = rng.integers(0, 256, size=(batch, cfg.height, cfg.width, 3), dtype=np.uint8)
+        mask = (img[..., 0].astype(np.int32) * cfg.num_classes) // 256
+        depth = np.maximum(img[..., 1:2], 1).astype(np.uint16) * 257  # > min_depth
+        out.append({"img": torch.from_numpy(img), "mask": torch.from_numpy(mask),
+                    "depth": torch.from_numpy(depth)})
+    return out
+
+
+def grad_distance(a: dict, b: dict) -> tuple:
+    """Relative L2 distance of gradients ``a`` from ``b``: over the whole
+    gradient and per parameter, leaving out ``ZERO_GRAD``."""
+    keys = [k for k in b if not ZERO_GRAD.search(k)]
+    num = sum(float((a[k] - b[k]).square().sum()) for k in keys)
+    den = sum(float(b[k].square().sum()) for k in keys)
+    return (num / den) ** 0.5, {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in keys}
+
+
+def check_train_step_against_cpu(cfg, build_model, dev) -> dict:
+    """One train step of the same seeded full-width model at batch 2: in f32
+    on the card (kernels) and on the CPU (plain versions), held to the same
+    step in f64 on the CPU; and a control, the CPU f32 step with a gate whose
+    input and weights are rounded to bf16, which the limits must refuse."""
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.models import mtan
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
+    (batch,) = train_batches(cfg, 1, 2, seed=7)
+    cpu = torch.device("cpu")
+
+    def run(device, dtype) -> dict:
+        t0 = time.perf_counter()
+        model = build_model("mtan", cfg, dtype=dtype, device=device, seed=0).to(dtype)
+        state = create_train_state(model, LR, device=device)
+        _, _, losses = make_train_step(device=device)(
+            state, batch, init_metrics(cfg.num_classes, device)
+        )
+        return {
+            "loss": float(losses["loss"]),
+            "grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+            "bufs": {k: b.double().cpu() for k, b in model.named_buffers()},
+            "s": time.perf_counter() - t0,
+        }
+
+    gate = mtan.fused_attention_gate_train
+
+    def bf16_gate(x, shared, w1, b1, scale1, bias1, w2, *rest):
+        def r(v):  # differentiable: the gradient flows through the casts
+            return v.to(torch.bfloat16).to(v.dtype)
+
+        return gate(r(x), shared, r(w1), b1, scale1, bias1, r(w2), *rest)
+
+    witness = run(cpu, torch.float64)
+    cpu32 = run(cpu, torch.float32)
+    card = run(dev, torch.float32)
+    mtan.fused_attention_gate_train = bf16_gate
+    try:
+        control = run(cpu, torch.float32)
+    finally:
+        mtan.fused_attention_gate_train = gate
+
+    loss, want_loss = card["loss"], cpu32["loss"]
+    if not np.isfinite(loss) or abs(loss - want_loss) > 1e-4 * abs(want_loss):
+        fail(f"f32 train step: loss {loss} on the card, {want_loss} on the CPU")
+    worst_buf = 0.0
+    for k, want in cpu32["bufs"].items():
+        d = float(((card["bufs"][k] - want).abs() / want.abs().clamp(min=1.0)).max())
+        worst_buf = max(worst_buf, d)
+        if not d <= 1e-5:
+            fail(f"f32 train step: running statistic {k} off by {d}")
+    want_g = witness["grads"]
+    top = max(float(g.abs().max()) for g in want_g.values())
+    worst_zero = 0.0
+    for k in filter(ZERO_GRAD.search, want_g):  # 0 up to rounding on both f32 sides
+        zero = max(float(card["grads"][k].abs().max()), float(cpu32["grads"][k].abs().max()))
+        worst_zero = max(worst_zero, zero / top)
+        if not zero <= 1e-3 * top:
+            fail(f"f32 train step: gradient of {k} is {zero / top} of the largest, want ~0")
+    distance = {}
+    for name, r in (("cpu_f32", cpu32), ("card_f32", card), ("control", control)):
+        whole, per = grad_distance(r["grads"], want_g)
+        worst = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        within = sum(
+            float((r["grads"][k] - want_g[k]).abs().max()) <= 1e-3 * float(want_g[k].abs().max())
+            for k in per
+        )
+        distance[name] = {"rel_l2": whole, "worst_leaves": worst,
+                          "leaves_within_1e-3_of_max": within, "loss": r["loss"], "s": r["s"]}
+    whole_limit = 3 * distance["cpu_f32"]["rel_l2"]
+    leaf_limit = 3 * distance["cpu_f32"]["worst_leaves"][0][1]
+
+    def inside(name: str) -> bool:
+        d = distance[name]
+        return d["rel_l2"] <= whole_limit and d["worst_leaves"][0][1] <= leaf_limit
+
+    out = {
+        "loss_f64": witness["loss"], "loss_cpu": want_loss, "loss_card": loss,
+        "running_stats_max_err": worst_buf, "zero_grad_max_share": worst_zero,
+        "params_compared": sum(not ZERO_GRAD.search(k) for k in want_g),
+        "grad_vs_f64": distance, "rel_l2_limit": whole_limit, "leaf_limit": leaf_limit,
+        "f64_step_s": witness["s"],
+    }
+    if not inside("card_f32"):
+        fail(f"f32 train step: the card's gradients are off the f64 witness by more than "
+             f"3 times the CPU f32 step's: {json.dumps(out)}")
+    if inside("control"):
+        fail(f"f32 train step: the bf16-gate control passed the gradient limits: "
+             f"{json.dumps(out)}")
+    return out
+
+
+def train_mtan(cfg, build_model, dev, kernels) -> dict:
+    """The training path at full width: bf16 train steps at batch 8 through
+    create_train_state and make_train_step, then one make_eval_step."""
+    from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics
+    from vision_mtl_tpu_torch.train.state import create_train_state, param_count
+    from vision_mtl_tpu_torch.train.step import make_eval_step, make_train_step
+
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+    model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    state = create_train_state(model, LR, device=dev)
+    step = make_train_step(device=dev)
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, t0 = [], time.perf_counter()
+    events[0].record()
+    for i in range(n_steps):
+        state, mstate, step_losses = step(state, batches[i % TRAIN_BATCHES],
+                                          init_metrics(cfg.num_classes, dev))
+        events[i + 1].record()
+        losses.append(step_losses["loss"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {"fused_attention_gate": 0, "fused_attention_gate_train": GATES_PER_FORWARD * n_steps,
+            "confusion_matrix": n_steps}
+    if counts != want:
+        fail(f"training: launches {counts}, want {want} for {n_steps} steps")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"training: losses {losses}")
+    last_seen = n_steps - 1 - (n_steps - 1) % TRAIN_BATCHES  # last step on batch 0
+    if not losses[last_seen] < losses[0]:
+        fail(f"training: loss on batch 0 went {losses[0]} -> {losses[last_seen]}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_WARMUP, n_steps)]
+    p50 = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in compute_metrics(mstate).items()}
+
+    kernels.reset_launch_counts()
+    eval_mstate, eval_losses = make_eval_step(device=dev)(
+        state, batches[0], init_metrics(cfg.num_classes, dev)
+    )
+    eval_counts = kernels.launch_counts()
+    want_eval = {"fused_attention_gate": GATES_PER_FORWARD, "fused_attention_gate_train": 0,
+                 "confusion_matrix": 1}
+    if eval_counts != want_eval:
+        fail(f"eval step: launches {eval_counts}, want {want_eval}")
+    eval_metrics = {k: float(v) for k, v in compute_metrics(eval_mstate).items()}
+    if not all(np.isfinite(v) for v in eval_metrics.values()):
+        fail(f"eval step: metrics {eval_metrics}")
+
+    def one_step():
+        step(state, batches[0], init_metrics(cfg.num_classes, dev))
+
+    return {
+        "params": param_count(state), "steps": n_steps, "timed_steps": TRAIN_TIMED,
+        "losses": losses, "loss_batch0_first_last": [losses[0], losses[last_seen]],
+        "step_ms_p50": p50, "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "img_per_s": BATCH / p50 * 1e3, "wall_s": wall_s,
+        "max_memory_allocated_bytes": peak, "launches": counts, "last_step_metrics": metrics,
+        "eval_step": {"launches": eval_counts, "metrics": eval_metrics,
+                      "loss": float(eval_losses["loss"])},
+        "profile_one_step": profile_device(one_step, 2),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
-    from vision_mtl_tpu_torch.kernels import confmat, fused_gate
+    from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train
     from vision_mtl_tpu_torch.models.registry import build_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -351,6 +686,8 @@ def main() -> int:
 
     gate_rows, gate = check_gate(dev, fused_gate)
     print(json.dumps({"gate_shapes": gate_rows}), flush=True)
+    gate_train_rows, gate_train = check_gate_train(dev, fused_gate_train)
+    print(json.dumps({"gate_train_shapes": gate_train_rows}), flush=True)
     cmat = check_confmat(dev, confmat, 19)
 
     cfg = fetch_data_cfg("cityscapes")
@@ -365,12 +702,29 @@ def main() -> int:
         "reference_f32_vs_cpu": reference, "serving": serving,
         "predictor_8": timing, "predict_eval": evaluation,
         "gate_share_of_forward_events": gate["ms"] / timing["forward_events_ms"],
-        "build_s": build_s, "total_s": time.perf_counter() - t_start,
+        "build_s": build_s,
     }
     print(json.dumps({"model": model_line}), flush=True)
+    del model
+
+    train_reference = check_train_step_against_cpu(cfg, build_model, dev)
+    training = train_mtan(cfg, build_model, dev, kernels)
+    train_line = {
+        "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
+        "reference_f32_step_vs_cpu": train_reference, **training,
+        "gate_train_ms_per_step": gate_train["ms"],
+        "gate_train_bound_ms_per_step": gate_train["bound_ms"],
+        "gate_train_bound_three_passes_ms_per_step": gate_train["bound_three_passes_ms"],
+        "gate_train_backward_ms_per_step": gate_train["backward_ms"],
+        "gate_train_share_of_step_events": gate_train["ms"] / training["step_ms_p50"],
+        "total_s": time.perf_counter() - t_start,
+    }
+    print(json.dumps({"train": train_line}), flush=True)
 
     launches = {
-        name: serving["launches"][name] + timing["launches"][name] + evaluation["launches"][name]
+        name: serving["launches"][name] + timing["launches"][name]
+        + evaluation["launches"][name] + training["launches"][name]
+        + training["eval_step"]["launches"][name]
         for name in kernels.KERNELS
     }
     kernel_line = {"kernels": [
@@ -381,6 +735,15 @@ def main() -> int:
             "launches": launches["fused_attention_gate"], "max_abs_err": gate["err"],
             "ms": gate["ms"], "plain_ms": gate["plain_ms"], "bound_ms": gate["bound_ms"],
             "bound_by": gate["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "fused_attention_gate_train", "route": "cuda",
+            "source": "vision_mtl_tpu_torch/csrc/fused_gate.cu",
+            "replaces": "vision_mtl_tpu/ops/pallas/fused_gate.py:240,279",
+            "launches": launches["fused_attention_gate_train"], "max_abs_err": gate_train["err"],
+            "ms": gate_train["ms"], "plain_ms": gate_train["plain_ms"],
+            "bound_ms": gate_train["bound_ms"], "bound_by": gate_train["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "confusion_matrix", "route": "cuda",

@@ -1,14 +1,16 @@
 """The CUDA kernels against their plain versions at ragged and edge shapes.
 
 These need a CUDA card (and nvcc to build the kernels) and skip without one;
-run them on the card with ``python -m pytest tests/test_torch_cuda.py``.
+run them on the card with ``python -m pytest --noconftest
+tests/test_torch_cuda.py`` (the suite's conftest imports JAX, which the
+card's machine need not have).
 ``chip_smoke.py`` covers the full-width shapes of the main path.
 """
 
 import pytest
 import torch
 
-from vision_mtl_tpu_torch.kernels import confmat, fused_gate
+from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train
 
 
 @pytest.fixture
@@ -93,3 +95,105 @@ def test_confmat_counts_past_f32_integer_range(cuda):
     torch.cuda.synchronize()
     assert float(got[0, 0]) == float((1 << 24) + 4)
     assert float(got[1, 1]) == 0.0
+
+
+def _train_gate_args(dev, dtype, b, h, w, cin, hidden, c2, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (
+        torch.randn(b, h, w, cin, generator=g, device=dev).to(dtype),
+        torch.randn(b, h, w, c2, generator=g, device=dev).to(dtype),
+        torch.randn(cin, hidden, generator=g, device=dev) * 0.3,
+        torch.randn(hidden, generator=g, device=dev),
+        torch.rand(hidden, generator=g, device=dev) + 0.5,
+        torch.randn(hidden, generator=g, device=dev) * 0.3,
+        torch.randn(hidden, c2, generator=g, device=dev) * 0.3,
+        torch.randn(c2, generator=g, device=dev),
+        torch.rand(c2, generator=g, device=dev) + 0.5,
+        torch.randn(c2, generator=g, device=dev) * 0.3,
+    )
+
+
+def _assert_train_gate_close(got, want):
+    out, *stats = got
+    ref, *ref_stats = want
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        assert float(diff.max()) <= 1e-4
+    else:  # one bf16 rounding step of the f32 result
+        assert bool((diff <= ref.float().abs() * 2**-7 + 1e-6).all())
+    for s, r in zip(stats, ref_stats):  # the plain version sums in f64
+        assert s.dtype == torch.float32
+        assert bool(((s - r).abs() <= 1e-5 * r.abs() + 1e-6).all())
+
+
+# ragged N against the 32-row tile and, at N = 9514, against the statistics
+# passes' 264 blocks (several tiles a block); Cin below / across the 32-wide
+# chunk; hidden 8 and 128, C2 4 and 512
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 5, 7, 3, 8, 4),
+        (2, 9, 13, 33, 128, 12),
+        (1, 31, 1, 640, 128, 256),
+        (3, 3, 11, 64, 8, 512),
+        (2, 67, 71, 20, 16, 12),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_kernel_matches_plain(cuda, shape, dtype):
+    args = _train_gate_args(cuda, dtype, *shape)
+    before = fused_gate_train.launches.value
+    got = fused_gate_train.fused_attention_gate_train(*args)
+    again = fused_gate_train.fused_attention_gate_train(*args)
+    want = fused_gate_train.fused_attention_gate_train_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_gate_train.launches.value == before + 2
+    assert got[0].dtype == dtype and got[0].shape == want[0].shape
+    _assert_train_gate_close(got, want)
+    for a, b in zip(got, again):  # the sums run in a fixed order
+        assert torch.equal(a, b)
+
+
+def test_train_gate_variance_of_an_offset_channel(cuda):
+    """A channel whose mean is 1000 times its spread, over 262,144 rows:
+    E[h^2] - E[h]^2 in f32 would lose the variance; the kernel's stays within
+    1e-4 of an f64 reference computed from the same inputs."""
+    args = list(_train_gate_args(cuda, torch.float32, 8, 128, 256, 3, 8, 4))
+    args[3][0] = 1000.0  # b1 of channel 0
+    args[7][1] = -500.0  # b2 of channel 1
+    _, mean1, var1, mean2, var2 = fused_gate_train.fused_attention_gate_train(*args)
+    ref = fused_gate_train.fused_attention_gate_train_plain(*(a.double() for a in args))
+    for got, want in zip((mean1, var1, mean2, var2), ref[1:]):
+        assert bool(((got.double() - want).abs() <= 1e-4 * want.abs() + 1e-6).all())
+
+
+def test_train_gate_backward_matches_cpu(cuda):
+    """The Function's gradients on the card (kernel forward) against the CPU
+    (plain forward), all ten inputs."""
+    args = _train_gate_args(cuda, torch.float32, 2, 17, 9, 40, 16, 24)
+    cot = torch.randn(2, 17, 9, 24, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_() for a in args]
+        out = fused_gate_train.fused_attention_gate_train(*leaves)[0]
+        (out * cot.to(dev)).sum().backward()
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    top = max(float(g.abs().max()) for g in grads[1])
+    for i, (got, want) in enumerate(zip(*grads)):
+        if i in (3, 7):  # b1, b2: 0 up to rounding, as a batch-statistic BN follows
+            assert max(float(got.abs().max()), float(want.abs().max())) <= 1e-4 * top
+        else:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
+
+
+def test_train_gate_kernel_rejects_what_it_does_not_take(cuda):
+    args = list(_train_gate_args(cuda, torch.float32, 1, 4, 4, 3, 8, 4))
+    with pytest.raises(TypeError):
+        fused_gate_train.fused_attention_gate_train(args[0].half(), args[1].half(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gate_train.fused_attention_gate_train(args[0].transpose(1, 2), *args[1:])
+    bad = _train_gate_args(cuda, torch.float32, 1, 4, 4, 3, 6, 4)  # hidden 6
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fused_gate_train.fused_attention_gate_train(*bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_gate_train.fused_attention_gate_train(args[0], args[1].cpu(), *args[2:])

@@ -98,12 +98,6 @@ def test_gatechain_eval_matches_jax(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_gatechain_train_mode_raises():
-    gc = GateChain(3, 8, 4)  # a fresh nn.Module is in training mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gc(torch.zeros(1, 2, 2, 3), torch.zeros(1, 2, 2, 4))
-
-
 def test_kernel_wrapper_never_falls_back():
     """A tensor that is not on the CPU never reaches the plain version: the
     wrapper checks it for the kernel and raises."""

@@ -14,10 +14,13 @@ import torch
 
 import vision_mtl_tpu_torch
 from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+from vision_mtl_tpu_torch.kernels import fused_gate_train
 from vision_mtl_tpu_torch.metrics import init_metrics
 from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.predict import predict
 from vision_mtl_tpu_torch.serving import BatchingServer, Predictor
+from vision_mtl_tpu_torch.train.state import create_train_state
+from vision_mtl_tpu_torch.train.step import make_eval_step, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -33,7 +36,9 @@ def _port_modules():
 
 def test_port_imports_nothing_of_jax():
     modules = _port_modules()
-    assert "vision_mtl_tpu_torch.serve" in modules and len(modules) >= 15
+    assert "vision_mtl_tpu_torch.serve" in modules and len(modules) >= 17
+    assert "vision_mtl_tpu_torch.train.state" in modules
+    assert "vision_mtl_tpu_torch.kernels.fused_gate_train" in modules
     code = textwrap.dedent(
         f"""
         import importlib, runpy, sys
@@ -78,3 +83,34 @@ def test_predictor_rejects_a_model_elsewhere():
         Predictor(model, 1, cfg.height, cfg.width, device="meta")
     with pytest.raises(ValueError, match="eval"):
         Predictor(model.train(), 1, cfg.height, cfg.width, device="cpu")
+
+
+def test_train_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model("mtan", fetch_data_cfg("synthetic"), dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(model, 1e-3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_eval_step()
+    state = create_train_state(model, 1e-3, device="cpu")
+    assert model.training and not build_model(
+        "mtan", fetch_data_cfg("synthetic"), dtype=torch.float32, device="cpu"
+    ).training
+    make_train_step(device="cpu")
+    make_eval_step(device="cpu")
+
+
+def test_train_gate_wrapper_never_falls_back():
+    """A tensor that is not on the CPU never reaches the plain version of the
+    train-mode gate: the wrapper checks it for the kernel and raises."""
+    def meta(*shape):
+        return torch.empty(*shape, device="meta")
+
+    args = (meta(1, 2, 2, 3), meta(1, 2, 2, 4), meta(3, 8), meta(8), meta(8), meta(8),
+            meta(8, 4), meta(4), meta(4), meta(4))
+    before = fused_gate_train.launches.value
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_gate_train.fused_attention_gate_train(*args)
+    assert fused_gate_train.launches.value == before

@@ -1,24 +1,25 @@
 """Hand-written CUDA kernels for Hopper, one module each, beside their plain
 PyTorch versions. ``KERNELS`` maps each kernel's name to its module, whose
-``SOURCE`` names its ``csrc/<SOURCE>.cu`` and whose ``launches`` counter the
-wrapper bumps once per launch."""
+``SOURCE`` names its ``csrc/<SOURCE>.cu`` (two kernels may share one source)
+and whose ``launches`` counter the wrapper bumps once per launch."""
 
 from __future__ import annotations
 
 import typing as t
 
-from vision_mtl_tpu_torch.kernels import confmat, fused_gate
+from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train
 from vision_mtl_tpu_torch.kernels._build import build
 
 KERNELS = {
     "fused_attention_gate": fused_gate,
+    "fused_attention_gate_train": fused_gate_train,
     "confusion_matrix": confmat,
 }
 
 
 def build_all() -> None:
     """Compile every kernel in parallel (one nvcc per source)."""
-    build(mod.SOURCE for mod in KERNELS.values())
+    build(sorted({mod.SOURCE for mod in KERNELS.values()}))
 
 
 def reset_launch_counts() -> None:

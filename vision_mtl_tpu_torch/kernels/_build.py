@@ -99,15 +99,18 @@ def build(names: t.Iterable[str]) -> t.List[Path]:
     return [library_path(name) for name in names]
 
 
-def load(name: str, symbol: str, signature: t.Sequence[t.Any]) -> t.Callable[..., int]:
+def load(
+    name: str, symbol: str, signature: t.Sequence[t.Any], restype: t.Any = ctypes.c_int
+) -> t.Callable[..., int]:
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, built on first
-    use; ``signature`` gives its ctypes argument types."""
+    use; ``signature`` gives its ctypes argument types, ``restype`` its
+    result type."""
     with _lock:
         fn = _fns.get(symbol)
         if fn is None:
             (path,) = build([name])
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = list(signature)
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _fns[symbol] = fn
     return fn

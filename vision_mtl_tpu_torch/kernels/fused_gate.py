@@ -108,44 +108,59 @@ def fused_attention_gate(
 
 
 def _check(x, shared, w1, c1, w2, c2) -> None:
-    tensors = {"x": x, "shared": shared, "w1": w1, "c1": c1, "w2": w2, "c2": c2}
-    for name, v in tensors.items():
+    check_gate_args("fused_attention_gate", x, shared, w1, w2, {"c1": c1}, {"c2": c2})
+
+
+def check_gate_args(
+    kernel: str,
+    x: torch.Tensor,
+    shared: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    vectors1: t.Dict[str, torch.Tensor],
+    vectors2: t.Dict[str, torch.Tensor],
+) -> None:
+    """Raises unless the tensors fit a gate kernel: all CUDA on one device
+    and contiguous; x and shared NHWC with the same B, H, W, both float32 or
+    both bfloat16; float32 weights w1 (Cin, hidden), w2 (hidden, C2), the
+    named (hidden,) ``vectors1`` and (C2,) ``vectors2``; hidden and C2
+    multiples of 4 up to MAX_HIDDEN and MAX_C2."""
+    weights = {"w1": w1, "w2": w2, **vectors1, **vectors2}
+    for name, v in {"x": x, "shared": shared, **weights}.items():
         if v.device != x.device or v.device.type != "cuda":
             raise ValueError(
-                f"fused_attention_gate: {name} is on {v.device}; the kernel "
-                f"takes CUDA tensors on one device (x is on {x.device})"
+                f"{kernel}: {name} is on {v.device}; the kernel takes CUDA "
+                f"tensors on one device (x is on {x.device})"
             )
         if not v.is_contiguous():
-            raise ValueError(f"fused_attention_gate: {name} is not contiguous")
+            raise ValueError(f"{kernel}: {name} is not contiguous")
     if x.dtype not in (torch.float32, torch.bfloat16) or shared.dtype != x.dtype:
         raise TypeError(
-            "fused_attention_gate: x and shared must both be float32 or both "
-            f"bfloat16, got {x.dtype} and {shared.dtype}"
+            f"{kernel}: x and shared must both be float32 or both bfloat16, got "
+            f"{x.dtype} and {shared.dtype}"
         )
-    for name in ("w1", "c1", "w2", "c2"):
-        if tensors[name].dtype != torch.float32:
-            raise TypeError(f"fused_attention_gate: {name} must be float32")
+    for name, v in weights.items():
+        if v.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} must be float32")
     if x.dim() != 4 or shared.dim() != 4 or x.shape[:3] != shared.shape[:3]:
         raise ValueError(
-            f"fused_attention_gate: x {tuple(x.shape)} and shared "
-            f"{tuple(shared.shape)} must be NHWC with the same B, H, W"
+            f"{kernel}: x {tuple(x.shape)} and shared {tuple(shared.shape)} must "
+            "be NHWC with the same B, H, W"
         )
     cin, c2ch = x.shape[-1], shared.shape[-1]
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
-    if (
-        w1.shape != (cin, hidden)
-        or c1.shape != (hidden,)
-        or w2.shape != (hidden, c2ch)
-        or c2.shape != (c2ch,)
-    ):
-        raise ValueError(
-            f"fused_attention_gate: weight shapes w1 {tuple(w1.shape)}, c1 "
-            f"{tuple(c1.shape)}, w2 {tuple(w2.shape)}, c2 {tuple(c2.shape)} do "
-            f"not fit Cin={cin}, C2={c2ch}"
-        )
+    shapes = {"w1": (cin, hidden), "w2": (hidden, c2ch)}
+    shapes.update({name: (hidden,) for name in vectors1})
+    shapes.update({name: (c2ch,) for name in vectors2})
+    for name, shape in shapes.items():
+        if tuple(weights[name].shape) != shape:
+            raise ValueError(
+                f"{kernel}: {name} {tuple(weights[name].shape)} does not fit "
+                f"Cin={cin}, hidden={hidden}, C2={c2ch}"
+            )
     if hidden % 4 or not 0 < hidden <= MAX_HIDDEN or c2ch % 4 or not 0 < c2ch <= MAX_C2:
         raise ValueError(
-            f"fused_attention_gate: the kernel takes hidden and C2 that are "
-            f"multiples of 4, hidden <= {MAX_HIDDEN} and C2 <= {MAX_C2}; got "
-            f"hidden={hidden}, C2={c2ch}"
+            f"{kernel}: the kernel takes hidden and C2 that are multiples of 4, "
+            f"hidden <= {MAX_HIDDEN} and C2 <= {MAX_C2}; got hidden={hidden}, "
+            f"C2={c2ch}"
         )

@@ -6,7 +6,7 @@
     pixels, g = log(pred) - log(target), mask = target > min_depth AND valid.
   * Combined: w_segm * CE + w_depth * SILog.
 
-All math is f32 whatever the logits' dtype.
+All math is f32 for bf16 and f32 inputs, and f64 for f64 inputs.
 """
 
 from __future__ import annotations
@@ -14,6 +14,10 @@ from __future__ import annotations
 import typing as t
 
 import torch
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def cross_entropy_loss(
@@ -29,7 +33,7 @@ def cross_entropy_loss(
       valid: optional (B,) per-sample weights; the mean is taken over valid
         samples only.
     """
-    logits = logits.float()
+    logits = logits.to(_at_least_f32(logits))
     c = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
@@ -60,8 +64,8 @@ def silog_loss(
       mask: optional boolean validity mask; defaults to target > min_depth.
       valid: optional (B,) per-sample weights, AND-ed into the mask.
     """
-    pred = pred.float()
-    target = target.float()
+    pred = pred.to(_at_least_f32(pred))
+    target = target.to(pred.dtype)
     if mask is None:
         mask = target > min_depth
     if valid is not None:

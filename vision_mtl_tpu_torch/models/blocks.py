@@ -1,4 +1,4 @@
-"""Shared NHWC building blocks, eval semantics (counterpart of
+"""Shared NHWC building blocks (counterpart of
 ``vision_mtl_tpu/models/blocks.py``).
 
 Every block takes and returns NHWC tensors. PyTorch's convolutions and
@@ -8,22 +8,56 @@ and costs no copy. Parameters and BN statistics are float32; convolutions
 compute in the block's ``dtype`` (bfloat16 by default), BN computes in f32
 and returns its input's dtype, as in the JAX package.
 
-Only eval mode is ported: a block in training mode raises.
+``module.train()`` and ``module.eval()`` switch BatchNorm between batch and
+running statistics, as the JAX package's ``train`` argument does.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import typing as t
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-TRAIN_MODE_NOT_PORTED = (
-    "train mode is not ported yet: see ROADMAP.md, queue A, item 2 "
-    "(MTAN training); call .eval() for inference"
-)
+#: When True, the running-variance update of every train-mode BatchNorm
+#: (and of the attention gate's BNs) uses torch's UNBIASED n/(n-1) batch
+#: variance instead of flax's biased one; normalisation uses the biased
+#: variance either way. Off by default (flax semantics, as in the JAX
+#: package); VMTL_TORCH_BN_VAR=1 or set_torch_bn_running_var() turns it on.
+#: Read at every train-mode forward.
+_TORCH_BN_VAR = os.environ.get("VMTL_TORCH_BN_VAR", "0") == "1"
+#: fraction of a running statistic retained per train-mode step (flax's
+#: momentum 0.9 == torch's 0.1)
+MOMENTUM = 0.9
+
+
+def set_torch_bn_running_var(enabled: bool) -> None:
+    global _TORCH_BN_VAR
+    _TORCH_BN_VAR = bool(enabled)
+
+
+def torch_bn_running_var() -> bool:
+    return _TORCH_BN_VAR
+
+
+def update_running_stats(
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    n: int,
+) -> None:
+    """flax's running-statistics update in place, retaining ``MOMENTUM``.
+    ``var`` is the biased batch variance over ``n`` rows; under the
+    torch-running-var switch it is scaled to the unbiased one first."""
+    with torch.no_grad():
+        if _TORCH_BN_VAR:
+            var = var * (n / max(n - 1, 1))
+        running_mean.mul_(MOMENTUM).add_(mean.float(), alpha=1.0 - MOMENTUM)
+        running_var.mul_(MOMENTUM).add_(var.float(), alpha=1.0 - MOMENTUM)
 
 
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +133,16 @@ class ConvTranspose(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with the running statistics, eps 1e-5."""
+    """BatchNorm over NHWC channels, eps 1e-5, statistics in f32, output in
+    the input's dtype.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch mean and biased variance and then updates the running
+    statistics as flax does (:func:`update_running_stats`).
+    ``F.batch_norm`` is not given the running buffers in train mode: it would
+    update them with torch's momentum and unbiased variance whatever the
+    switch says.
+    """
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -110,11 +153,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(TRAIN_MODE_NOT_PORTED)
-        y = F.batch_norm(
-            _to_nchw(x), self.running_mean, self.running_var,
-            self.weight, self.bias, False, 0.0, self.eps,
+        if not self.training:
+            y = F.batch_norm(
+                _to_nchw(x), self.running_mean, self.running_var,
+                self.weight, self.bias, False, 0.0, self.eps,
+            )
+            return _to_nhwc(y)
+        # native_batch_norm returns the batch mean and 1/sqrt(var + eps)
+        # it normalised with; its backward differentiates through both
+        y, mean, invstd = torch.native_batch_norm(
+            _to_nchw(x), self.weight, self.bias, None, None, True, 0.0, self.eps
+        )
+        var = invstd.detach().double().pow(-2).sub(self.eps).clamp(min=0.0)
+        update_running_stats(
+            self.running_mean, self.running_var, mean.detach(), var, x.numel() // x.shape[-1]
         )
         return _to_nhwc(y)
 

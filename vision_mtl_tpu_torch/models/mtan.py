@@ -1,4 +1,4 @@
-"""MTAN — Multi-Task Attention Network on a mini-Unet global net, eval mode
+"""MTAN — Multi-Task Attention Network on a mini-Unet global net
 (counterpart of ``vision_mtl_tpu/models/mtan.py``, unfolded tasks).
 
 A shared mini-Unet "global" network with per-task attention streams beside
@@ -7,9 +7,11 @@ input, previous task features) and modulates the shared DoubleConv output;
 per decoder level the gate is computed from the merged skip features and
 the upsampled task stream. Task heads are 1x1 convs on the final streams.
 
-Every gate runs through the fused CUDA kernel (``kernels/fused_gate.py``):
-16 launches per forward at the trained config (4 encoder + 4 decoder
-levels, 2 tasks). Submodule names are the flax names, so
+Every gate runs through a fused CUDA kernel, 16 launches per forward at the
+trained config (4 encoder + 4 decoder levels, 2 tasks): in eval mode the
+folded-BN gate (``kernels/fused_gate.py``), in train mode the three-pass
+batch-statistic gate (``kernels/fused_gate_train.py``). ``model.train()`` and
+``model.eval()`` switch every block. Submodule names are the flax names, so
 ``weights.load_jax_variables`` can walk both trees side by side.
 """
 
@@ -22,21 +24,28 @@ import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.kernels.fused_gate import fold_bn, fused_attention_gate
+from vision_mtl_tpu_torch.kernels.fused_gate_train import fused_attention_gate_train
 from vision_mtl_tpu_torch.models.blocks import (
-    TRAIN_MODE_NOT_PORTED,
     BatchNorm,
     Conv,
     ConvTranspose,
     DoubleConv,
     init_weights,
     max_pool_2x,
+    update_running_stats,
 )
 from vision_mtl_tpu_torch.ops.interpolate import pad_concat, resize_bilinear_align_corners
 
 
 class GateChain(nn.Module):
-    """``shared * sigmoid(BN2(conv1x1(relu(BN1(conv1x1(x))))))`` with both
-    BNs folded into the 1x1 weights, computed by the fused gate kernel."""
+    """``shared * sigmoid(BN2(conv1x1(relu(BN1(conv1x1(x))))))``.
+
+    Eval mode folds both BNs' running statistics into the 1x1 weights and
+    runs the fused gate kernel. Train mode runs the three-pass kernel, which
+    normalises with the batch statistics, and then updates the running
+    statistics from them as the JAX GateChain does (retain 0.9, and the
+    n/(n-1) correction under the torch-running-var switch).
+    """
 
     def __init__(self, in_ch: int, hidden: int, gate_features: int, eps: float = 1e-5):
         super().__init__()
@@ -62,13 +71,20 @@ class GateChain(nn.Module):
                 b.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor, shared: torch.Tensor) -> torch.Tensor:
+        x = x.to(shared.dtype).contiguous()
+        shared = shared.contiguous()
         if self.training:
-            raise NotImplementedError(TRAIN_MODE_NOT_PORTED)
+            out, mean1, var1, mean2, var2 = fused_attention_gate_train(
+                x, shared, self.w1, self.b1, self.scale1, self.bias1,
+                self.w2, self.b2, self.scale2, self.bias2, self.eps,
+            )
+            n = x.numel() // x.shape[-1]
+            update_running_stats(self.mean1, self.var1, mean1, var1, n)
+            update_running_stats(self.mean2, self.var2, mean2, var2, n)
+            return out
         s1, c1 = fold_bn(self.b1, self.scale1, self.bias1, self.mean1, self.var1, self.eps)
         s2, c2 = fold_bn(self.b2, self.scale2, self.bias2, self.mean2, self.var2, self.eps)
-        return fused_attention_gate(
-            x.to(shared.dtype).contiguous(), shared.contiguous(), self.w1 * s1, c1, self.w2 * s2, c2
-        )
+        return fused_attention_gate(x, shared, self.w1 * s1, c1, self.w2 * s2, c2)
 
 
 class AttentionModuleEncoder(nn.Module):
@@ -142,7 +158,7 @@ class MTANMiniUnet(nn.Module):
     """Mini-Unet global net + per-task attention streams. Input NHWC; output
     ``{task: (B, H, W, channels)}`` in ``dtype``.
 
-    Built in eval mode with fresh weights from ``seed``; train mode raises.
+    Built in eval mode with fresh weights from ``seed``.
     """
 
     def __init__(

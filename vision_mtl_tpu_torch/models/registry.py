@@ -23,7 +23,8 @@ def build_model(
     seed: int = 0,
 ) -> nn.Module:
     """The named model in eval mode on ``device``, with fresh weights drawn
-    from ``seed``; raises if ``device`` is CUDA and no card is present."""
+    from ``seed``; raises if ``device`` is CUDA and no card is present.
+    ``train.state.create_train_state`` switches it to train mode."""
     dev = resolve_device(device)
     if model_name == "mtan":
         from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet

@@ -14,12 +14,12 @@ import torch.nn.functional as F
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize with align_corners=True, NHWC, to exactly
-    ``(out_h, out_w)``; computed in f32, returned in x's dtype."""
+    ``(out_h, out_w)``; computed in f32 (f64 for f64), returned in x's dtype."""
     _, h, w, _ = x.shape
     if h == out_h and w == out_w:
         return x
     y = F.interpolate(
-        x.permute(0, 3, 1, 2).float(),
+        x.permute(0, 3, 1, 2).to(torch.promote_types(x.dtype, torch.float32)),
         size=(out_h, out_w),
         mode="bilinear",
         align_corners=True,

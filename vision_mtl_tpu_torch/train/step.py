@@ -1,22 +1,31 @@
-"""Inference steps (counterpart of the predict part of
+"""Train, eval and predict steps (counterpart of
 ``vision_mtl_tpu/train/step.py``).
 
-A step is a plain function over tensors already on the model's device; the
-model carries its own weights. Steps run under ``torch.inference_mode`` and
-return without synchronising: reading a result on the host is the sync.
+A step is a plain function over tensors; the model carries its own weights
+and BatchNorm statistics, the train state its optimizer. The train step is
+decode -> train-mode forward -> postprocess -> losses -> backward -> Adam
+step -> metric update; it runs with autograd on. The eval and predict steps
+run under ``torch.inference_mode``. Each step sets the model's mode for its
+own forward and restores it after. Steps return without synchronising:
+reading a result on the host is the sync.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import typing as t
 
 import torch
 from torch import nn
 
+from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.losses import mtl_loss
 from vision_mtl_tpu_torch.metrics import MetricState, update_metrics
+from vision_mtl_tpu_torch.train.state import TrainState
 
 Batch = t.Dict[str, torch.Tensor]
+Losses = t.Dict[str, torch.Tensor]
 
 
 def decode_batch(batch: Batch) -> Batch:
@@ -32,13 +41,17 @@ def decode_batch(batch: Batch) -> Batch:
     return out
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def postprocess_raw_out(out: t.Dict[str, torch.Tensor]) -> t.Dict[str, torch.Tensor]:
-    """argmax for segm (int32), sigmoid in f32 for depth."""
+    """argmax for segm (int32), sigmoid in f32 (f64 for f64) for depth."""
     segm_logits = out["segm"]
     return {
         "segm_logits": segm_logits,
         "segm_predictions": torch.argmax(segm_logits, dim=-1).to(torch.int32),
-        "depth_predictions": torch.sigmoid(out["depth"].float()),
+        "depth_predictions": torch.sigmoid(out["depth"].to(_at_least_f32(out["depth"]))),
     }
 
 
@@ -56,11 +69,35 @@ def make_predict_step(model: nn.Module) -> t.Callable[[torch.Tensor], Batch]:
     return step
 
 
+def _losses(post: Batch, batch: Batch, loss_segm_weight: float, loss_depth_weight: float) -> Losses:
+    return mtl_loss(
+        post["segm_logits"],
+        post["depth_predictions"],
+        batch["mask"],
+        batch["depth"],
+        loss_segm_weight,
+        loss_depth_weight,
+        valid=batch.get("valid"),
+    )
+
+
+def _update(mstate: MetricState, post: Batch, batch: Batch, losses: Losses) -> MetricState:
+    return update_metrics(
+        mstate,
+        post["segm_predictions"],
+        batch["mask"],
+        post["depth_predictions"],
+        batch["depth"],
+        losses,
+        valid=batch.get("valid"),
+    )
+
+
 def make_predict_eval_step(
     model: nn.Module,
     loss_segm_weight: float = 1.0,
     loss_depth_weight: float = 1.0,
-) -> t.Callable[[Batch, MetricState], t.Tuple[Batch, MetricState, t.Dict[str, torch.Tensor]]]:
+) -> t.Callable[[Batch, MetricState], t.Tuple[Batch, MetricState, Losses]]:
     """Returns ``step(batch, mstate) -> (preds, mstate, losses)``: one pass
     that returns predictions and, when the batch has ground truth ("mask"
     and "depth"), its losses and the metric state updated with it."""
@@ -72,25 +109,114 @@ def make_predict_eval_step(
         preds = {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
         if "mask" not in batch or "depth" not in batch:
             return preds, mstate, {}
-        valid = batch.get("valid")
-        losses = mtl_loss(
-            post["segm_logits"],
-            post["depth_predictions"],
-            batch["mask"],
-            batch["depth"],
-            loss_segm_weight,
-            loss_depth_weight,
-            valid=valid,
-        )
-        mstate = update_metrics(
-            mstate,
-            post["segm_predictions"],
-            batch["mask"],
-            post["depth_predictions"],
-            batch["depth"],
-            losses,
-            valid=valid,
-        )
-        return preds, mstate, losses
+        losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)
+        return preds, _update(mstate, post, batch, losses), losses
+
+    return step
+
+
+@contextlib.contextmanager
+def _mode(model: nn.Module, train: bool) -> t.Iterator[None]:
+    was = model.training
+    model.train(train)
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def _to_device(batch: Batch, dev: torch.device) -> Batch:
+    return decode_batch({k: v.to(dev, non_blocking=True) for k, v in batch.items()})
+
+
+def make_train_step(
+    loss_segm_weight: float = 1.0,
+    loss_depth_weight: float = 1.0,
+    grad_accum_steps: int = 1,
+    device: t.Union[str, torch.device] = "cuda",
+) -> t.Callable[[TrainState, Batch, MetricState], t.Tuple[TrainState, MetricState, Losses]]:
+    """Returns ``step(state, batch, mstate) -> (state, mstate, losses)``: one
+    optimizer step of ``state.model`` on the batch, moved to ``device`` first
+    (where ``create_train_state`` put the model). The model and the optimizer
+    are updated in place; ``losses`` are detached scalars.
+
+    ``grad_accum_steps > 1`` runs the batch as that many microbatches in
+    turn, as the JAX step's scan does: BatchNorm statistics are per
+    microbatch (ghost BN) and the running statistics chain from one
+    microbatch to the next; gradients and losses are averaged; the metric
+    state counts one step, with the loss sums corrected to add the averages.
+    The SILog depth loss is not linear in the batch, so the accumulated loss
+    differs from the full-batch one.
+    """
+    dev = resolve_device(device)
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+
+    def micro(model: nn.Module, mb: Batch, mstate: MetricState) -> t.Tuple[Losses, MetricState]:
+        post = postprocess_raw_out(model(mb["img"]))
+        losses = _losses(post, mb, loss_segm_weight, loss_depth_weight)
+        (losses["loss"] / grad_accum_steps).backward()
+        with torch.no_grad():  # the metric state keeps no graph alive
+            losses = {k: v.detach() for k, v in losses.items()}
+            return losses, _update(mstate, post, mb, losses)
+
+    def step(state: TrainState, batch: Batch, mstate: MetricState):
+        batch = _to_device(batch, dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        with _mode(state.model, True):
+            if grad_accum_steps == 1:
+                losses, mstate = micro(state.model, batch, mstate)
+            else:
+                bs = batch["img"].shape[0]
+                if bs % grad_accum_steps:
+                    raise ValueError(
+                        f"batch size {bs} is not a multiple of grad_accum_steps "
+                        f"{grad_accum_steps}"
+                    )
+                k = grad_accum_steps
+                sums: Losses = {}
+                for mb in _split(batch, k):
+                    mlosses, mstate = micro(state.model, mb, mstate)
+                    sums = {name: sums.get(name, 0.0) + v for name, v in mlosses.items()}
+                losses = {name: v / k for name, v in sums.items()}
+                # the microbatches counted k steps and added k losses: make
+                # that one step that added the average (every key of
+                # mtl_loss is corrected here)
+                mstate = dataclasses.replace(
+                    mstate,
+                    num_steps=mstate.num_steps - (k - 1),
+                    loss_sum=mstate.loss_sum - losses["loss"] * (k - 1),
+                    loss_segm_sum=mstate.loss_segm_sum - losses["loss_segm"] * (k - 1),
+                    loss_depth_sum=mstate.loss_depth_sum - losses["loss_depth"] * (k - 1),
+                )
+        state.optimizer.step()
+        state.step += 1
+        return state, mstate, losses
+
+    return step
+
+
+def _split(batch: Batch, k: int) -> t.List[Batch]:
+    chunks = {name: v.chunk(k) for name, v in batch.items()}
+    return [{name: c[i] for name, c in chunks.items()} for i in range(k)]
+
+
+def make_eval_step(
+    loss_segm_weight: float = 1.0,
+    loss_depth_weight: float = 1.0,
+    device: t.Union[str, torch.device] = "cuda",
+) -> t.Callable[[TrainState, Batch, MetricState], t.Tuple[MetricState, Losses]]:
+    """Returns ``step(state, batch, mstate) -> (mstate, losses)``: an
+    eval-mode forward of ``state.model`` (running statistics) with losses and
+    the metric update, under ``torch.inference_mode``."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def step(state: TrainState, batch: Batch, mstate: MetricState):
+        batch = _to_device(batch, dev)
+        with _mode(state.model, False):
+            post = postprocess_raw_out(state.model(batch["img"]))
+        losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)
+        return _update(mstate, post, batch, losses), losses
 
     return step
