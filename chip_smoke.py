@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``vision_mtl_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the shapes of MTAN's main
-paths, then drives those paths at the trained width (Cityscapes 128x256, 19
-classes, seeded random weights): serving (a ``BatchingServer`` answering
-concurrent requests, a timed ``Predictor(8)``), a predict-eval sweep with
-metrics, and training (``create_train_state`` + ``make_train_step`` for a
-few warm-up and timed bf16 steps at batch 8, then one ``make_eval_step``).
-The launch counters, set to 0 before each path and read after it, show
-that each path went through its kernels. Any mismatch or error ends the run
-with a non-zero exit; without a CUDA card it exits 2 and prints no result.
+holds each against its plain PyTorch version at the shapes of the main
+paths, then drives those paths for both ported models at their trained
+widths (Cityscapes 128x256, 19 classes, seeded random weights). MTAN:
+serving (a ``BatchingServer`` answering concurrent requests, a timed
+``Predictor(8)``), a predict-eval sweep with metrics, and training
+(``create_train_state`` + ``make_train_step`` for a few warm-up and timed
+bf16 steps at batch 8, then one ``make_eval_step``). The basic model
+(MobileNetV3 + Unet): a timed ``Predictor(8)``, the predict-eval sweep and
+the same training. The launch counters, set to 0 before each path and read
+after it, show that each path went through its kernels (exact counts per
+forward and per train step). Any mismatch or error ends the run with a
+non-zero exit; without a CUDA card it exits 2 and prints no result.
 
 Tolerances, kernel against plain version:
   * fused_attention_gate and the output of fused_attention_gate_train, f32:
@@ -24,12 +27,17 @@ Tolerances, kernel against plain version:
     |diff| <= 1e-5 |plain| + 1e-6 (the plain version sums in f64), and
     bit-identical on a second launch (the kernel's sums run in a fixed
     order);
-  * confusion_matrix: exact (integer counts).
+  * confusion_matrix: exact (integer counts);
+  * conv3x3_small (B3), forward and dx shapes: f32 max |diff| <= 1e-4 of
+    the output's largest magnitude (sums of up to 603 products in another
+    order), bf16 within one bf16 rounding step as the gates, and
+    bit-identical on a second launch.
 
 The model's output is held against a reference too: the f32 forward on the
 card (kernels, cuDNN without TF32) against the same seeded weights on the
 CPU (plain versions) on one full-width image, max |diff| <= 1e-4 of the
-output's largest magnitude and argmax agreement >= 99.9%; the served bf16
+output's largest magnitude and argmax agreement >= 99.9%, for each model;
+MTAN's served bf16
 answers against a direct ``Predictor(8)`` (>= 99% argmax agreement, depth
 within 0.05); the predict-eval accuracy against an independent numpy count.
 Training is held against the CPU too: one f32 train step of the same seeded
@@ -47,23 +55,27 @@ losses, and the loss on a repeated batch must fall.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes moved (each input read once, each output written once)
-at 3.35 TB/s and the operations at the peak for their type (the gates'
-products are f32: 67 TFLOP/s outside the tensor cores), from the H100 SXM
-data sheet at 700 W. The train-mode gate's function needs each of its two
+at 3.35 TB/s and the operations at the peak for their type, from the H100
+SXM data sheet at 700 W: the gates' products are f32, 67 TFLOP/s outside
+the tensor cores; B3's products are those of a bf16 dot with f32
+accumulation in the TPU kernel, so its bf16 calls take the bf16 tensor-core
+peak, 989 TFLOP/s, and its f32 calls the f32 peak. B3's ``library_ms`` is
+one ``F.conv2d`` (cuDNN, no TF32) of the same inputs, timed here only. The train-mode gate's function needs each of its two
 products once, 2N(Cin hidden + hidden C2) operations, as the eval gate's
 does; its three passes recompute them (the first three times, the second
 twice), and ``bound_three_passes_ms`` states that design's own bound
 beside it.
 
-Lines before the last: per-shape results of both gates, the serving and
-evaluation numbers, the training numbers, the ``kernels`` JSON line, the
-card's name and power limit. The last line is
+Lines before the last: per-shape results of both gates and of B3, each
+model's serving and evaluation numbers and training numbers, the
+``kernels`` JSON line, the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import re
 import subprocess
@@ -75,11 +87,17 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 BATCH = 8
 BUCKETS = (1, 4, 8)
 N_REQUESTS = 16
 N_EVAL_BATCHES = 3
-GATES_PER_FORWARD = 16
+# kernel launches of one eval forward and of one train step, by model
+PER_FORWARD = {"mtan": {"fused_attention_gate": 16}, "basic": {"conv3x3_small": 4}}
+PER_TRAIN_STEP = {
+    "mtan": {"fused_attention_gate_train": 16, "confusion_matrix": 1},
+    "basic": {"conv3x3_small": 8, "confusion_matrix": 1},  # 4 forward, 4 dx
+}
 LR = 1e-3
 TRAIN_WARMUP = 3
 TRAIN_TIMED = 12
@@ -88,6 +106,7 @@ TRAIN_BATCHES = 4  # cycled: each batch is seen every 4 steps
 PROFILE_CATEGORIES = (
     ("gate kernels (eval and train)", ("gate_kernel<",)),
     ("confusion matrix", ("confmat_kernel",)),
+    ("small conv (B3)", ("conv3x3_small_kernel",)),
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
     ("matrix products (cuBLAS)", ("gemm", "gemv")),
     ("batch norm", ("batch_norm",)),
@@ -96,9 +115,13 @@ PROFILE_CATEGORIES = (
     ("elementwise and copies", ("elementwise", "copy", "Functor", "fill")),
 )
 # parameters whose gradient is 0 up to rounding: biases that feed a
-# batch-statistic BN (the gates' b1, b2; the attention modules' 3x3 conv
-# biases, each followed by a BatchNorm)
-ZERO_GRAD = re.compile(r"(GateChain_0\.b[12]|_attn_\d+_task\d+\.Conv_\d\.bias)$")
+# batch-statistic BN (MTAN: the gates' b1, b2; the attention modules' 3x3
+# conv biases, each followed by a BatchNorm; basic: the projection BN biases
+# of encoder stages 3 and 5, whose outputs reach the loss only through a 1x1
+# conv and a BatchNorm)
+ZERO_GRAD = re.compile(
+    r"(GateChain_0\.b[12]|_attn_\d+_task\d+\.Conv_\d\.bias|stages_[35]_\d\.BatchNorm_2\.bias)$"
+)
 # (level, Cin, C2, H, W) of MTAN's gates at 128x256, hidden 128
 GATE_SHAPES = [
     ("enc0", 3, 32, 128, 256),
@@ -111,6 +134,19 @@ GATE_SHAPES = [
     ("dec3", 192, 32, 128, 256),
 ]
 HIDDEN = 128
+# (call, C, O, H, W, bias) of kernel B3 in a basic train step at 128x256:
+# the forward's four convs and the backward's four dx (the same kernel on the
+# flipped, transposed weights, O and C swapped, no bias)
+SMALL_CONV_SHAPES = [
+    ("fwd block_3.conv1", 67, 67, 64, 128, False),
+    ("fwd block_4.conv0", 67, 33, 128, 256, False),
+    ("fwd block_4.conv1", 33, 33, 128, 256, False),
+    ("fwd merged head", 33, 20, 128, 256, True),
+    ("dx block_3.conv1", 67, 67, 64, 128, False),
+    ("dx block_4.conv0", 33, 67, 128, 256, False),
+    ("dx block_4.conv1", 33, 33, 128, 256, False),
+    ("dx merged head", 20, 33, 128, 256, False),
+]
 
 
 def fail(msg: str) -> None:
@@ -132,22 +168,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gate_output_ok(got: torch.Tensor, want: torch.Tensor) -> tuple:
-    """(max |diff|, within tolerance) of a gate kernel's output against its
-    plain version's: 1e-4 in f32, one bf16 rounding step in bf16."""
+def output_ok(got: torch.Tensor, want: torch.Tensor, f32_tol: float = 1e-4) -> tuple:
+    """(max |diff|, within tolerance) of a kernel's output against its plain
+    version's: ``f32_tol`` in f32, one bf16 rounding step in bf16."""
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     if got.dtype == torch.float32:
-        ok = err <= 1e-4
+        ok = err <= f32_tol
     else:
         ok = bool((diff <= want.float().abs() * 2**-7 + 1e-6).all())
     return err, ok and bool(torch.isfinite(got).all())
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def expected(kernels, per: dict, n: int, **extra: int) -> dict:
+    """Launch counts of ``n`` calls launching ``per`` each, plus ``extra``."""
+    want = {name: 0 for name in kernels.KERNELS}
+    for name, k in per.items():
+        want[name] += k * n
+    for name, k in extra.items():
+        want[name] += k
+    return want
 
 
 def check_gate(dev, fused_gate) -> tuple:
@@ -166,7 +212,7 @@ def check_gate(dev, fused_gate) -> tuple:
             got = fused_gate.fused_attention_gate(*args)
             want = fused_gate.fused_attention_gate_plain(*args)
             torch.cuda.synchronize()
-            err, ok = gate_output_ok(got, want)
+            err, ok = output_ok(got, want)
             if not ok:
                 fail(f"fused_attention_gate {level} {dtype}: max |diff| {err}")
             n = BATCH * h * w
@@ -219,7 +265,7 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
                 again = fused_gate_train.fused_attention_gate_train(*args)
                 want = fused_gate_train.fused_attention_gate_train_plain(*args)
             torch.cuda.synchronize()
-            err, ok = gate_output_ok(got[0], want[0])
+            err, ok = output_ok(got[0], want[0])
             if not ok:
                 fail(f"fused_attention_gate_train {level} {dtype}: output max |diff| {err}")
             stat_err = 0.0
@@ -299,12 +345,69 @@ def check_confmat(dev, confmat, num_classes: int) -> dict:
     }
 
 
-def check_model_against_cpu(cfg, build_model, dev) -> dict:
+def check_small_conv(dev, small_conv) -> tuple:
+    """Kernel B3 against its plain version at the eight shapes of a basic
+    train step, bf16 and f32: output, the same bits from a second launch;
+    times of the kernel, the plain version and one cuDNN ``F.conv2d``.
+    Totals are for one bf16 train step (four forward and four dx calls)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+              "fwd_ms": 0.0, "dx_ms": 0.0, "fwd_library_ms": 0.0, "dx_library_ms": 0.0}
+    step_bytes = step_flops = 0.0
+    for call, c, o, h, w, has_bias in SMALL_CONV_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
+            k = (torch.rand(3, 3, c, o, generator=gen, device=dev) * 2 - 1) / (9 * c) ** 0.5
+            bias = torch.randn(o, generator=gen, device=dev) * 0.1 if has_bias else None
+            got = small_conv.conv3x3_small(x, k, bias)
+            again = small_conv.conv3x3_small(x, k, bias)
+            want = small_conv.conv3x3_small_plain(x, k, bias)
+            torch.cuda.synchronize()
+            err, ok = output_ok(got, want, 1e-4 * float(want.float().abs().max()))
+            if not ok:
+                fail(f"conv3x3_small {call} {dtype}: max |diff| {err}")
+            if not torch.equal(got, again):
+                fail(f"conv3x3_small {call} {dtype}: a second launch differs")
+            es = x.element_size()
+            n = BATCH * h * w
+            nbytes = es * n * (c + o) + es * 9 * c * o + (4 * o if has_bias else 0)
+            flops = 2.0 * n * 9 * c * o
+            peak = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+            b_ms, b_by = bound(nbytes, flops, peak)
+            x_nchw = x.permute(0, 3, 1, 2)
+            w_oihw = k.to(dtype).permute(3, 2, 0, 1).contiguous()
+            b_lib = None if bias is None else bias.to(dtype)
+            row = {
+                "call": call, "dtype": str(dtype).replace("torch.", ""), "N": n, "C": c, "O": o,
+                "max_abs_err": err,
+                "ms": time_ms(lambda: small_conv.conv3x3_small(x, k, bias)),
+                "plain_ms": time_ms(lambda: small_conv.conv3x3_small_plain(x, k, bias)),
+                "library_ms": time_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1)),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            rows.append(row)
+            totals["err"] = max(totals["err"], err)
+            if dtype == torch.bfloat16:  # the main path's dtype
+                for key in ("ms", "plain_ms", "library_ms"):
+                    totals[key] += row[key]
+                part = call.split()[0]
+                totals[f"{part}_ms"] += row["ms"]
+                totals[f"{part}_library_ms"] += row["library_ms"]
+                step_bytes += nbytes
+                step_flops += flops
+    totals["bound_ms"], totals["bound_by"] = bound(step_bytes, step_flops, BF16_TC_FLOPS_PER_S)
+    return rows, totals
+
+
+def check_model_against_cpu(name, cfg, build_model, dev) -> dict:
     """f32 forward of the full-width model on the card (kernels) against the
     same weights on the CPU (plain versions), one image."""
     img = np.random.default_rng(2).uniform(size=(1, cfg.height, cfg.width, 3)).astype(np.float32)
-    ref = build_model("mtan", cfg, dtype=torch.float32, device="cpu", seed=0)
-    gpu = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0)
+    ref = build_model(name, cfg, dtype=torch.float32, device="cpu", seed=0)
+    gpu = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
     with torch.inference_mode():
         want = ref(torch.from_numpy(img))
         got = {k: v.cpu() for k, v in gpu(torch.from_numpy(img).to(dev)).items()}
@@ -316,11 +419,11 @@ def check_model_against_cpu(cfg, build_model, dev) -> dict:
         out[f"{k}_max_abs"] = scale
         # cuDNN and the CPU sum in other orders: 1e-4 of the output's scale
         if not torch.isfinite(got[k]).all() or err > 1e-4 * scale:
-            fail(f"MTAN f32 {k}: card vs CPU max |diff| {err} (scale {scale})")
+            fail(f"{name} f32 {k}: card vs CPU max |diff| {err} (scale {scale})")
     agree = float((got["segm"].argmax(-1) == want["segm"].argmax(-1)).float().mean())
     out["segm_argmax_agreement"] = agree
     if agree < 0.999:
-        fail(f"MTAN f32 segm argmax agrees with the CPU on only {agree:.5f}")
+        fail(f"{name} f32 segm argmax agrees with the CPU on only {agree:.5f}")
     return out
 
 
@@ -340,8 +443,7 @@ def serve_requests(model, cfg, dev, kernels) -> dict:
         stats = server.stats()
     counts = kernels.launch_counts()
     forwards = len(BUCKETS) + stats["batches"]
-    if (counts["fused_attention_gate"] != GATES_PER_FORWARD * forwards
-            or counts["confusion_matrix"] or counts["fused_attention_gate_train"]):
+    if counts != expected(kernels, PER_FORWARD["mtan"], forwards):
         fail(f"serving: launches {counts} for {forwards} forwards")
     if stats["requests"] != N_REQUESTS or stats["batched_images"] != N_REQUESTS:
         fail(f"serving: stats {stats}")
@@ -367,7 +469,7 @@ def serve_requests(model, cfg, dev, kernels) -> dict:
             "depth_max_abs_err_vs_predictor": depth_err}
 
 
-def time_predictor(model, cfg, dev, kernels) -> dict:
+def time_predictor(name, model, cfg, dev, kernels) -> dict:
     from vision_mtl_tpu_torch.serving import Predictor, latency_bench
 
     imgs = np.random.default_rng(4).integers(
@@ -377,8 +479,8 @@ def time_predictor(model, cfg, dev, kernels) -> dict:
     kernels.reset_launch_counts()
     lat = latency_bench(pred, imgs, n=30, warmup=3)
     counts = kernels.launch_counts()
-    if counts["fused_attention_gate"] != GATES_PER_FORWARD * 33:
-        fail(f"Predictor timing: launches {counts} for 33 forwards")
+    if counts != expected(kernels, PER_FORWARD[name], 33):
+        fail(f"{name} Predictor timing: launches {counts} for 33 forwards")
     x = torch.from_numpy(imgs).to(dev).float() / 255.0
     with torch.inference_mode():
         fwd_ms = time_ms(lambda: model(x), iters=10)
@@ -435,7 +537,7 @@ def profile_device(fn, n: int) -> dict:
     }
 
 
-def predict_eval(model, cfg, dev, kernels) -> dict:
+def predict_eval(name, model, cfg, dev, kernels) -> dict:
     from vision_mtl_tpu_torch.predict import predict
 
     rng = np.random.default_rng(5)
@@ -454,9 +556,9 @@ def predict_eval(model, cfg, dev, kernels) -> dict:
     kernels.reset_launch_counts()
     preds, metrics = predict(batches, model, c, device=dev)
     counts = kernels.launch_counts()
-    if counts != {"fused_attention_gate": GATES_PER_FORWARD * N_EVAL_BATCHES,
-                  "fused_attention_gate_train": 0, "confusion_matrix": N_EVAL_BATCHES}:
-        fail(f"predict-eval: launches {counts}")
+    if counts != expected(kernels, PER_FORWARD[name], N_EVAL_BATCHES,
+                          confusion_matrix=N_EVAL_BATCHES):
+        fail(f"{name} predict-eval: launches {counts}")
     if not all(np.isfinite(v) for v in metrics.values()) or len(metrics) != 7:
         fail(f"predict-eval: metrics {metrics}")
     # independent check of the confusion matrix: numpy counts over the
@@ -498,13 +600,47 @@ def grad_distance(a: dict, b: dict) -> tuple:
     return (num / den) ** 0.5, {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in keys}
 
 
-def check_train_step_against_cpu(cfg, build_model, dev) -> dict:
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """v rounded to bf16, in v's dtype; differentiable through the casts."""
+    return v.to(torch.bfloat16).to(v.dtype)
+
+
+@contextlib.contextmanager
+def bf16_kernel_inputs(name: str):
+    """The control of the f32 step check: the model's kernel fed inputs
+    rounded to bf16 (MTAN: the train gate's input and weights; basic: B3's
+    input and weights on its four convs)."""
+    if name == "mtan":
+        from vision_mtl_tpu_torch.models import mtan as module
+
+        attr = "fused_attention_gate_train"
+        real = module.fused_attention_gate_train
+
+        def patched(x, shared, w1, b1, scale1, bias1, w2, *rest):
+            return real(_bf16(x), shared, _bf16(w1), b1, scale1, bias1, _bf16(w2), *rest)
+    else:
+        from vision_mtl_tpu_torch.ops import small_conv as module
+
+        attr = "conv3x3_small"
+        real = module.conv3x3_small
+
+        def patched(x, kernel, bias=None):
+            return real(_bf16(x), _bf16(kernel), bias)
+
+    setattr(module, attr, patched)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def check_train_step_against_cpu(name, cfg, build_model, dev) -> dict:
     """One train step of the same seeded full-width model at batch 2: in f32
     on the card (kernels) and on the CPU (plain versions), held to the same
-    step in f64 on the CPU; and a control, the CPU f32 step with a gate whose
-    input and weights are rounded to bf16, which the limits must refuse."""
+    step in f64 on the CPU; and a control, the CPU f32 step with the model's
+    kernel fed bf16-rounded inputs (:func:`bf16_kernel_inputs`), which the
+    limits must refuse."""
     from vision_mtl_tpu_torch.metrics import init_metrics
-    from vision_mtl_tpu_torch.models import mtan
     from vision_mtl_tpu_torch.train.state import create_train_state
     from vision_mtl_tpu_torch.train.step import make_train_step
 
@@ -513,7 +649,7 @@ def check_train_step_against_cpu(cfg, build_model, dev) -> dict:
 
     def run(device, dtype) -> dict:
         t0 = time.perf_counter()
-        model = build_model("mtan", cfg, dtype=dtype, device=device, seed=0).to(dtype)
+        model = build_model(name, cfg, dtype=dtype, device=device, seed=0).to(dtype)
         state = create_train_state(model, LR, device=device)
         _, _, losses = make_train_step(device=device)(
             state, batch, init_metrics(cfg.num_classes, device)
@@ -525,32 +661,21 @@ def check_train_step_against_cpu(cfg, build_model, dev) -> dict:
             "s": time.perf_counter() - t0,
         }
 
-    gate = mtan.fused_attention_gate_train
-
-    def bf16_gate(x, shared, w1, b1, scale1, bias1, w2, *rest):
-        def r(v):  # differentiable: the gradient flows through the casts
-            return v.to(torch.bfloat16).to(v.dtype)
-
-        return gate(r(x), shared, r(w1), b1, scale1, bias1, r(w2), *rest)
-
     witness = run(cpu, torch.float64)
     cpu32 = run(cpu, torch.float32)
     card = run(dev, torch.float32)
-    mtan.fused_attention_gate_train = bf16_gate
-    try:
+    with bf16_kernel_inputs(name):
         control = run(cpu, torch.float32)
-    finally:
-        mtan.fused_attention_gate_train = gate
 
     loss, want_loss = card["loss"], cpu32["loss"]
     if not np.isfinite(loss) or abs(loss - want_loss) > 1e-4 * abs(want_loss):
-        fail(f"f32 train step: loss {loss} on the card, {want_loss} on the CPU")
+        fail(f"{name} f32 train step: loss {loss} on the card, {want_loss} on the CPU")
     worst_buf = 0.0
     for k, want in cpu32["bufs"].items():
         d = float(((card["bufs"][k] - want).abs() / want.abs().clamp(min=1.0)).max())
         worst_buf = max(worst_buf, d)
         if not d <= 1e-5:
-            fail(f"f32 train step: running statistic {k} off by {d}")
+            fail(f"{name} f32 train step: running statistic {k} off by {d}")
     want_g = witness["grads"]
     top = max(float(g.abs().max()) for g in want_g.values())
     worst_zero = 0.0
@@ -558,7 +683,8 @@ def check_train_step_against_cpu(cfg, build_model, dev) -> dict:
         zero = max(float(card["grads"][k].abs().max()), float(cpu32["grads"][k].abs().max()))
         worst_zero = max(worst_zero, zero / top)
         if not zero <= 1e-3 * top:
-            fail(f"f32 train step: gradient of {k} is {zero / top} of the largest, want ~0")
+            fail(f"{name} f32 train step: gradient of {k} is {zero / top} of the largest, "
+                 "want ~0")
     distance = {}
     for name, r in (("cpu_f32", cpu32), ("card_f32", card), ("control", control)):
         whole, per = grad_distance(r["grads"], want_g)
@@ -584,15 +710,15 @@ def check_train_step_against_cpu(cfg, build_model, dev) -> dict:
         "f64_step_s": witness["s"],
     }
     if not inside("card_f32"):
-        fail(f"f32 train step: the card's gradients are off the f64 witness by more than "
-             f"3 times the CPU f32 step's: {json.dumps(out)}")
+        fail(f"{name} f32 train step: the card's gradients are off the f64 witness by more "
+             f"than 3 times the CPU f32 step's: {json.dumps(out)}")
     if inside("control"):
-        fail(f"f32 train step: the bf16-gate control passed the gradient limits: "
+        fail(f"{name} f32 train step: the bf16 control passed the gradient limits: "
              f"{json.dumps(out)}")
     return out
 
 
-def train_mtan(cfg, build_model, dev, kernels) -> dict:
+def train_model(name, cfg, build_model, dev, kernels) -> dict:
     """The training path at full width: bf16 train steps at batch 8 through
     create_train_state and make_train_step, then one make_eval_step."""
     from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics
@@ -601,7 +727,7 @@ def train_mtan(cfg, build_model, dev, kernels) -> dict:
 
     batches = [{k: v.to(dev) for k, v in b.items()}
                for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
-    model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
     state = create_train_state(model, LR, device=dev)
     step = make_train_step(device=dev)
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
@@ -619,16 +745,15 @@ def train_mtan(cfg, build_model, dev, kernels) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = {"fused_attention_gate": 0, "fused_attention_gate_train": GATES_PER_FORWARD * n_steps,
-            "confusion_matrix": n_steps}
+    want = expected(kernels, PER_TRAIN_STEP[name], n_steps)
     if counts != want:
-        fail(f"training: launches {counts}, want {want} for {n_steps} steps")
+        fail(f"{name} training: launches {counts}, want {want} for {n_steps} steps")
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
-        fail(f"training: losses {losses}")
+        fail(f"{name} training: losses {losses}")
     last_seen = n_steps - 1 - (n_steps - 1) % TRAIN_BATCHES  # last step on batch 0
     if not losses[last_seen] < losses[0]:
-        fail(f"training: loss on batch 0 went {losses[0]} -> {losses[last_seen]}")
+        fail(f"{name} training: loss on batch 0 went {losses[0]} -> {losses[last_seen]}")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_WARMUP, n_steps)]
     p50 = float(np.median(step_ms))
     peak = torch.cuda.max_memory_allocated()
@@ -639,13 +764,12 @@ def train_mtan(cfg, build_model, dev, kernels) -> dict:
         state, batches[0], init_metrics(cfg.num_classes, dev)
     )
     eval_counts = kernels.launch_counts()
-    want_eval = {"fused_attention_gate": GATES_PER_FORWARD, "fused_attention_gate_train": 0,
-                 "confusion_matrix": 1}
+    want_eval = expected(kernels, PER_FORWARD[name], 1, confusion_matrix=1)
     if eval_counts != want_eval:
-        fail(f"eval step: launches {eval_counts}, want {want_eval}")
+        fail(f"{name} eval step: launches {eval_counts}, want {want_eval}")
     eval_metrics = {k: float(v) for k, v in compute_metrics(eval_mstate).items()}
     if not all(np.isfinite(v) for v in eval_metrics.values()):
-        fail(f"eval step: metrics {eval_metrics}")
+        fail(f"{name} eval step: metrics {eval_metrics}")
 
     def one_step():
         step(state, batches[0], init_metrics(cfg.num_classes, dev))
@@ -668,7 +792,7 @@ def main() -> int:
         return 2
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
-    from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train
+    from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train, small_conv
     from vision_mtl_tpu_torch.models.registry import build_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -689,44 +813,71 @@ def main() -> int:
     gate_train_rows, gate_train = check_gate_train(dev, fused_gate_train)
     print(json.dumps({"gate_train_shapes": gate_train_rows}), flush=True)
     cmat = check_confmat(dev, confmat, 19)
+    conv_rows, conv = check_small_conv(dev, small_conv)
+    print(json.dumps({"small_conv_shapes": conv_rows}), flush=True)
+    print(json.dumps({"small_conv_per_train_step": conv}), flush=True)
 
     cfg = fetch_data_cfg("cityscapes")
-    reference = check_model_against_cpu(cfg, build_model, dev)
+    # the timed paths run first: after the CPU reference steps below, the
+    # host launched the same train steps about 10% slower in this process
     model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    mtan_params = sum(p.numel() for p in model.parameters())
     serving = serve_requests(model, cfg, dev, kernels)
-    timing = time_predictor(model, cfg, dev, kernels)
-    evaluation = predict_eval(model, cfg, dev, kernels)
+    mtan_timing = time_predictor("mtan", model, cfg, dev, kernels)
+    mtan_eval = predict_eval("mtan", model, cfg, dev, kernels)
+    del model
+    mtan_training = train_model("mtan", cfg, build_model, dev, kernels)
+    model = build_model("basic", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    basic_params = sum(p.numel() for p in model.parameters())
+    basic_timing = time_predictor("basic", model, cfg, dev, kernels)
+    basic_eval = predict_eval("basic", model, cfg, dev, kernels)
+    del model
+    basic_training = train_model("basic", cfg, build_model, dev, kernels)
+    phases = [  # launch counts of every main-path run
+        serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
+        mtan_training["launches"], mtan_training["eval_step"]["launches"],
+        basic_timing["launches"], basic_eval["launches"],
+        basic_training["launches"], basic_training["eval_step"]["launches"],
+    ]
+    timed_s = time.perf_counter() - t_start
+
     model_line = {
-        "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16",
-        "params": sum(p.numel() for p in model.parameters()),
-        "reference_f32_vs_cpu": reference, "serving": serving,
-        "predictor_8": timing, "predict_eval": evaluation,
-        "gate_share_of_forward_events": gate["ms"] / timing["forward_events_ms"],
+        "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16", "params": mtan_params,
+        "reference_f32_vs_cpu": check_model_against_cpu("mtan", cfg, build_model, dev),
+        "serving": serving, "predictor_8": mtan_timing, "predict_eval": mtan_eval,
+        "gate_share_of_forward_events": gate["ms"] / mtan_timing["forward_events_ms"],
         "build_s": build_s,
     }
     print(json.dumps({"model": model_line}), flush=True)
-    del model
-
-    train_reference = check_train_step_against_cpu(cfg, build_model, dev)
-    training = train_mtan(cfg, build_model, dev, kernels)
     train_line = {
         "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
-        "reference_f32_step_vs_cpu": train_reference, **training,
+        "reference_f32_step_vs_cpu": check_train_step_against_cpu("mtan", cfg, build_model, dev),
+        **mtan_training,
         "gate_train_ms_per_step": gate_train["ms"],
         "gate_train_bound_ms_per_step": gate_train["bound_ms"],
         "gate_train_bound_three_passes_ms_per_step": gate_train["bound_three_passes_ms"],
         "gate_train_backward_ms_per_step": gate_train["backward_ms"],
-        "gate_train_share_of_step_events": gate_train["ms"] / training["step_ms_p50"],
-        "total_s": time.perf_counter() - t_start,
+        "gate_train_share_of_step_events": gate_train["ms"] / mtan_training["step_ms_p50"],
+    }
+    print(json.dumps({"train": train_line}), flush=True)
+    model_line = {
+        "model": "basic", "config": "cityscapes 128x256, 19 classes, bf16", "params": basic_params,
+        "reference_f32_vs_cpu": check_model_against_cpu("basic", cfg, build_model, dev),
+        "predictor_8": basic_timing, "predict_eval": basic_eval,
+        "small_conv_fwd_share_of_forward_events": conv["fwd_ms"] / basic_timing["forward_events_ms"],
+    }
+    print(json.dumps({"model": model_line}), flush=True)
+    train_line = {
+        "model": "basic", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
+        "reference_f32_step_vs_cpu": check_train_step_against_cpu("basic", cfg, build_model, dev),
+        **basic_training,
+        "small_conv_ms_per_step": conv["ms"], "small_conv_bound_ms_per_step": conv["bound_ms"],
+        "small_conv_share_of_step_events": conv["ms"] / basic_training["step_ms_p50"],
+        "timed_paths_s": timed_s, "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"train": train_line}), flush=True)
 
-    launches = {
-        name: serving["launches"][name] + timing["launches"][name]
-        + evaluation["launches"][name] + training["launches"][name]
-        + training["eval_step"]["launches"][name]
-        for name in kernels.KERNELS
-    }
+    launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     kernel_line = {"kernels": [
         {
             "name": "fused_attention_gate", "route": "cuda",
@@ -752,6 +903,14 @@ def main() -> int:
             "launches": launches["confusion_matrix"], "max_abs_err": cmat["max_abs_err"],
             "ms": cmat["ms"], "plain_ms": cmat["plain_ms"], "bound_ms": cmat["bound_ms"],
             "bound_by": cmat["bound_by"], "library_ms": cmat["library_ms"],
+        },
+        {
+            "name": "conv3x3_small", "route": "cuda",
+            "source": "vision_mtl_tpu_torch/csrc/small_conv.cu",
+            "replaces": "vision_mtl_tpu/ops/pallas/small_conv.py:100",
+            "launches": launches["conv3x3_small"], "max_abs_err": conv["err"],
+            "ms": conv["ms"], "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+            "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
         },
     ]}
     for k in kernel_line["kernels"]:

@@ -10,7 +10,8 @@ card's machine need not have).
 import pytest
 import torch
 
-from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train
+from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train, small_conv
+from vision_mtl_tpu_torch.ops.small_conv import conv3x3_small
 
 
 @pytest.fixture
@@ -18,6 +19,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -197,3 +199,75 @@ def test_train_gate_kernel_rejects_what_it_does_not_take(cuda):
         fused_gate_train.fused_attention_gate_train(*bad)
     with pytest.raises(ValueError, match="CUDA"):
         fused_gate_train.fused_attention_gate_train(args[0], args[1].cpu(), *args[2:])
+
+
+def _assert_conv_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:  # sums of up to 891 products in another order
+        assert float(diff.max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    else:  # one bf16 rounding step of the f32 result
+        assert bool((diff <= want.float().abs() * 2**-7 + 1e-6).all())
+
+
+# ragged H and W against the 4 x 32 tile, C across the 8-channel chunk, O
+# below, at and across the 8-channel warp slice, the largest C and O taken
+@pytest.mark.parametrize(
+    "shape",
+    [(1, 1, 1, 1, 1), (2, 5, 33, 9, 8), (1, 13, 70, 33, 20), (3, 9, 31, 20, 33),
+     (1, 6, 65, 99, 99), (2, 4, 32, 67, 67)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_small_conv_kernel_matches_plain(cuda, shape, dtype, bias):
+    b, h, w, c, o = shape
+    g = torch.Generator(device=cuda).manual_seed(h * w + c)
+    x = torch.randn(b, h, w, c, generator=g, device=cuda).to(dtype)
+    k = (torch.rand(3, 3, c, o, generator=g, device=cuda) * 2 - 1) / (9 * c) ** 0.5
+    bv = torch.randn(o, generator=g, device=cuda) if bias else None
+    before = small_conv.launches.value
+    got = small_conv.conv3x3_small(x, k, bv)
+    again = small_conv.conv3x3_small(x, k, bv)
+    want = small_conv.conv3x3_small_plain(x, k, bv)
+    torch.cuda.synchronize()
+    assert small_conv.launches.value == before + 2
+    assert got.dtype == dtype and got.shape == (b, h, w, o)
+    _assert_conv_close(got, want)
+    assert torch.equal(got, again)  # a fixed summation order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_conv_backward_matches_cpu(cuda, dtype):
+    """dx (the kernel on the flipped weights), dw and db on the card against
+    the CPU's plain path, at a ragged 67 -> 33 shape."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 7, 37, 67, generator=g).to(dtype)
+    k = (torch.rand(3, 3, 67, 33, generator=g) * 2 - 1) / (9 * 67) ** 0.5
+    bv = torch.randn(33, generator=g)
+    cot = torch.randn(2, 7, 37, 33, generator=g).to(dtype)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.to(dev).requires_grad_() for a in (x, k, bv)]
+        before = small_conv.launches.value
+        conv3x3_small(*leaves).backward(cot.to(dev))
+        if dev.type == "cuda":
+            assert small_conv.launches.value == before + 2  # forward and dx
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    (dx, dw, db), (dx_cpu, dw_cpu, db_cpu) = grads
+    _assert_conv_close(dx, dx_cpu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2  # dw: bf16 output of another sum order
+    assert float((dw - dw_cpu).abs().max()) <= tol * float(dw_cpu.abs().max())
+    assert float((db - db_cpu).abs().max()) <= 1e-4 * float(db_cpu.abs().max())
+
+
+def test_small_conv_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(1, 4, 4, 8, device=cuda)
+    k = torch.randn(3, 3, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        small_conv.conv3x3_small(x.half(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        small_conv.conv3x3_small(x.transpose(1, 2), k)
+    with pytest.raises(ValueError, match="channels"):
+        small_conv.conv3x3_small(torch.randn(1, 4, 4, 100, device=cuda),
+                                 torch.randn(3, 3, 100, 8, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        small_conv.conv3x3_small(x, k.cpu())

@@ -14,7 +14,7 @@ import torch
 
 import vision_mtl_tpu_torch
 from vision_mtl_tpu_torch.cfg import fetch_data_cfg
-from vision_mtl_tpu_torch.kernels import fused_gate_train
+from vision_mtl_tpu_torch.kernels import fused_gate_train, small_conv
 from vision_mtl_tpu_torch.metrics import init_metrics
 from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.predict import predict
@@ -39,6 +39,9 @@ def test_port_imports_nothing_of_jax():
     assert "vision_mtl_tpu_torch.serve" in modules and len(modules) >= 17
     assert "vision_mtl_tpu_torch.train.state" in modules
     assert "vision_mtl_tpu_torch.kernels.fused_gate_train" in modules
+    for name in ("kernels.small_conv", "ops.small_conv", "models.basic",
+                 "models.mobilenetv3", "models.unet_decoder"):
+        assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""
         import importlib, runpy, sys
@@ -63,8 +66,9 @@ def test_port_imports_nothing_of_jax():
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = fetch_data_cfg("synthetic")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_model("mtan", cfg)
+    for name in ("mtan", "basic"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(name, cfg)
     model = build_model("mtan", cfg, dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(model, 1, cfg.height, cfg.width)
@@ -114,3 +118,23 @@ def test_train_gate_wrapper_never_falls_back():
     with pytest.raises(ValueError, match="CUDA"):
         fused_gate_train.fused_attention_gate_train(*args)
     assert fused_gate_train.launches.value == before
+
+
+def test_small_conv_wrapper_never_falls_back(monkeypatch):
+    """A tensor that is not on the CPU never reaches the plain version of
+    kernel B3, forward or through the differentiable entry point: the
+    wrapper checks it for the kernel and raises."""
+    from vision_mtl_tpu_torch.ops.small_conv import conv3x3_small
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(small_conv, "conv3x3_small_plain", plain)
+    x = torch.empty(1, 4, 4, 5, device="meta")
+    k = torch.empty(3, 3, 5, 7, device="meta")
+    before = small_conv.launches.value
+    with pytest.raises(ValueError, match="CUDA"):
+        small_conv.conv3x3_small(x, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3_small(x.requires_grad_(), k, torch.empty(7, device="meta"))
+    assert small_conv.launches.value == before

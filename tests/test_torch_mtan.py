@@ -155,7 +155,7 @@ def test_registry_param_count_matches_jax():
     assert not model.training
 
 
-@pytest.mark.parametrize("name", ["basic", "csnet"])
+@pytest.mark.parametrize("name", ["csnet"])
 def test_registry_other_models_not_ported(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(name, fetch_data_cfg("synthetic"), device="cpu")

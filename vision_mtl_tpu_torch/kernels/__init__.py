@@ -7,13 +7,14 @@ from __future__ import annotations
 
 import typing as t
 
-from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train
+from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train, small_conv
 from vision_mtl_tpu_torch.kernels._build import build
 
 KERNELS = {
     "fused_attention_gate": fused_gate,
     "fused_attention_gate_train": fused_gate_train,
     "confusion_matrix": confmat,
+    "conv3x3_small": small_conv,
 }
 
 

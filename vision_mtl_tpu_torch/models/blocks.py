@@ -22,6 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vision_mtl_tpu_torch.kernels import small_conv as small_conv_kernel
+from vision_mtl_tpu_torch.ops import small_conv as small_conv_op
+
 #: When True, the running-variance update of every train-mode BatchNorm
 #: (and of the attention gate's BNs) uses torch's UNBIASED n/(n-1) batch
 #: variance instead of flax's biased one; normalisation uses the biased
@@ -76,8 +79,37 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
         p.uniform_(-bound, bound, generator=generator)
 
 
+def conv_nhwc(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: t.Optional[torch.Tensor],
+    dtype: torch.dtype,
+    strides: t.Tuple[int, int] = (1, 1),
+    groups: int = 1,
+    small_conv: bool = False,
+) -> torch.Tensor:
+    """Conv2d on NHWC with an OIHW weight and torch padding ``(k-1)//2`` for
+    every stride, computed in ``dtype``. ``small_conv`` routes a 3x3
+    stride-1 dense conv through kernel B3 (``ops.small_conv``), which adds
+    the bias in f32 before its one cast; otherwise PyTorch's conv runs in
+    ``dtype`` with the bias in ``dtype``."""
+    if small_conv:
+        return small_conv_op.conv3x3_small(x.to(dtype), weight.permute(2, 3, 1, 0), bias)
+    kh, kw = weight.shape[2:]
+    y = F.conv2d(
+        _to_nchw(x).to(dtype), weight.to(dtype), None if bias is None else bias.to(dtype),
+        stride=strides, padding=((kh - 1) // 2, (kw - 1) // 2), groups=groups,
+    )
+    return _to_nhwc(y)
+
+
 class Conv(nn.Module):
-    """Conv2d on NHWC with torch padding ``(k-1)//2``; weight OIHW."""
+    """Conv2d on NHWC with torch padding ``(k-1)//2``; weight OIHW, (O, C /
+    groups, kh, kw) (depthwise: (O, 1, kh, kw)).
+
+    ``small_conv=True`` asks for kernel B3; the conv takes it when it is a
+    3x3 stride-1 dense conv with C, O < 100 (``self.small_conv`` says
+    whether it does)."""
 
     def __init__(
         self,
@@ -86,12 +118,20 @@ class Conv(nn.Module):
         kernel_size: t.Tuple[int, int] = (3, 3),
         use_bias: bool = True,
         dtype: torch.dtype = torch.bfloat16,
+        strides: t.Tuple[int, int] = (1, 1),
+        groups: int = 1,
+        small_conv: bool = False,
     ):
         super().__init__()
         kh, kw = kernel_size
-        self.padding = ((kh - 1) // 2, (kw - 1) // 2)
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(features, in_ch, kh, kw))
+        self.strides = tuple(strides)
+        self.groups = groups
+        self.small_conv = (
+            small_conv and (kh, kw) == (3, 3) and self.strides == (1, 1) and groups == 1
+            and small_conv_kernel.fits(in_ch, features)
+        )
+        self.weight = nn.Parameter(torch.empty(features, in_ch // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -101,12 +141,9 @@ class Conv(nn.Module):
             _uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        y = F.conv2d(
-            _to_nchw(x).to(self.dtype), self.weight.to(self.dtype), bias,
-            padding=self.padding,
+        return conv_nhwc(
+            x, self.weight, self.bias, self.dtype, self.strides, self.groups, self.small_conv
         )
-        return _to_nhwc(y)
 
 
 class ConvTranspose(nn.Module):
@@ -171,6 +208,26 @@ class BatchNorm(nn.Module):
         return _to_nhwc(y)
 
 
+class RawBatchNorm(BatchNorm):
+    """A flax ``nn.BatchNorm`` used directly, not through the ``BatchNorm``
+    wrapper (the encoder's ``_stem_bn`` and ``_head_bn``): the same
+    computation, with its leaves one level higher in the JAX tree."""
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    return x * hard_sigmoid(x)
+
+
+ACTIVATIONS: t.Dict[str, t.Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": torch.relu,
+    "hardswish": hard_swish,
+}
+
+
 class ConvBNAct(nn.Module):
     """conv (no bias) -> BN -> ReLU."""
 
@@ -180,9 +237,12 @@ class ConvBNAct(nn.Module):
         features: int,
         kernel_size: t.Tuple[int, int] = (3, 3),
         dtype: torch.dtype = torch.bfloat16,
+        small_conv: bool = False,
     ):
         super().__init__()
-        self.Conv_0 = Conv(in_ch, features, kernel_size, use_bias=False, dtype=dtype)
+        self.Conv_0 = Conv(
+            in_ch, features, kernel_size, use_bias=False, dtype=dtype, small_conv=small_conv
+        )
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -211,6 +271,33 @@ class DoubleConv(nn.Module):
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(kernel_size=2, stride=2) NHWC; odd sizes are floored."""
     return _to_nhwc(F.max_pool2d(_to_nchw(x), 2))
+
+
+class SqueezeExcite(nn.Module):
+    """MobileNetV3 squeeze-excite: the f32 spatial mean, 1x1 conv, ReLU, 1x1
+    conv (both with bias, in the block's dtype), then x times the hard
+    sigmoid of the result taken in f32 and cast to x's dtype."""
+
+    def __init__(self, channels: int, reduced: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.Conv_0 = Conv(channels, reduced, (1, 1), dtype=dtype)
+        self.Conv_1 = Conv(reduced, channels, (1, 1), dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f32 = torch.promote_types(x.dtype, torch.float32)
+        s = x.to(f32).mean((1, 2), keepdim=True)
+        s = self.Conv_1(torch.relu(self.Conv_0(s)))
+        return x * hard_sigmoid(s.to(f32)).to(x.dtype)
+
+
+def make_divisible(v: float, divisor: int = 8, min_value: t.Optional[int] = None) -> int:
+    """Channel rounding used throughout the MobileNetV3 family."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

@@ -1,7 +1,11 @@
 """Model zoo (counterpart of ``vision_mtl_tpu/models/registry.py``).
 
-Only MTAN is ported so far, at its trained config: encoder_first_channel=32,
-4 encoder levels, hidden=128 (13,277,908 parameters at 19 classes).
+Ported so far, at their trained configs (parameters at 19 classes):
+
+  * basic: decoder_first_channel=540, 5 decoder layers, merged heads
+    (13,564,301 parameters);
+  * mtan: encoder_first_channel=32, 4 encoder levels, hidden=128
+    (13,277,908 parameters).
 """
 
 from __future__ import annotations
@@ -38,7 +42,19 @@ def build_model(
             seed=seed,
         )
         return model.to(dev)
-    if model_name in ("basic", "csnet"):
+    if model_name == "basic":
+        from vision_mtl_tpu_torch.models.basic import BasicMTLModel
+
+        model = BasicMTLModel(
+            segm_classes=data_cfg.num_classes,
+            decoder_first_channel=540,
+            num_decoder_layers=5,
+            merge_heads=True,
+            dtype=dtype,
+            seed=seed,
+        )
+        return model.to(dev)
+    if model_name == "csnet":
         raise NotImplementedError(
             f"model {model_name!r} is not ported yet: see ROADMAP.md, queue A"
         )

@@ -12,6 +12,13 @@ import torch
 import torch.nn.functional as F
 
 
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour x2 upsample, NHWC: every pixel repeated in a 2x2
+    block (torch's nearest interpolation at scale 2, exactly)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize with align_corners=True, NHWC, to exactly
     ``(out_h, out_w)``; computed in f32 (f64 for f64), returned in x's dtype."""

@@ -8,8 +8,11 @@ names, so the bridge walks the torch module tree and reads, for each block,
 the leaves that block's flax counterpart owns:
 
 * ``Conv``: ``<path>/Conv_0/{kernel,bias}``, kernel HWIO -> OIHW;
+* ``Conv``'s depthwise kernel (kh, kw, 1, O) becomes (O, 1, kh, kw);
 * ``BatchNorm``: ``<path>/BatchNorm_0/{scale,bias}`` and the stats
   ``<path>/BatchNorm_0/{mean,var}``;
+* ``RawBatchNorm`` (a flax ``nn.BatchNorm`` used directly, as the encoder's
+  ``_stem_bn``): ``<path>/{scale,bias}`` and ``<path>/{mean,var}``;
 * ``ConvTranspose``: ``<path>/{kernel,bias}``. flax's ConvTranspose does
   not flip its kernel and torch's does, so the kernel is flipped in kh, kw,
   then (kh, kw, in, out) -> (in, out, kh, kw);
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vision_mtl_tpu_torch.models.blocks import BatchNorm, Conv, ConvTranspose
+from vision_mtl_tpu_torch.models.blocks import BatchNorm, Conv, ConvTranspose, RawBatchNorm
 from vision_mtl_tpu_torch.models.mtan import GateChain
 
 _Transform = t.Callable[[np.ndarray], np.ndarray]
@@ -58,6 +61,13 @@ def _block_leaves(
         if module.bias is not None:
             leaves.append(("bias", f"params/{path}Conv_0/bias", _same))
         return leaves
+    if isinstance(module, RawBatchNorm):
+        return [
+            ("weight", f"params/{path}scale", _same),
+            ("bias", f"params/{path}bias", _same),
+            ("running_mean", f"batch_stats/{path}mean", _same),
+            ("running_var", f"batch_stats/{path}var", _same),
+        ]
     if isinstance(module, BatchNorm):
         return [
             ("weight", f"params/{path}BatchNorm_0/scale", _same),
