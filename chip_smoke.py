@@ -56,15 +56,28 @@ losses, and the loss on a repeated batch must fall.
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes moved (each input read once, each output written once)
 at 3.35 TB/s and the operations at the peak for their type, from the H100
-SXM data sheet at 700 W: the gates' products are f32, 67 TFLOP/s outside
-the tensor cores; B3's products are those of a bf16 dot with f32
-accumulation in the TPU kernel, so its bf16 calls take the bf16 tensor-core
-peak, 989 TFLOP/s, and its f32 calls the f32 peak. B3's ``library_ms`` is
-one ``F.conv2d`` (cuDNN, no TF32) of the same inputs, timed here only. The train-mode gate's function needs each of its two
-products once, 2N(Cin hidden + hidden C2) operations, as the eval gate's
-does; its three passes recompute them (the first three times, the second
-twice), and ``bound_three_passes_ms`` states that design's own bound
-beside it.
+SXM data sheet at 700 W: the eval gate's products are f32, 67 TFLOP/s
+outside the tensor cores; B3's products are those of a bf16 dot with f32
+accumulation in the TPU kernel, so its bf16 calls (the tensor-core kernel)
+take the bf16 tensor-core peak, 989 TFLOP/s, and its f32 calls (the SIMT
+kernel) the f32 peak. B3's ``library_ms`` is one ``F.conv2d`` (cuDNN, no
+TF32) of the same inputs, timed here only. The train-mode gate's function
+needs each of its two products once, 2N(Cin hidden + hidden C2)
+operations, as the eval gate's does: ``bound_f32_ms`` at the f32 peak. Its
+kernel takes them as 3xTF32, three TF32 products each at 495 TFLOP/s (two
+for x @ w1 when x is bf16, which TF32 holds exactly): ``bound_ms`` (the
+function's products once, 3xTF32, which a kernel could reach) and
+``bound_design_ms`` (the three passes, 3xTF32: the second product twice,
+the first once where pass 1 stores x @ w1 for the other two, with its bytes
+written once and read twice, else three times) state those bounds beside
+it.
+
+B3's and B4's ``ms``, ``plain_ms`` and ``library_ms`` are device time, the
+kernels each call launches summed by torch.profiler over sessions that saw
+every launch (:func:`device_times`);
+``events_ms`` beside them is CUDA-event time over back-to-back calls, which
+the host's time to launch them bounds once the kernels are short. The
+eval gate's and the confusion matrix's times are CUDA-event times.
 
 Lines before the last: per-shape results of both gates and of B3, each
 model's serving and evaluation numbers and training numbers, the
@@ -87,6 +100,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_TC_FLOPS_PER_S = 495e12
 BF16_TC_FLOPS_PER_S = 989e12
 BATCH = 8
 BUCKETS = (1, 4, 8)
@@ -104,9 +118,9 @@ TRAIN_TIMED = 12
 TRAIN_BATCHES = 4  # cycled: each batch is seen every 4 steps
 # device kernels by name, first match wins
 PROFILE_CATEGORIES = (
-    ("gate kernels (eval and train)", ("gate_kernel<",)),
+    ("gate kernels (eval and train)", ("gate_kernel<", "gate_train_kernel<")),
     ("confusion matrix", ("confmat_kernel",)),
-    ("small conv (B3)", ("conv3x3_small_kernel",)),
+    ("small conv (B3)", ("conv3x3_small_kernel", "conv3x3_small_tc_kernel")),
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
     ("matrix products (cuBLAS)", ("gemm", "gemv")),
     ("batch norm", ("batch_norm",)),
@@ -166,6 +180,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn, n: int = 10, launches: tuple = ()) -> dict:
+    """Device time of one call by kernel name (and memsets), from
+    torch.profiler over ``n`` calls. Unlike :func:`time_ms` it does not read
+    the host's time to launch them, which a call whose kernels are short
+    can exceed.
+
+    A session can miss part of the device's activity (a process's first
+    one, while the tracer starts), and would then read a call as faster
+    than it is. So a session counts only if each kernel it saw ran a whole
+    number of times per call and each pattern in ``launches`` (a regex on
+    kernel names) matched exactly ``n`` runs; and two such sessions must
+    agree on every kernel's count. Their times are averaged. Fails if five
+    sessions give no such pair."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    complete, counts = [], {}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+                  if e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)}
+        counts = {k: c for k, (_, c) in events.items()}
+        if not counts or any(c % n for c in counts.values()) or any(
+            sum(c for k, c in counts.items() if re.search(p, k)) != n for p in launches
+        ):
+            continue
+        same = [s for s in complete if {k: c for k, (_, c) in s.items()} == counts]
+        if same:
+            return {k: (t + same[-1][k][0]) / 2e3 / n for k, (t, _) in events.items()}
+        complete.append(events)
+    fail(f"torch.profiler: no two complete sessions agree over {n} calls; last counts {counts}")
+
+
+def device_ms(fn, n: int = 10, launches: tuple = ()) -> float:
+    """Device time of one call, all its kernels (:func:`device_times`)."""
+    return sum(device_times(fn, n, launches).values())
 
 
 def output_ok(got: torch.Tensor, want: torch.Tensor, f32_tol: float = 1e-4) -> tuple:
@@ -244,9 +301,10 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
     launch; and the time of its backward (PyTorch ops)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_three_passes_ms": 0.0,
-              "backward_ms": 0.0, "err": 0.0}
+    totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "bound_f32_ms": 0.0, "bound_design_ms": 0.0, "backward_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
+    slower_than_plain = []
     for level, cin, c2, h, w in GATE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             def uniform(*shape, bound=1.0):
@@ -283,19 +341,46 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
                 cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2 + 3 * c2 + 2 * (HIDDEN + c2)
             )
             flops = 2.0 * n * (cin * HIDDEN + HIDDEN * c2)
-            b_ms, b_by = bound(nbytes, flops)
-            b3_ms, _ = bound(nbytes, 2.0 * n * (3 * cin * HIDDEN + 2 * HIDDEN * c2))
+            # 3xTF32: three TF32 products for each f32 one, but two for
+            # x @ w1 when x is bf16, which TF32 holds exactly
+            k1 = 2 if args[0].element_size() == 2 else 3
+            tf32_flops = 2.0 * n * (k1 * cin * HIDDEN + 3 * HIDDEN * c2)
+            b_ms, b_by = bound(nbytes, tf32_flops, TF32_TC_FLOPS_PER_S)
+            f32_ms, _ = bound(nbytes, flops)
+            # the three passes, 3xTF32: the second product twice; the first
+            # once where pass 1 stores x @ w1 for passes 2 and 3 to read back
+            # (Cin > 16, as csrc/gate_train.cu decides), else three times
+            stores_h = cin > 16
+            design_ms, _ = bound(
+                nbytes + (3 * 4 * n * HIDDEN if stores_h else 0),
+                2.0 * n * ((1 if stores_h else 3) * k1 * cin * HIDDEN + 2 * 3 * HIDDEN * c2),
+                TF32_TC_FLOPS_PER_S,
+            )
             with torch.no_grad():
+                def kernel():
+                    fused_gate_train.fused_attention_gate_train(*args)
+
+                def plain():
+                    fused_gate_train.fused_attention_gate_train_plain(*args)
+
+                # gate_train_kernel<T, pass - 1, tile>: the three passes, and
+                # the memset of the statistics' completion counters
+                pass_names = [rf"gate_train_kernel<[^,]+, {i}," for i in range(3)]
+                times = device_times(kernel, launches=(*pass_names, "[Mm]emset"))
+                passes = [sum(ms for name, ms in times.items() if re.search(p, name))
+                          for p in pass_names]
                 row = {
                     "level": level, "dtype": str(dtype).replace("torch.", ""),
                     "N": n, "Cin": cin, "C2": c2, "max_abs_err": err,
                     "stats_max_abs_err": stat_err,
-                    "ms": time_ms(lambda: fused_gate_train.fused_attention_gate_train(*args)),
-                    "plain_ms": time_ms(
-                        lambda: fused_gate_train.fused_attention_gate_train_plain(*args)
-                    ),
-                    "bound_ms": b_ms, "bound_by": b_by, "bound_three_passes_ms": b3_ms,
+                    "ms": sum(times.values()), "passes_ms": passes,
+                    "events_ms": time_ms(kernel),
+                    "plain_ms": device_ms(plain), "plain_events_ms": time_ms(plain),
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms,
+                    "bound_design_ms": design_ms,
                 }
+            if row["ms"] > row["plain_ms"]:
+                slower_than_plain.append(f"{level} {row['dtype']}")
             # the Function's backward (PyTorch ops), timed as forward +
             # backward less the forward
             leaves = [a.detach().requires_grad_() for a in args]
@@ -305,15 +390,17 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
                 out = fused_gate_train.fused_attention_gate_train(*leaves)[0]
                 torch.autograd.grad(out, leaves, cot)
 
-            row["backward_ms"] = time_ms(forward_backward) - row["ms"]
+            row["backward_ms"] = time_ms(forward_backward) - row["events_ms"]
             rows.append(row)
             totals["err"] = max(totals["err"], err)
             if dtype == torch.bfloat16:  # the main path's dtype: 2 tasks per level
-                for k in ("ms", "plain_ms", "bound_ms", "bound_three_passes_ms", "backward_ms"):
+                for k in ("ms", "events_ms", "plain_ms", "bound_ms", "bound_f32_ms",
+                          "bound_design_ms", "backward_ms"):
                     totals[k] += 2 * row[k]
-                by_flops += 2 * flops / F32_FLOPS_PER_S
+                by_flops += 2 * tf32_flops / TF32_TC_FLOPS_PER_S
                 by_bytes += 2 * nbytes / HBM_BYTES_PER_S
     totals["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
+    totals["slower_than_plain"] = slower_than_plain
     return rows, totals
 
 
@@ -354,7 +441,7 @@ def check_small_conv(dev, small_conv) -> tuple:
 
     gen = torch.Generator(device=dev).manual_seed(20)
     rows = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+    totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
               "fwd_ms": 0.0, "dx_ms": 0.0, "fwd_library_ms": 0.0, "dx_library_ms": 0.0}
     step_bytes = step_flops = 0.0
     for call, c, o, h, w, has_bias in SMALL_CONV_SHAPES:
@@ -380,18 +467,24 @@ def check_small_conv(dev, small_conv) -> tuple:
             x_nchw = x.permute(0, 3, 1, 2)
             w_oihw = k.to(dtype).permute(3, 2, 0, 1).contiguous()
             b_lib = None if bias is None else bias.to(dtype)
+            def kernel():
+                small_conv.conv3x3_small(x, k, bias)
+
             row = {
                 "call": call, "dtype": str(dtype).replace("torch.", ""), "N": n, "C": c, "O": o,
+                "kernel": ("conv3x3_small_tc_kernel (mma.sync bf16)" if dtype == torch.bfloat16
+                           else "conv3x3_small_kernel (SIMT f32)"),
                 "max_abs_err": err,
-                "ms": time_ms(lambda: small_conv.conv3x3_small(x, k, bias)),
-                "plain_ms": time_ms(lambda: small_conv.conv3x3_small_plain(x, k, bias)),
-                "library_ms": time_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1)),
+                "ms": device_ms(kernel, launches=("conv3x3_small",)),
+                "events_ms": time_ms(kernel),
+                "plain_ms": device_ms(lambda: small_conv.conv3x3_small_plain(x, k, bias)),
+                "library_ms": device_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1)),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             rows.append(row)
             totals["err"] = max(totals["err"], err)
             if dtype == torch.bfloat16:  # the main path's dtype
-                for key in ("ms", "plain_ms", "library_ms"):
+                for key in ("ms", "events_ms", "plain_ms", "library_ms"):
                     totals[key] += row[key]
                 part = call.split()[0]
                 totals[f"{part}_ms"] += row["ms"]
@@ -399,6 +492,7 @@ def check_small_conv(dev, small_conv) -> tuple:
                 step_bytes += nbytes
                 step_flops += flops
     totals["bound_ms"], totals["bound_by"] = bound(step_bytes, step_flops, BF16_TC_FLOPS_PER_S)
+    totals["faster_than_library"] = totals["ms"] < totals["library_ms"]
     return rows, totals
 
 
@@ -855,7 +949,9 @@ def main() -> int:
         **mtan_training,
         "gate_train_ms_per_step": gate_train["ms"],
         "gate_train_bound_ms_per_step": gate_train["bound_ms"],
-        "gate_train_bound_three_passes_ms_per_step": gate_train["bound_three_passes_ms"],
+        "gate_train_bound_f32_ms_per_step": gate_train["bound_f32_ms"],
+        "gate_train_bound_design_ms_per_step": gate_train["bound_design_ms"],
+        "gate_train_levels_slower_than_plain": gate_train["slower_than_plain"],
         "gate_train_backward_ms_per_step": gate_train["backward_ms"],
         "gate_train_share_of_step_events": gate_train["ms"] / mtan_training["step_ms_p50"],
     }
@@ -889,7 +985,7 @@ def main() -> int:
         },
         {
             "name": "fused_attention_gate_train", "route": "cuda",
-            "source": "vision_mtl_tpu_torch/csrc/fused_gate.cu",
+            "source": "vision_mtl_tpu_torch/csrc/gate_train.cu",
             "replaces": "vision_mtl_tpu/ops/pallas/fused_gate.py:240,279",
             "launches": launches["fused_attention_gate_train"], "max_abs_err": gate_train["err"],
             "ms": gate_train["ms"], "plain_ms": gate_train["plain_ms"],

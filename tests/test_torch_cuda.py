@@ -156,6 +156,49 @@ def test_train_gate_kernel_matches_plain(cuda, shape, dtype):
         assert torch.equal(a, b)
 
 
+# against the redesigned kernel's row tiles (32 rows up to N = 8,320, else
+# 128) and its column splits: N one past a tile, N below one tile, N at the
+# small-N split of the hidden channels (fewer tiles than SMs) with C2 in
+# two and four 128-wide slices (dec0's widths among them), the last N of
+# the 32-row tile and N just past it, N past the split
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 1, 129, 64, 128, 32),
+        (1, 5, 20, 3, 128, 64),
+        (2, 16, 32, 256, 128, 256),
+        (8, 16, 32, 640, 128, 256),
+        (1, 64, 64, 128, 128, 512),
+        (1, 1, 8320, 256, 128, 64),
+        (1, 1, 8321, 64, 128, 32),
+        (1, 33, 517, 192, 128, 32),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_kernel_tiles_and_splits(cuda, shape, dtype):
+    b, h, w, cin, hidden, c2 = shape
+    g = torch.Generator(device=cuda).manual_seed(h * w + cin)
+
+    def uniform(*size, bound=1.0):
+        return (torch.rand(*size, generator=g, device=cuda) * 2 - 1) * bound
+
+    args = (
+        torch.randn(b, h, w, cin, generator=g, device=cuda).to(dtype),
+        torch.randn(b, h, w, c2, generator=g, device=cuda).to(dtype),
+        uniform(cin, hidden, bound=cin**-0.5), uniform(hidden, bound=cin**-0.5),
+        uniform(hidden) * 0.5 + 1.0, uniform(hidden, bound=0.3),
+        uniform(hidden, c2, bound=hidden**-0.5), uniform(c2, bound=hidden**-0.5),
+        uniform(c2) * 0.5 + 1.0, uniform(c2, bound=0.3),
+    )
+    got = fused_gate_train.fused_attention_gate_train(*args)
+    again = fused_gate_train.fused_attention_gate_train(*args)
+    want = fused_gate_train.fused_attention_gate_train_plain(*args)
+    torch.cuda.synchronize()
+    _assert_train_gate_close(got, want)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
 def test_train_gate_variance_of_an_offset_channel(cuda):
     """A channel whose mean is 1000 times its spread, over 262,144 rows:
     E[h^2] - E[h]^2 in f32 would lose the variance; the kernel's stays within
@@ -209,8 +252,9 @@ def _assert_conv_close(got, want):
         assert bool((diff <= want.float().abs() * 2**-7 + 1e-6).all())
 
 
-# ragged H and W against the 4 x 32 tile, C across the 8-channel chunk, O
-# below, at and across the 8-channel warp slice, the largest C and O taken
+# ragged H and W against the f32 kernel's 4 x 32 tile, C across its
+# 8-channel chunk, O below, at and across its 8-channel warp slice, the
+# largest C and O taken; bf16 through the tensor-core kernel
 @pytest.mark.parametrize(
     "shape",
     [(1, 1, 1, 1, 1), (2, 5, 33, 9, 8), (1, 13, 70, 33, 20), (3, 9, 31, 20, 33),
@@ -233,6 +277,53 @@ def test_small_conv_kernel_matches_plain(cuda, shape, dtype, bias):
     assert got.dtype == dtype and got.shape == (b, h, w, o)
     _assert_conv_close(got, want)
     assert torch.equal(got, again)  # a fixed summation order
+
+
+# bf16 (the tensor-core kernel) against its 4 x 64 tile and its channel
+# padding: H, W off the tile, C and O across the 16-wide contraction and the
+# 8-wide output tiles up to 99 (where the output channels split across
+# blocks), batch 1 and 3, with and without bias
+@pytest.mark.parametrize("hw", [(13, 11), (1, 1), (3, 40), (130, 257)])
+@pytest.mark.parametrize(
+    "c,o,b,bias",
+    [(1, 99, 1, True), (8, 67, 3, False), (16, 33, 1, False), (17, 20, 3, True),
+     (20, 17, 1, True), (33, 16, 3, False), (67, 8, 1, True), (99, 1, 3, False),
+     (67, 67, 1, False), (99, 99, 3, True)],
+)
+def test_small_conv_bf16_tiles(cuda, hw, c, o, b, bias):
+    h, w = hw
+    g = torch.Generator(device=cuda).manual_seed(h * w + 7 * c + o)
+    x = torch.randn(b, h, w, c, generator=g, device=cuda).to(torch.bfloat16)
+    k = (torch.rand(3, 3, c, o, generator=g, device=cuda) * 2 - 1) / (9 * c) ** 0.5
+    bv = torch.randn(o, generator=g, device=cuda) if bias else None
+    got = small_conv.conv3x3_small(x, k, bv)
+    again = small_conv.conv3x3_small(x, k, bv)
+    want = small_conv.conv3x3_small_plain(x, k, bv)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, o)
+    _assert_conv_close(got, want)
+    assert torch.equal(got, again)
+
+
+# bf16 x starting 1-7 elements past a 16-byte boundary (a view into a larger
+# buffer): the kernel reads its chunks from the boundary below, with no copy
+@pytest.mark.parametrize("offset", range(8))
+def test_small_conv_bf16_unaligned_input(cuda, offset):
+    b, h, w, c, o = 2, 9, 70, 67, 33
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    buf = torch.randn(b * h * w * c + 8, generator=g, device=cuda).to(torch.bfloat16)
+    x = buf[offset:offset + b * h * w * c].view(b, h, w, c)
+    k = (torch.rand(3, 3, c, o, generator=g, device=cuda) * 2 - 1) / (9 * c) ** 0.5
+    aligned = small_conv.conv3x3_small(x.clone(), k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = small_conv.conv3x3_small(x, k)
+    torch.cuda.synchronize()
+    # only the output was allocated (the caching allocator rounds to 512 B)
+    assert torch.cuda.max_memory_allocated() - base <= -(-got.numel() * 2 // 512) * 512
+    _assert_conv_close(got, small_conv.conv3x3_small_plain(x, k))
+    assert torch.equal(got, aligned)  # the same bits as from an aligned copy
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

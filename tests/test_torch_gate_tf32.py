@@ -1,0 +1,66 @@
+"""The train-mode gate's 3xTF32 arithmetic, emulated on the CPU.
+
+The CUDA kernel of ``fused_attention_gate_train`` takes its products on the
+tensor cores as 3xTF32. ``fused_attention_gate_train_tf32`` emulates that
+arithmetic with PyTorch ops (TF32 rounding by masking mantissa bits). At
+MTAN's dec0 and dec3 widths the emulation stays within ``chip_smoke.py``'s
+limits for the kernel against its plain version (output max |diff| <= 1e-4,
+statistics within 1e-5 relative + 1e-6), and a single TF32 product falls
+outside them: the split is what the limits need.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vision_mtl_tpu_torch.kernels import fused_gate_train
+
+HIDDEN = 128
+
+
+def _args(cin, c2, n, seed):
+    rng = np.random.default_rng(seed)
+
+    def uniform(*shape, bound=1.0):
+        return torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32))
+
+    return (
+        torch.from_numpy(rng.standard_normal((1, n // 16, 16, cin)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((1, n // 16, 16, c2)).astype(np.float32)),
+        uniform(cin, HIDDEN, bound=cin**-0.5), uniform(HIDDEN, bound=cin**-0.5),
+        uniform(HIDDEN) * 0.5 + 1.0, uniform(HIDDEN, bound=0.3),
+        uniform(HIDDEN, c2, bound=HIDDEN**-0.5), uniform(c2, bound=HIDDEN**-0.5),
+        uniform(c2) * 0.5 + 1.0, uniform(c2, bound=0.3),
+    )
+
+
+def _within_smoke_limits(got, want) -> bool:
+    out_ok = float((got[0] - want[0]).abs().max()) <= 1e-4
+    stats_ok = all(bool(((g - w).abs() <= 1e-5 * w.abs() + 1e-6).all())
+                   for g, w in zip(got[1:], want[1:]))
+    return out_ok and stats_ok
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    one = 1.0
+    v = torch.tensor([one + 2**-12, one + 2**-11, one + 3 * 2**-12, -(one + 2**-11), 3.0,
+                      one + 2**-10 + 2**-11])
+    want = torch.tensor([one, one + 2**-10, one + 2**-10, -(one + 2**-10), 3.0,
+                         one + 2 * 2**-10])
+    assert torch.equal(fused_gate_train.tf32_round(v), want)
+
+
+@pytest.mark.parametrize("level,cin,c2", [("dec0", 640, 256), ("dec3", 192, 32)])
+def test_three_tf32_products_meet_the_f32_limits_and_one_does_not(level, cin, c2):
+    args = _args(cin, c2, n=512, seed=cin)
+    want = fused_gate_train.fused_attention_gate_train_plain(*args)
+    split = fused_gate_train.fused_attention_gate_train_tf32(*args)
+    single = fused_gate_train.fused_attention_gate_train_tf32(*args, split=False)
+    assert _within_smoke_limits(split, want), level
+    assert not _within_smoke_limits(single, want), level
+    # the bf16 path: x and shared in bf16, exact in TF32
+    args16 = (args[0].bfloat16(), args[1].bfloat16(), *args[2:])
+    want16 = fused_gate_train.fused_attention_gate_train_plain(*args16)
+    got16 = fused_gate_train.fused_attention_gate_train_tf32(*args16)
+    diff = (got16[0].float() - want16[0].float()).abs()
+    assert bool((diff <= want16[0].float().abs() * 2**-7 + 1e-6).all())

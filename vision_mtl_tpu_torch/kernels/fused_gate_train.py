@@ -8,12 +8,20 @@ of the gate chain
 
 normalise with the batch's own statistics, so the chain needs two global
 reductions before it can write its output. The CUDA kernel
-(``csrc/fused_gate.cu``, three passes) recomputes the (N, hidden) and (N, C2)
-intermediates instead of storing them and returns
-``(out, mean1, var1, mean2, var2)``: the raw biased batch statistics, which
-the caller folds into its running statistics.
+(``csrc/gate_train.cu``) runs three passes: the first keeps ``x @ w1`` in
+scratch memory for the other two, the (N, C2) intermediate is recomputed.
+It returns ``(out, mean1, var1, mean2, var2)``: the raw biased batch
+statistics, which the caller folds into its running statistics.
 :func:`fused_attention_gate_train_plain` computes the same function with
 PyTorch ops and is what runs for CPU tensors.
+
+The kernel takes its products on the tensor cores as 3xTF32: each f32
+operand ``a`` is split into ``a_hi``, its TF32 rounding, and ``a_lo``, the
+TF32 rounding of ``a - a_hi``, and ``a @ b`` is taken as
+``a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi``.
+:func:`fused_attention_gate_train_tf32` emulates that arithmetic with
+PyTorch ops (and, with ``split=False``, a single TF32 product, which is not
+accurate enough); it is for tests and never on the main path.
 
 :func:`fused_attention_gate_train` is differentiable. Its backward is
 PyTorch ops by design (the JAX package differentiates this chain with XLA and
@@ -31,7 +39,9 @@ import typing as t
 import torch
 
 from vision_mtl_tpu_torch.kernels._build import LaunchCounter, load
-from vision_mtl_tpu_torch.kernels.fused_gate import SOURCE, check_gate_args
+from vision_mtl_tpu_torch.kernels.fused_gate import check_gate_args
+
+SOURCE = "gate_train"
 
 launches = LaunchCounter()
 
@@ -40,7 +50,7 @@ _SIGNATURE = (
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p]
 )
-_SCRATCH_SIGNATURE = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+_SCRATCH_SIGNATURE = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
@@ -86,6 +96,41 @@ def fused_attention_gate_train_plain(
     return out, mean1, var1, mean2, var2
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: add half of the dropped
+    13 bits' range to the bit pattern and mask them off."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def fused_attention_gate_train_tf32(
+    x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps=1e-5, split=True
+):
+    """The kernel's function with both products taken from TF32 operands as
+    the kernel takes them: 3xTF32 (``a_lo b_hi + a_hi b_lo + a_hi b_hi``),
+    or one TF32 product ``a_hi b_hi`` when ``split`` is False. f32 or bf16
+    inputs, f32 math, statistics in f64. For tests: the CUDA kernel's
+    arithmetic, emulated on the CPU."""
+
+    def matmul(a, b):
+        a_hi, b_hi = tf32_round(a), tf32_round(b)
+        if not split:
+            return a_hi @ b_hi
+        a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+    cin, c2ch = x.shape[-1], shared.shape[-1]
+    h = matmul(x.reshape(-1, cin), w1) + b1
+    mean1, var1 = _batch_stats(h)
+    h = torch.relu((h - mean1) * (scale1 / torch.sqrt(var1 + eps)) + bias1)
+    a = matmul(h, w2) + b2
+    mean2, var2 = _batch_stats(a)
+    attn = torch.sigmoid((a - mean2) * (scale2 / torch.sqrt(var2 + eps)) + bias2)
+    out = (shared.reshape(-1, c2ch).float() * attn).to(shared.dtype).reshape(shared.shape)
+    return out, mean1, var1, mean2, var2
+
+
 def _launch(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
     """The CUDA kernel's forward; raises unless every tensor fits it."""
     _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2)
@@ -97,7 +142,7 @@ def _launch(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
     nbytes = load(
         SOURCE, "vmtl_fused_attention_gate_train_scratch_bytes", _SCRATCH_SIGNATURE,
         restype=ctypes.c_longlong,
-    )(n, hidden, c2ch)
+    )(n, cin, hidden, c2ch)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     fn = load(SOURCE, "vmtl_fused_attention_gate_train", _SIGNATURE)
     with torch.cuda.device(x.device):

@@ -5,11 +5,12 @@ Counterpart of ``_conv3x3_pallas`` in ``vision_mtl_tpu/ops/pallas/small_conv.py`
 an NHWC 3x3 conv with one pixel of zero padding, plus bias, for C, O < 100.
 The input and the weights take x's dtype before the products (bf16 or f32),
 products are summed in f32, the f32 bias is added in f32 and the result is
-cast to x's dtype once. The CUDA kernel (``csrc/small_conv.cu``) stages the
-input tile with its halo and the weights in shared memory and accumulates in
-registers; :func:`conv3x3_small_plain` computes the same function with
-PyTorch ops and is what runs for CPU tensors. The differentiable entry point
-is ``vision_mtl_tpu_torch.ops.small_conv.conv3x3_small``.
+cast to x's dtype once. The CUDA source (``csrc/small_conv.cu``) dispatches
+on the dtype: bf16 runs an implicit GEMM on the tensor cores (mma.sync, f32
+sums) that rounds the f32 weights to bf16 as it stages them, f32 a SIMT
+kernel on f32 FMAs. :func:`conv3x3_small_plain` computes the same function
+with PyTorch ops and is what runs for CPU tensors. The differentiable entry
+point is ``vision_mtl_tpu_torch.ops.small_conv.conv3x3_small``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,10 @@ MAX_CHANNELS = 99
 
 launches = LaunchCounter()
 
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIGNATURE = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+    + [ctypes.c_int, ctypes.c_void_p]
+)
 
 
 def fits(in_ch: int, out_ch: int) -> bool:
@@ -58,8 +62,10 @@ def conv3x3_small(
     (see ``ops.small_conv``).
 
     CPU tensors take :func:`conv3x3_small_plain`. CUDA tensors launch the
-    kernel (x contiguous, bf16 or f32; C, O <= 99; the kernel is cast to x's
-    dtype and the bias to f32 here) or raise; there is no fallback.
+    kernel (x contiguous, bf16 or f32; C, O <= 99) or raise; there is no
+    fallback. bf16 passes the weights in f32 at any strides (the kernel
+    rounds them as it stages them); f32 makes them contiguous. The bias goes
+    in f32.
     """
     if x.device.type == "cpu":
         return conv3x3_small_plain(x, kernel, bias)
@@ -67,13 +73,14 @@ def conv3x3_small(
     b, h, w, c = x.shape
     o = kernel.shape[-1]
     out = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
-    k = kernel.to(x.dtype).contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    k = kernel.to(torch.float32) if bf16 else kernel.to(torch.float32).contiguous()
     bias32 = None if bias is None else bias.to(torch.float32).contiguous()
     fn = load(SOURCE, "vmtl_conv3x3_small", _SIGNATURE)
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), k.data_ptr(), None if bias32 is None else bias32.data_ptr(),
-            out.data_ptr(), b, h, w, c, o, int(x.dtype == torch.bfloat16),
+            out.data_ptr(), b, h, w, c, o, *k.stride(), int(bf16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
