@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (vision_mtl_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels
 
 Builds the hand-written CUDA kernels from ``vision_mtl_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
@@ -17,6 +18,13 @@ after it, show that each path went through its kernels (exact counts per
 forward and per train step). Any mismatch or error ends the run with a
 non-zero exit; without a CUDA card it exits 2 and prints no result.
 
+``--kernels`` times the eval gate and the confusion matrix only (the
+``gate_shapes`` and ``confmat_mixes`` lines, then the card's name and power
+limit) and prints no ``ok`` line. Its wrappers' API is that of earlier
+trees, so a copy of this script run from the root of an earlier checkout
+times that checkout's kernels the same way: device time beside device
+time.
+
 Tolerances, kernel against plain version:
   * fused_attention_gate and the output of fused_attention_gate_train, f32:
     max |diff| <= 1e-4 (sums of up to 640 f32 products taken in another
@@ -27,7 +35,8 @@ Tolerances, kernel against plain version:
     |diff| <= 1e-5 |plain| + 1e-6 (the plain version sums in f64), and
     bit-identical on a second launch (the kernel's sums run in a fixed
     order);
-  * confusion_matrix: exact (integer counts);
+  * fused_attention_gate: bit-identical on a second launch (no atomics);
+  * confusion_matrix: exact (integer counts) on every label mix;
   * conv3x3_small (B3), forward and dx shapes: f32 max |diff| <= 1e-4 of
     the output's largest magnitude (sums of up to 603 products in another
     order), bf16 within one bf16 rounding step as the gates, and
@@ -56,32 +65,36 @@ losses, and the loss on a repeated batch must fall.
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes moved (each input read once, each output written once)
 at 3.35 TB/s and the operations at the peak for their type, from the H100
-SXM data sheet at 700 W: the eval gate's products are f32, 67 TFLOP/s
-outside the tensor cores; B3's products are those of a bf16 dot with f32
+SXM data sheet at 700 W. B3's products are those of a bf16 dot with f32
 accumulation in the TPU kernel, so its bf16 calls (the tensor-core kernel)
 take the bf16 tensor-core peak, 989 TFLOP/s, and its f32 calls (the SIMT
-kernel) the f32 peak. B3's ``library_ms`` is one ``F.conv2d`` (cuDNN, no
-TF32) of the same inputs, timed here only. The train-mode gate's function
-needs each of its two products once, 2N(Cin hidden + hidden C2)
-operations, as the eval gate's does: ``bound_f32_ms`` at the f32 peak. Its
-kernel takes them as 3xTF32, three TF32 products each at 495 TFLOP/s (two
-for x @ w1 when x is bf16, which TF32 holds exactly): ``bound_ms`` (the
-function's products once, 3xTF32, which a kernel could reach) and
-``bound_design_ms`` (the three passes, 3xTF32: the second product twice,
-the first once where pass 1 stores x @ w1 for the other two, with its bytes
-written once and read twice, else three times) state those bounds beside
-it.
+kernel) the f32 peak, 67 TFLOP/s. B3's ``library_ms`` is one ``F.conv2d``
+(cuDNN, no TF32) of the same inputs, timed here only. Each gate's function
+needs each of its two products once, 2N(Cin hidden + hidden C2) operations
+in f32: ``bound_f32_ms`` at the f32 peak. The kernels take them as 3xTF32,
+three TF32 products each at 495 TFLOP/s (two for x @ w1 when x is bf16,
+which TF32 holds exactly): ``bound_ms`` (the function's products once,
+3xTF32, which a kernel could reach) and ``bound_design_ms`` state those
+bounds beside them. The design of the eval gate takes x @ w1 once for
+every 256 columns of C2 (once at MTAN's widths); that of the train gate runs
+three passes, 3xTF32: the second product twice, the first once where pass
+1 stores x @ w1 for the other two, with its bytes written once and read
+twice, else three times. The confusion matrix's ``library_ms`` is one
+``torch.bincount`` of the same cells.
 
-B3's and B4's ``ms``, ``plain_ms`` and ``library_ms`` are device time, the
-kernels each call launches summed by torch.profiler over sessions that saw
-every launch (:func:`device_times`);
-``events_ms`` beside them is CUDA-event time over back-to-back calls, which
-the host's time to launch them bounds once the kernels are short. The
-eval gate's and the confusion matrix's times are CUDA-event times.
+Every kernel's ``ms``, ``plain_ms`` and ``library_ms`` are device time, the
+kernels each call launches, each timed by torch.profiler as its mean over
+the launches the tracer saw (:func:`device_times`); ``events_ms`` beside
+them is
+CUDA-event time over back-to-back calls, which the host's time to launch
+them bounds once the kernels are short. The confusion matrix is timed on
+three label mixes (:func:`confmat_mixes`); its ``kernels`` entry is the
+main path's own ids.
 
 Lines before the last: per-shape results of both gates and of B3, each
-model's serving and evaluation numbers and training numbers, the
-``kernels`` JSON line, the card's name and power limit. The last line is
+model's serving and evaluation numbers and training numbers, the confusion
+matrix on its label mixes, the ``kernels`` JSON line, the card's name and
+power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -182,42 +195,41 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, n: int = 10, launches: tuple = ()) -> dict:
-    """Device time of one call by kernel name (and memsets), from
-    torch.profiler over ``n`` calls. Unlike :func:`time_ms` it does not read
-    the host's time to launch them, which a call whose kernels are short
-    can exceed.
+def device_times(fn, n: int = 10, launches: tuple = (), sessions: int = 3) -> dict:
+    """Device time of one call by kernel name (and memset or memcpy), from
+    torch.profiler over ``sessions`` sessions of ``n`` calls. Unlike
+    :func:`time_ms` it does not read the host's time to launch them, which a
+    call whose kernels are short can exceed.
 
-    A session can miss part of the device's activity (a process's first
-    one, while the tracer starts), and would then read a call as faster
-    than it is. So a session counts only if each kernel it saw ran a whole
-    number of times per call and each pattern in ``launches`` (a regex on
-    kernel names) matched exactly ``n`` runs; and two such sessions must
-    agree on every kernel's count. Their times are averaged. Fails if five
-    sessions give no such pair."""
+    The tracer does not record every launch: sessions have missed kernels
+    of a few microseconds and memcopies, and a time summed over what was
+    seen and divided by ``n`` would read the call faster than it is. So a
+    kernel's time per call is its mean over the launches the sessions saw,
+    times its launches per call: the most any session saw, per call,
+    rounded. Fails if no session saw device activity, or if a pattern of
+    ``launches`` (a regex on kernel names) matched no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    complete, counts = [], {}
-    for _ in range(5):
+    seen: dict = {}  # name: [total us, launches seen, most launches a call]
+    for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        events = {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
-                  if e.self_device_time_total > 0
-                  and not getattr(e, "is_user_annotation", False)}
-        counts = {k: c for k, (_, c) in events.items()}
-        if not counts or any(c % n for c in counts.values()) or any(
-            sum(c for k, c in counts.items() if re.search(p, k)) != n for p in launches
-        ):
-            continue
-        same = [s for s in complete if {k: c for k, (_, c) in s.items()} == counts]
-        if same:
-            return {k: (t + same[-1][k][0]) / 2e3 / n for k, (t, _) in events.items()}
-        complete.append(events)
-    fail(f"torch.profiler: no two complete sessions agree over {n} calls; last counts {counts}")
+        for e in prof.key_averages():
+            if e.self_device_time_total <= 0 or getattr(e, "is_user_annotation", False):
+                continue
+            total, count, per = seen.get(e.key, (0.0, 0, 0))
+            seen[e.key] = (total + e.self_device_time_total, count + e.count,
+                           max(per, round(e.count / n)))
+    if not seen:
+        fail("torch.profiler saw no device activity")
+    for pattern in launches:
+        if not any(re.search(pattern, k) for k in seen):
+            fail(f"torch.profiler saw no kernel matching {pattern!r}; saw {sorted(seen)}")
+    return {k: total / count * max(1, per) / 1e3 for k, (total, count, per) in seen.items()}
 
 
 def device_ms(fn, n: int = 10, launches: tuple = ()) -> float:
@@ -253,10 +265,28 @@ def expected(kernels, per: dict, n: int, **extra: int) -> dict:
     return want
 
 
+def tf32_flops(n: int, cin: int, c2: int, x_bf16: bool, first_products: int = 1) -> float:
+    """Operations of a gate's two products taken as 3xTF32: three TF32
+    products for each f32 one, but two for x @ w1 when x is bf16, which TF32
+    holds exactly; x @ w1 taken ``first_products`` times."""
+    k1 = 2 if x_bf16 else 3
+    return 2.0 * n * (first_products * k1 * cin * HIDDEN + 3 * HIDDEN * c2)
+
+
 def check_gate(dev, fused_gate) -> tuple:
+    """The eval gate against its plain version at the MTAN gate shapes:
+    output and the same bits from a second launch; device times of the
+    kernel and the plain version, the kernel's event time, and its bounds:
+    the function's products once in 3xTF32 (``bound_ms``) and in f32
+    (``bound_f32_ms``), and its design's (``bound_design_ms``: x @ w1 once
+    for every 256 columns of C2, as csrc/fused_gate.cu pairs its blocks;
+    at MTAN's widths the same as ``bound_ms``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    rows = []
+    totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "bound_f32_ms": 0.0, "bound_design_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
+    slower_than_plain = []
     for level, cin, c2, h, w in GATE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(BATCH, h, w, cin, generator=gen, device=dev).to(dtype)
@@ -267,31 +297,48 @@ def check_gate(dev, fused_gate) -> tuple:
             c2v = torch.randn(c2, generator=gen, device=dev) * 0.1
             args = (x, shared, w1, c1, w2, c2v)
             got = fused_gate.fused_attention_gate(*args)
+            again = fused_gate.fused_attention_gate(*args)
             want = fused_gate.fused_attention_gate_plain(*args)
             torch.cuda.synchronize()
             err, ok = output_ok(got, want)
             if not ok:
                 fail(f"fused_attention_gate {level} {dtype}: max |diff| {err}")
+            if not torch.equal(got, again):
+                fail(f"fused_attention_gate {level} {dtype}: a second launch differs")
             n = BATCH * h * w
             es = x.element_size()
             nbytes = es * n * (cin + 2 * c2) + 4 * (cin * HIDDEN + HIDDEN + HIDDEN * c2 + c2)
             flops = 2.0 * n * (cin * HIDDEN + HIDDEN * c2)
-            b_ms, b_by = bound(nbytes, flops)
+            tc_flops = tf32_flops(n, cin, c2, es == 2)
+            b_ms, b_by = bound(nbytes, tc_flops, TF32_TC_FLOPS_PER_S)
+            pairs = -(-c2 // 256)
+            design_ms, _ = bound(nbytes + (pairs - 1) * es * n * cin,
+                                 tf32_flops(n, cin, c2, es == 2, pairs), TF32_TC_FLOPS_PER_S)
+
+            def kernel():
+                fused_gate.fused_attention_gate(*args)
+
             row = {
                 "level": level, "dtype": str(dtype).replace("torch.", ""),
                 "N": n, "Cin": cin, "C2": c2, "max_abs_err": err,
-                "ms": time_ms(lambda: fused_gate.fused_attention_gate(*args)),
-                "plain_ms": time_ms(lambda: fused_gate.fused_attention_gate_plain(*args)),
-                "bound_ms": b_ms, "bound_by": b_by,
+                "ms": device_ms(kernel, launches=("gate_kernel<",)),
+                "events_ms": time_ms(kernel),
+                "plain_ms": device_ms(lambda: fused_gate.fused_attention_gate_plain(*args)),
+                "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": bound(nbytes, flops)[0],
+                "bound_design_ms": design_ms,
             }
+            if row["ms"] > row["plain_ms"]:
+                slower_than_plain.append(f"{level} {row['dtype']}")
             rows.append(row)
             totals["err"] = max(totals["err"], err)
             if dtype == torch.bfloat16:  # the main path's dtype: 2 tasks per level
-                for k in ("ms", "plain_ms", "bound_ms"):
+                for k in ("ms", "events_ms", "plain_ms", "bound_ms", "bound_f32_ms",
+                          "bound_design_ms"):
                     totals[k] += 2 * row[k]
-                by_flops += 2 * flops / F32_FLOPS_PER_S
+                by_flops += 2 * tc_flops / TF32_TC_FLOPS_PER_S
                 by_bytes += 2 * nbytes / HBM_BYTES_PER_S
     totals["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
+    totals["slower_than_plain"] = slower_than_plain
     return rows, totals
 
 
@@ -341,11 +388,9 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
                 cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2 + 3 * c2 + 2 * (HIDDEN + c2)
             )
             flops = 2.0 * n * (cin * HIDDEN + HIDDEN * c2)
-            # 3xTF32: three TF32 products for each f32 one, but two for
-            # x @ w1 when x is bf16, which TF32 holds exactly
-            k1 = 2 if args[0].element_size() == 2 else 3
-            tf32_flops = 2.0 * n * (k1 * cin * HIDDEN + 3 * HIDDEN * c2)
-            b_ms, b_by = bound(nbytes, tf32_flops, TF32_TC_FLOPS_PER_S)
+            x_bf16 = args[0].element_size() == 2
+            tc_flops = tf32_flops(n, cin, c2, x_bf16)
+            b_ms, b_by = bound(nbytes, tc_flops, TF32_TC_FLOPS_PER_S)
             f32_ms, _ = bound(nbytes, flops)
             # the three passes, 3xTF32: the second product twice; the first
             # once where pass 1 stores x @ w1 for passes 2 and 3 to read back
@@ -353,7 +398,8 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
             stores_h = cin > 16
             design_ms, _ = bound(
                 nbytes + (3 * 4 * n * HIDDEN if stores_h else 0),
-                2.0 * n * ((1 if stores_h else 3) * k1 * cin * HIDDEN + 2 * 3 * HIDDEN * c2),
+                tf32_flops(n, cin, c2, x_bf16, 1 if stores_h else 3)
+                + 2.0 * n * 3 * HIDDEN * c2,
                 TF32_TC_FLOPS_PER_S,
             )
             with torch.no_grad():
@@ -397,14 +443,19 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
                 for k in ("ms", "events_ms", "plain_ms", "bound_ms", "bound_f32_ms",
                           "bound_design_ms", "backward_ms"):
                     totals[k] += 2 * row[k]
-                by_flops += 2 * tf32_flops / TF32_TC_FLOPS_PER_S
+                by_flops += 2 * tc_flops / TF32_TC_FLOPS_PER_S
                 by_bytes += 2 * nbytes / HBM_BYTES_PER_S
     totals["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
     totals["slower_than_plain"] = slower_than_plain
     return rows, totals
 
 
-def check_confmat(dev, confmat, num_classes: int) -> dict:
+def confmat_mixes(dev, num_classes: int, main_path: tuple) -> dict:
+    """Label mixes for the confusion matrix at batch 8 x 128 x 256, each
+    (targets, preds, mask): uniform random ids (some outside [0, C), one
+    sample left out of every eight by the mask); the main path's own ids
+    (``main_path``, as MTAN's predict-eval passed them); and one class
+    everywhere, every lane of a warp on one cell."""
     gen = torch.Generator(device=dev).manual_seed(1)
     shape = (BATCH, 128, 256)
     t = torch.randint(-1, num_classes + 2, shape, generator=gen, device=dev, dtype=torch.int32)
@@ -412,24 +463,63 @@ def check_confmat(dev, confmat, num_classes: int) -> dict:
     p = torch.randint(0, num_classes + 1, shape, generator=gen, device=dev, dtype=torch.int32)
     valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], device=dev, dtype=torch.bool)
     mask = valid[:, None, None].expand(shape).contiguous()
-    got = confmat.confusion_matrix(t, p, num_classes, mask)
-    want = confmat.confusion_matrix_plain(t, p, num_classes, mask)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if err != 0.0:
-        fail(f"confusion_matrix: max |diff| {err}, want exact")
-    n = t.numel()
-    keep = mask & (t >= 0) & (t < num_classes) & (p >= 0) & (p < num_classes)
-    idx = torch.where(keep, t * num_classes + p, num_classes * num_classes).long().reshape(-1)
-    b_ms, b_by = bound(n * (4 + 4 + 1) + 4 * num_classes**2, float(n))
-    return {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: confmat.confusion_matrix(t, p, num_classes, mask)),
-        "plain_ms": time_ms(lambda: confmat.confusion_matrix_plain(t, p, num_classes, mask)),
-        "library_ms": time_ms(lambda: torch.bincount(idx, minlength=num_classes**2 + 1)),
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-    }
+    one = torch.full(shape, num_classes - 1, device=dev, dtype=torch.int32)
+    return {"uniform": (t, p, mask), "main_path": main_path,
+            "one_class": (one, one.clone(), torch.ones(shape, device=dev, dtype=torch.bool))}
+
+
+def check_confmat(confmat, num_classes: int, mixes: dict) -> dict:
+    """The confusion matrix against its plain version on each label mix,
+    exact; its device time and the kernels a call launches, its event
+    time, the plain version's and one ``torch.bincount``'s device time on
+    the same ids, and the bytes bound."""
+    c = num_classes
+    out = {}
+    for name, (t, p, mask) in mixes.items():
+        got = confmat.confusion_matrix(t, p, c, mask)
+        want = confmat.confusion_matrix_plain(t, p, c, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err != 0.0:
+            fail(f"confusion_matrix {name}: max |diff| {err}, want exact")
+
+        def kernel():
+            confmat.confusion_matrix(t, p, c, mask)
+
+        n = t.numel()
+        times = device_times(kernel, n=20)
+        keep = (mask if mask is not None else True) & (t >= 0) & (t < c) & (p >= 0) & (p < c)
+        idx = torch.where(keep, t * c + p, c * c).long().reshape(-1)
+        b_ms, b_by = bound(n * (4 + 4 + (1 if mask is not None else 0)) + 4 * c * c, float(n))
+        out[name] = {
+            "max_abs_err": err, "N": n, "cells_hit": int((want > 0).sum()),
+            "ms": sum(times.values()), "kernels_per_call": [k[:60] for k in sorted(times)],
+            "events_ms": time_ms(kernel),
+            "plain_ms": device_ms(lambda: confmat.confusion_matrix_plain(t, p, c, mask), n=20),
+            "library_ms": device_ms(lambda: torch.bincount(idx, minlength=c * c + 1), n=20),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    return out
+
+
+@contextlib.contextmanager
+def capture_confmat_inputs():
+    """Records the (targets, preds, mask) of every confusion matrix the
+    metric path asks for while inside, and passes each call on."""
+    from vision_mtl_tpu_torch import metrics
+
+    real = metrics.confusion_matrix
+    seen = []
+
+    def recording(targets, preds, num_classes, mask=None):
+        seen.append((targets.clone(), preds.clone(), None if mask is None else mask.clone()))
+        return real(targets, preds, num_classes, mask)
+
+    metrics.confusion_matrix = recording
+    try:
+        yield seen
+    finally:
+        metrics.confusion_matrix = real
 
 
 def check_small_conv(dev, small_conv) -> tuple:
@@ -648,7 +738,8 @@ def predict_eval(name, model, cfg, dev, kernels) -> dict:
             "valid": valid,
         })
     kernels.reset_launch_counts()
-    preds, metrics = predict(batches, model, c, device=dev)
+    with capture_confmat_inputs() as confmat_inputs:
+        preds, metrics = predict(batches, model, c, device=dev)
     counts = kernels.launch_counts()
     if counts != expected(kernels, PER_FORWARD[name], N_EVAL_BATCHES,
                           confusion_matrix=N_EVAL_BATCHES):
@@ -667,7 +758,8 @@ def predict_eval(name, model, cfg, dev, kernels) -> dict:
     accuracy = np.trace(cm) / cm.sum()
     if abs(metrics["predict/accuracy"] - accuracy) > 1e-6:
         fail(f"predict-eval: accuracy {metrics['predict/accuracy']} vs numpy {accuracy}")
-    return {"launches": counts, "metrics": metrics, "valid_pixels": n_valid}
+    return {"launches": counts, "metrics": metrics, "valid_pixels": n_valid,
+            "confmat_inputs": confmat_inputs[0]}
 
 
 def train_batches(cfg, n: int, batch: int, seed: int) -> list:
@@ -880,7 +972,11 @@ def train_model(name, cfg, build_model, dev, kernels) -> dict:
     }
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print(f"chip_smoke: unknown arguments {argv}; takes none, or --kernels", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
@@ -904,14 +1000,20 @@ def main() -> int:
 
     gate_rows, gate = check_gate(dev, fused_gate)
     print(json.dumps({"gate_shapes": gate_rows}), flush=True)
+    cfg = fetch_data_cfg("cityscapes")
+    if kernels_only:
+        model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        main_ids = predict_eval("mtan", model, cfg, dev, kernels).pop("confmat_inputs")
+        mixes = check_confmat(confmat, cfg.num_classes, confmat_mixes(dev, cfg.num_classes, main_ids))
+        print(json.dumps({"gate_per_forward": gate, "confmat_mixes": mixes}), flush=True)
+        print(smi, flush=True)
+        return 0
     gate_train_rows, gate_train = check_gate_train(dev, fused_gate_train)
     print(json.dumps({"gate_train_shapes": gate_train_rows}), flush=True)
-    cmat = check_confmat(dev, confmat, 19)
     conv_rows, conv = check_small_conv(dev, small_conv)
     print(json.dumps({"small_conv_shapes": conv_rows}), flush=True)
     print(json.dumps({"small_conv_per_train_step": conv}), flush=True)
 
-    cfg = fetch_data_cfg("cityscapes")
     # the timed paths run first: after the CPU reference steps below, the
     # host launched the same train steps about 10% slower in this process
     model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
@@ -919,12 +1021,15 @@ def main() -> int:
     serving = serve_requests(model, cfg, dev, kernels)
     mtan_timing = time_predictor("mtan", model, cfg, dev, kernels)
     mtan_eval = predict_eval("mtan", model, cfg, dev, kernels)
+    # the confusion matrix on the ids MTAN's predict-eval gave it, and two more mixes
+    main_ids = mtan_eval.pop("confmat_inputs")
     del model
     mtan_training = train_model("mtan", cfg, build_model, dev, kernels)
     model = build_model("basic", cfg, dtype=torch.bfloat16, device=dev, seed=0)
     basic_params = sum(p.numel() for p in model.parameters())
     basic_timing = time_predictor("basic", model, cfg, dev, kernels)
     basic_eval = predict_eval("basic", model, cfg, dev, kernels)
+    basic_eval.pop("confmat_inputs")
     del model
     basic_training = train_model("basic", cfg, build_model, dev, kernels)
     phases = [  # launch counts of every main-path run
@@ -934,11 +1039,19 @@ def main() -> int:
         basic_training["launches"], basic_training["eval_step"]["launches"],
     ]
     timed_s = time.perf_counter() - t_start
+    cmat_mixes = check_confmat(confmat, cfg.num_classes, confmat_mixes(dev, cfg.num_classes, main_ids))
+    print(json.dumps({"confmat_mixes": cmat_mixes}), flush=True)
+    for name, mix in cmat_mixes.items():
+        if len(mix["kernels_per_call"]) != 1 or "confmat_kernel" not in mix["kernels_per_call"][0]:
+            fail(f"confusion_matrix {name}: a call ran {mix['kernels_per_call']}, want one kernel")
+    cmat = {**cmat_mixes["main_path"],
+            "max_abs_err": max(m["max_abs_err"] for m in cmat_mixes.values())}
 
     model_line = {
         "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16", "params": mtan_params,
         "reference_f32_vs_cpu": check_model_against_cpu("mtan", cfg, build_model, dev),
         "serving": serving, "predictor_8": mtan_timing, "predict_eval": mtan_eval,
+        "gate_per_forward": {k: v for k, v in gate.items() if k != "err"},
         "gate_share_of_forward_events": gate["ms"] / mtan_timing["forward_events_ms"],
         "build_s": build_s,
     }
@@ -1021,4 +1134,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -35,8 +35,15 @@ def _gate_args(dev, dtype, b, h, w, cin, hidden, c2, seed=0):
     )
 
 
-# ragged N against the 32-row tile, Cin below / across the 32-wide chunk,
-# the smallest and largest hidden and C2 the kernel takes
+# ragged N around the 64- and 128-row tiles (1, 63-65, 127-129) and the
+# small-N switch (64-row tiles up to N = 8,320, 128 above), Cin below and
+# across the 32- and 64-deep stages (3 and 1: bf16 rows not 16-byte
+# aligned, so staged element by element; 640), the smallest and largest
+# hidden and C2 the kernel takes. Blocks pair up at small N and for C2
+# above 128 (dec0's widths among them): C2 of 4 (the pair's second slice
+# empty), 12 (bf16 rows of 24 bytes: the output written element by
+# element), 256 at large N, and 512 (two pairs); a single Cin stage (the
+# pair's second block adds nothing)
 @pytest.mark.parametrize(
     "shape",
     [
@@ -45,6 +52,17 @@ def _gate_args(dev, dtype, b, h, w, cin, hidden, c2, seed=0):
         (1, 31, 1, 640, 128, 256),
         (3, 3, 11, 64, 4, 512),
         (1, 1, 1, 1, 128, 32),
+        (1, 1, 63, 64, 128, 64),
+        (1, 1, 64, 3, 128, 32),
+        (1, 1, 65, 192, 128, 32),
+        (1, 1, 127, 3, 128, 32),
+        (1, 1, 128, 640, 128, 256),
+        (1, 1, 129, 256, 128, 256),
+        (1, 1, 8320, 192, 128, 32),
+        (1, 1, 8321, 192, 128, 32),
+        (8, 16, 32, 640, 128, 256),
+        (1, 129, 129, 3, 128, 32),
+        (1, 1, 8321, 64, 128, 256),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -52,12 +70,36 @@ def test_gate_kernel_matches_plain(cuda, shape, dtype):
     args = _gate_args(cuda, dtype, *shape)
     before = fused_gate.launches.value
     got = fused_gate.fused_attention_gate(*args)
+    again = fused_gate.fused_attention_gate(*args)
     want = fused_gate.fused_attention_gate_plain(*args)
     torch.cuda.synchronize()
-    assert fused_gate.launches.value == before + 1
+    assert fused_gate.launches.value == before + 2
     assert got.dtype == dtype and got.shape == want.shape
+    _assert_gate_close(got, want)
+    assert torch.equal(got, again)  # no atomics: the same bits
+
+
+# x and shared as views 1-3 elements past a 16-byte boundary: staged and
+# written element by element, in place
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_kernel_unaligned_views(cuda, offset, dtype):
+    b, h, w, cin, hidden, c2 = 1, 3, 100, 64, 128, 64
+    args = list(_gate_args(cuda, dtype, b, h, w, cin, hidden, c2))
+    for i, ch in ((0, cin), (1, c2)):
+        buf = torch.empty(b * h * w * ch + offset, dtype=dtype, device=cuda)
+        view = buf[offset:].view(b, h, w, ch)
+        view.copy_(args[i])
+        args[i] = view
+    got = fused_gate.fused_attention_gate(*args)
+    want = fused_gate.fused_attention_gate_plain(*args)
+    torch.cuda.synchronize()
+    _assert_gate_close(got, want)
+
+
+def _assert_gate_close(got, want):
     diff = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
+    if got.dtype == torch.float32:
         assert float(diff.max()) <= 1e-4
     else:  # one bf16 rounding step of the f32 result
         assert bool((diff <= want.float().abs() * 2**-7 + 1e-6).all())
@@ -76,16 +118,94 @@ def test_gate_kernel_rejects_what_it_does_not_take(cuda):
         fused_gate.fused_attention_gate(args[0], args[1].cpu(), *args[2:])
 
 
-@pytest.mark.parametrize("n,c,masked", [(1, 3, False), (4097, 19, True), (100_003, 110, True)])
-def test_confmat_kernel_matches_plain(cuda, n, c, masked):
-    g = torch.Generator(device=cuda).manual_seed(n)
-    t = torch.randint(-3, c + 3, (n,), generator=g, device=cuda, dtype=torch.int32)
-    p = torch.randint(-3, c + 3, (n,), generator=g, device=cuda, dtype=torch.int32)
-    mask = torch.rand(n, generator=g, device=cuda) < 0.6 if masked else None
+def _confmat_inputs(dev, n, c, masked, labels, offsets=(0, 0, 0), seed=0):
+    """targets, preds and mask of n samples, each a view ``offsets`` elements
+    into a larger buffer. labels: "random" ids in [-3, C + 3) (some outside
+    [0, C)); "diagonal": preds = targets, runs of one class along rows of
+    256; "one_class": every sample in cell (C - 1, C - 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if labels == "random":
+        t = torch.randint(-3, c + 3, (n,), generator=g, device=dev, dtype=torch.int32)
+        p = torch.randint(-3, c + 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    elif labels == "diagonal":
+        t = (torch.arange(n, device=dev, dtype=torch.int32) // 256) % c
+        p = t.clone()
+    else:
+        t = torch.full((n,), c - 1, device=dev, dtype=torch.int32)
+        p = t.clone()
+    mask = torch.rand(n, generator=g, device=dev) < 0.6 if masked else None
+
+    def at_offset(v, k):
+        buf = torch.empty(n + k, dtype=v.dtype, device=dev)
+        buf[k:] = v
+        return buf[k:]
+
+    t, p = at_offset(t, offsets[0]), at_offset(p, offsets[1])
+    return t, p, None if mask is None else at_offset(mask, offsets[2])
+
+
+# n of 1, not a multiple of 4 and of 16, C up to the shared-memory limit of
+# 110; spatially coherent labels (every lane of a warp on one cell) and one
+# class; ids, and mask bytes, at element offsets: equal (aligned 16-byte
+# loads from a later index) and unequal (every sample taken alone)
+@pytest.mark.parametrize(
+    "n,c,masked,labels,offsets",
+    [
+        (1, 3, False, "random", (0, 0, 0)),
+        (4097, 19, True, "random", (0, 0, 0)),
+        (100_003, 110, True, "random", (0, 0, 0)),
+        (262_144, 19, True, "one_class", (0, 0, 0)),
+        (262_144, 19, False, "diagonal", (0, 0, 0)),
+        (4_097, 19, True, "diagonal", (1, 1, 1)),
+        (65_537, 19, True, "random", (3, 3, 7)),
+        (100_003, 110, False, "one_class", (5, 5, 0)),
+        (30, 19, True, "random", (1, 1, 1)),
+        (10_001, 19, True, "random", (0, 1, 0)),
+        (10_001, 19, True, "diagonal", (2, 2, 3)),
+    ],
+)
+def test_confmat_kernel_matches_plain(cuda, n, c, masked, labels, offsets):
+    t, p, mask = _confmat_inputs(cuda, n, c, masked, labels, offsets, seed=n)
+    before = confmat.launches.value
     got = confmat.confusion_matrix(t, p, c, mask)
     want = confmat.confusion_matrix_plain(t, p, c, mask)
     torch.cuda.synchronize()
+    assert confmat.launches.value == before + 1
     assert torch.equal(got, want)
+
+
+def test_confmat_back_to_back_calls_start_from_zero(cuda):
+    """20 calls in a row on one stream, each on other labels and some with
+    another C: every one exact, so each launch left its accumulator and done
+    counter at zero for the next."""
+    calls = []
+    for i in range(20):
+        c = 19 if i % 3 else 7
+        labels = ("random", "diagonal", "one_class")[i % 3]
+        args = _confmat_inputs(cuda, 50_000 + 37 * i, c, i % 2 == 0, labels, seed=i)
+        calls.append((confmat.confusion_matrix(*args[:2], c, args[2]), args, c))
+    torch.cuda.synchronize()
+    for got, (t, p, mask), c in calls:
+        assert torch.equal(got, confmat.confusion_matrix_plain(t, p, c, mask))
+
+
+def test_confmat_calls_on_two_streams(cuda):
+    """Calls queued on two streams at once, each stream several times: each
+    stream keeps its own accumulator, and every result is exact."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [_confmat_inputs(cuda, 262_144, 19, True, labels, seed=i)
+              for i, labels in enumerate(("one_class", "diagonal"))]
+    torch.cuda.synchronize()
+    results = [[], []]
+    for _ in range(5):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                t, p, mask = inputs[k]
+                results[k].append(confmat.confusion_matrix(t, p, 19, mask))
+    torch.cuda.synchronize()
+    for k, (t, p, mask) in enumerate(inputs):
+        want = confmat.confusion_matrix_plain(t, p, 19, mask)
+        assert all(torch.equal(got, want) for got in results[k])
 
 
 def test_confmat_counts_past_f32_integer_range(cuda):

@@ -1,21 +1,31 @@
-"""The train-mode gate's 3xTF32 arithmetic, emulated on the CPU.
+"""The gate kernels' 3xTF32 arithmetic, emulated on the CPU.
 
-The CUDA kernel of ``fused_attention_gate_train`` takes its products on the
-tensor cores as 3xTF32. ``fused_attention_gate_train_tf32`` emulates that
-arithmetic with PyTorch ops (TF32 rounding by masking mantissa bits). At
-MTAN's dec0 and dec3 widths the emulation stays within ``chip_smoke.py``'s
-limits for the kernel against its plain version (output max |diff| <= 1e-4,
-statistics within 1e-5 relative + 1e-6), and a single TF32 product falls
-outside them: the split is what the limits need.
+The CUDA kernels of ``fused_attention_gate_train`` and
+``fused_attention_gate`` take their products on the tensor cores as 3xTF32.
+``fused_attention_gate_train_tf32`` and ``fused_attention_gate_tf32``
+emulate that arithmetic with PyTorch ops (TF32 rounding by masking mantissa
+bits). At MTAN's dec0 and dec3 widths the emulations stay within
+``chip_smoke.py``'s limits for the kernels against their plain versions
+(output max |diff| <= 1e-4; the train gate's statistics within 1e-5
+relative + 1e-6), and a single TF32 product falls outside them: the split is
+what the limits need.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vision_mtl_tpu_torch.kernels import fused_gate_train
+from vision_mtl_tpu_torch.kernels import fused_gate, fused_gate_train
 
 HIDDEN = 128
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _args(cin, c2, n, seed):
@@ -47,7 +57,7 @@ def test_tf32_round_is_round_to_nearest_ties_away():
                       one + 2**-10 + 2**-11])
     want = torch.tensor([one, one + 2**-10, one + 2**-10, -(one + 2**-10), 3.0,
                          one + 2 * 2**-10])
-    assert torch.equal(fused_gate_train.tf32_round(v), want)
+    assert torch.equal(fused_gate.tf32_round(v), want)
 
 
 @pytest.mark.parametrize("level,cin,c2", [("dec0", 640, 256), ("dec3", 192, 32)])
@@ -64,3 +74,33 @@ def test_three_tf32_products_meet_the_f32_limits_and_one_does_not(level, cin, c2
     got16 = fused_gate_train.fused_attention_gate_train_tf32(*args16)
     diff = (got16[0].float() - want16[0].float()).abs()
     assert bool((diff <= want16[0].float().abs() * 2**-7 + 1e-6).all())
+
+
+@pytest.mark.parametrize("level,cin,c2", [("dec0", 640, 256), ("dec3", 192, 32)])
+def test_eval_gate_three_tf32_products_meet_the_f32_limit_and_one_does_not(level, cin, c2):
+    """The eval gate at ``chip_smoke.py``'s inputs (folded weights as its
+    ``check_gate`` draws them), n = 512."""
+    n = 512
+    rng = np.random.default_rng(cin + 1)
+
+    def array(values):
+        return torch.from_numpy(values.astype(np.float32))
+
+    args = (
+        array(rng.standard_normal((1, n // 16, 16, cin))),
+        array(rng.standard_normal((1, n // 16, 16, c2))),
+        array(rng.uniform(-1, 1, size=(cin, HIDDEN))) / cin**0.5,
+        array(rng.standard_normal(HIDDEN)) * 0.1,
+        array(rng.uniform(-1, 1, size=(HIDDEN, c2))) / HIDDEN**0.5,
+        array(rng.standard_normal(c2)) * 0.1,
+    )
+    want = fused_gate.fused_attention_gate_plain(*args)
+    split = fused_gate.fused_attention_gate_tf32(*args)
+    single = fused_gate.fused_attention_gate_tf32(*args, split=False)
+    assert float((split - want).abs().max()) <= 1e-4, level
+    assert float((single - want).abs().max()) > 1e-4, level
+    # the bf16 path: x and shared in bf16, x exact in TF32
+    args16 = (args[0].bfloat16(), args[1].bfloat16(), *args[2:])
+    want16 = fused_gate.fused_attention_gate_plain(*args16).float()
+    diff = (fused_gate.fused_attention_gate_tf32(*args16).float() - want16).abs()
+    assert bool((diff <= want16.abs() * 2**-7 + 1e-6).all())

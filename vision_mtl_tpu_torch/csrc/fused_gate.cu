@@ -7,184 +7,284 @@
 //
 // with both BatchNorms already folded into (w1, c1) and (w2, c2) by the
 // caller. (The train-mode gate, whose BNs take the batch's statistics, is
-// csrc/gate_train.cu.)
+// csrc/gate_train.cu; both take their tile body from csrc/gate_tile.cuh.)
 //
 // x and shared are (N, Cin) and (N, C2) rows in f32 or bf16; the weights are
-// f32; all arithmetic is f32, as in the Pallas kernel; out takes shared's
-// type.
+// f32; the products are taken in f32 accuracy and the rest in f32, as in the
+// Pallas kernel; out takes shared's type.
 //
-// What bounds it on an H100: the products run in f32, 2*N*(Cin*hidden +
-// hidden*C2) operations against N*(Cin + 2*C2) activation elements moved.
-// At MTAN's shapes that is 33 to 56 operations per byte with f32
-// activations and 67 to 112 with bf16, above the f32 ridge of the card
-// (67 TFLOP/s over 3.35 TB/s = 20 per byte), so the f32 FMA rate bounds it,
-// not device memory.
+// What bounds it on an H100: its two products, 2N(Cin hidden + hidden C2)
+// operations, against N(Cin + 2 C2) activation elements moved. On the f32
+// units that is above the card's ridge at every MTAN level. Taken as 3xTF32
+// on the tensor cores (three TF32 products at 495 TFLOP/s for each f32 one,
+// two for x @ w1 when x is bf16) the operations still bound it at the
+// large levels; at the narrowest ones the bytes come close.
 //
-// Design: 256 threads for each tile of 32 rows. The (32, hidden)
-// intermediate h lives in shared memory only (on the TPU it stayed in VMEM).
-// w1 is streamed over Cin in chunks of 32 rows: at Cin = 640 it is 320 KB and
-// does not fit. w2 is streamed in chunks that fill a 16 KB buffer. Every
-// thread owns 4x4 register micro-tiles, so each shared-memory load feeds
-// four FMAs. Plain SIMT f32 code: tensor cores and TMA are later work.
+// Design. One tile of rows per block, 256 threads (gate_tile.cuh): 128-row
+// tiles and 32-deep stages, two blocks to an SM; below 8,321 rows (fewer
+// 128-row tiles than half the SMs) 64-row tiles and 64-deep stages, for
+// twice the blocks. The first product streams x and w1 over Cin in
+// double-buffered cp.async stages, so the weights are read from L2 once per
+// tile. h' = relu(x @ w1 + c1) goes to shared memory as f32 (in place of
+// the x stages) and never reaches device memory; the second product streams
+// w2 the same way. The gates sigmoid(h' @ w2 + c2) go to shared memory in
+// turn, and the block then reads shared and writes out along whole rows, as
+// 16-byte vectors where the rows allow. Each k-step's partial product is
+// added to the f32 sum with rounding to nearest (mma_chunk), so the sums
+// over Cin = 640 keep f32 accuracy.
+//
+// Pairs. A block's second product takes at most 128 columns of C2, and at
+// small N there are few tiles (MTAN's enc3 and dec0: N = 4,096, 64 tiles,
+// C2 = 256). There the two blocks of a tile form a thread-block cluster
+// along blockIdx.y: each takes half of Cin's stages of the first product,
+// the two add their partial sums through distributed shared memory, and
+// each then takes its own slice of C2. x @ w1 is taken once per tile (per
+// pair: a C2 above 256 takes two pairs, and each pair takes it), and the
+// card gets 128 blocks at N = 4,096 instead of 64. The other ways cost
+// more there: one block walking both slices over one h' has half the
+// blocks; two blocks each taking the whole x @ w1 for its slice do it twice
+// (on an H100, dec0 in f32 then took 69 us a call, the plain version 51). At
+// large N with C2 <= 128 (every other MTAN level) a block takes the tile
+// alone.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "gate_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;                // pixel rows per tile
-constexpr int kRowsPad = kRows + 4;      // transposed tiles: rows stay 16 B aligned
-constexpr int kChunkK = 32;              // rows of w1 (input channels) per chunk
-constexpr int kWBuf = 4096;              // floats in the weight-chunk buffer (16 KB)
+using namespace gate_tile;
+
 constexpr int kMaxHidden = 128;
 constexpr int kMaxC2 = 512;
-constexpr int kGroups = kRows / 4;       // 4-row groups of a tile
-// 4x4 micro-tiles of the (32, C2) output a thread owns, at most
-constexpr int kMaxTiles = kGroups * (kMaxC2 / 4) / kThreads;
+constexpr int kSliceC2 = 128;  // C2 columns a block takes, at most
 
 struct Pass {
   const void* x;
   const void* shared;
   void* out;
-  // h = x @ w1 + c1 and a = h' @ w2 + c2
+  // h' = relu(x @ w1 + c1) and a = h' @ w2 + c2
   const float* w1;
   const float* c1;
   const float* w2;
   const float* c2;
   long long n;
   int cin, hidden, c2ch;
+  int cols2;    // C2 columns a block takes (a slice; a pair takes two)
+  int vec_x;    // x rows are 16-byte aligned: staged by cp.async
+  int vec_out;  // shared and out rows are 16-byte aligned: read and written as 16-byte vectors
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// floats of shared memory with tile Tl: the x stages (two), later h' and
+// then the gates in their place; the weight stages (two)
+template <class Tl>
+__host__ __device__ constexpr int smem_floats() {
+  return (2 * Tl::kXs > kHs ? 2 * Tl::kRows * Tl::kXs : Tl::kRows * kHs) + 2 * Tl::kChunk * kWs;
 }
 
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
+// out = shared * gate over 16 bytes; the gates are 16 / sizeof(T) floats
+__device__ __forceinline__ uint4 gate16(uint4 s, const float* gate, float) {
+  const float4 g0 = *reinterpret_cast<const float4*>(gate);
+  float4 v = *reinterpret_cast<float4*>(&s);
+  v = make_float4(v.x * g0.x, v.y * g0.y, v.z * g0.z, v.w * g0.w);
+  return *reinterpret_cast<uint4*>(&v);
+}
+__device__ __forceinline__ uint4 gate16(uint4 s, const float* gate, __nv_bfloat16) {
+  __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&s);
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  for (int i = 0; i < 8; ++i) v[i] = __float2bfloat16(__bfloat162float(v[i]) * gate[i]);
+  return s;
 }
 
-// Copies `count` weights into shared memory.
-__device__ __forceinline__ void stage_chunk(float* __restrict__ dst, const float* __restrict__ src,
-                                            int count) {
-  for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gate_kernel(const Pass p) {
-  __shared__ __align__(16) float xs[kChunkK * kRowsPad];     // x chunk, [k][row]
-  __shared__ __align__(16) float ws[kWBuf];                  // w1 or w2 chunk, [k][col]
-  __shared__ __align__(16) float hs[kMaxHidden * kRowsPad];  // h, [j][row]
+template <typename T, class Tl, bool kPair>
+__global__ void __launch_bounds__(kThreads, 2) gate_kernel(const Pass p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kRows = Tl::kRows, kK = Tl::kChunk, kMt = Tl::kWarpRows / 16;
+  constexpr int kColAlign = 16;                   // 2 column warps x n8
+  constexpr int kXBuf = kRows * Tl::kXs;          // floats per x stage (f32 or bf16)
+  constexpr int kPitch = sizeof(T) == 4 ? Tl::kXs : Tl::kXsB;
+  float* wbuf = smem;                             // [2][kK][kWs]
+  float* xbuf = wbuf + 2 * kK * kWs;              // [2][kRows][kPitch] x stages
+  float* hs = xbuf;                               // then [kRows][kHs]: h', then the gates
 
   const T* __restrict__ x = static_cast<const T*>(p.x);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
   const long long n = p.n;
-  const int cin = p.cin, hidden = p.hidden, c2ch = p.c2ch;
-  const long long tiles = (n + kRows - 1) / kRows;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int c2lo = blockIdx.y * p.cols2;          // this block's columns of C2
+  // 0 for a pair's empty second slice
+  const int c2n = kPair ? max(0, min(p.cols2, p.c2ch - c2lo)) : min(p.cols2, p.c2ch - c2lo);
+  const int w1cols = (p.hidden + kColAlign - 1) / kColAlign * kColAlign;  // staged, zero past hidden
+  const int nt1 = w1cols / kColAlign;             // n8 tiles of a warp
+  const int w2cols = (c2n + kColAlign - 1) / kColAlign * kColAlign;
+  const int nt2 = w2cols / kColAlign;
+  const int nk1 = (p.cin + kK - 1) / kK;
+  // the first product's stages this block takes: a pair splits them in two
+  const int rank = kPair ? (int)(blockIdx.y & 1) : 0;
+  const int kbeg = kPair ? rank * ((nk1 + 1) / 2) : 0;
+  const int kend = kPair && rank == 0 ? (nk1 + 1) / 2 : nk1;
+  const int nk2 = (p.hidden + kK - 1) / kK;
+  const int wrow0 = wm * Tl::kWarpRows;           // the warp's first row in the tile
 
-  const int h4 = hidden / 4;
-  const bool own1 = tid < kGroups * h4;  // hidden <= 128: one micro-tile a thread
-  const int tr1 = own1 ? tid / h4 : 0;
-  const int tc1 = own1 ? tid % h4 : 0;
-  const int c4 = c2ch / 4;
-  const int tiles2 = kGroups * c4;
-  const int jc = min(hidden, kWBuf / c2ch);
+  float acc[kMt][kNt][4];
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
 
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * kRows;
+  // ---- first product: x @ w1 over stages [kbeg, kend) ----
+  if (!kPair || kbeg < kend) {
+    stage_x<Tl>(reinterpret_cast<T*>(xbuf), x, n, p.cin, row0, kbeg * kK, p.vec_x);
+    stage_w<kK>(wbuf, p.w1, p.cin, p.hidden, kbeg * kK, 0, p.hidden, w1cols);
+    cp_async_commit();
+  }
+  for (int kc = kbeg; kc < kend; ++kc) {
+    const int buf = (kc - kbeg) & 1;
+    if (kc + 1 < kend) {
+      stage_x<Tl>(reinterpret_cast<T*>(xbuf + (buf ^ 1) * kXBuf), x, n, p.cin, row0,
+                  (kc + 1) * kK, p.vec_x);
+      stage_w<kK>(wbuf + (buf ^ 1) * kK * kWs, p.w1, p.cin, p.hidden, (kc + 1) * kK, 0, p.hidden,
+                  w1cols);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k8 = (min(kK, p.cin - kc * kK) + 7) / 8;
+    mma_chunk<kMt>(acc, reinterpret_cast<const T*>(xbuf + buf * kXBuf), kPitch, 0,
+                   wbuf + buf * kK * kWs, k8, nt1, wrow0, wn * nt1 * 8);
+    __syncthreads();  // the stages are free
+  }
 
-    // ---- h = x @ w1 + c1 ----
-    float acc1[4][4] = {};
-    for (int k0 = 0; k0 < cin; k0 += kChunkK) {
-      const int kc = min(kChunkK, cin - k0);
-      __syncthreads();  // the previous chunk (or tile) has been consumed
-      for (int i = tid; i < kRows * kChunkK; i += kThreads) {
-        const int r = i / kChunkK, k = i % kChunkK;
-        const long long gr = row0 + r;
-        xs[k * kRowsPad + r] = (gr < n && k < kc) ? to_f32(x[gr * cin + k0 + k]) : 0.f;
-      }
-      stage_chunk(ws, p.w1 + (long long)k0 * hidden, kc * hidden);
-      __syncthreads();
-      if (own1) {
-        for (int k = 0; k < kc; ++k) {
-          const float4 xv = *reinterpret_cast<const float4*>(&xs[k * kRowsPad + tr1 * 4]);
-          const float4 wv = *reinterpret_cast<const float4*>(&ws[k * hidden + tc1 * 4]);
-          fma4x4(acc1, xv, wv);
+  if constexpr (kPair) {
+    // x @ w1 = this block's partial + the other's: each puts its partial in
+    // its own shared memory, reads the other's at the same places (both
+    // blocks lay the tile out alike) and adds it (a + b == b + a in f32,
+    // so both hold the same sums)
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      if (j >= nt1) break;
+      const int col = wn * nt1 * 8 + j * 8 + 2 * tg;
+#pragma unroll
+      for (int m = 0; m < kMt; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wrow0 + m * 16 + half * 8 + g;
+          *reinterpret_cast<float2*>(&hs[r * kHs + col]) =
+              make_float2(acc[m][j][half * 2], acc[m][j][half * 2 + 1]);
         }
-      }
     }
-    if (own1) {
+    cluster.sync();  // both partials are in place
+    const float* other = cluster.map_shared_rank(hs, rank ^ 1);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float b = p.c1[tc1 * 4 + c];
+    for (int j = 0; j < kNt; ++j) {
+      if (j >= nt1) break;
+      const int col = wn * nt1 * 8 + j * 8 + 2 * tg;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc1[r][c] += b;
-      }
-    }
-
-    // ---- h' = relu(h), kept in shared memory; a = h' @ w2 + c2 ----
-    if (own1) {
+      for (int m = 0; m < kMt; ++m)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 v = make_float4(fmaxf(acc1[0][c], 0.f), fmaxf(acc1[1][c], 0.f),
-                                     fmaxf(acc1[2][c], 0.f), fmaxf(acc1[3][c], 0.f));
-        *reinterpret_cast<float4*>(&hs[(tc1 * 4 + c) * kRowsPad + tr1 * 4]) = v;
-      }
-    }
-    float acc2[kMaxTiles][4][4] = {};
-    for (int j0 = 0; j0 < hidden; j0 += jc) {
-      const int jn = min(jc, hidden - j0);
-      __syncthreads();  // hs is complete; the previous w2 chunk has been consumed
-      stage_chunk(ws, p.w2 + (long long)j0 * c2ch, jn * c2ch);
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < kMaxTiles; ++m) {
-        const int t = tid + m * kThreads;
-        if (t < tiles2) {
-          const int tr = t / c4, tc = t % c4;
-          for (int j = 0; j < jn; ++j) {
-            const float4 hv = *reinterpret_cast<const float4*>(&hs[(j0 + j) * kRowsPad + tr * 4]);
-            const float4 wv = *reinterpret_cast<const float4*>(&ws[j * c2ch + tc * 4]);
-            fma4x4(acc2[m], hv, wv);
-          }
+        for (int half = 0; half < 2; ++half) {
+          const int r = wrow0 + m * 16 + half * 8 + g;
+          const float2 v = *reinterpret_cast<const float2*>(&other[r * kHs + col]);
+          acc[m][j][half * 2] += v.x;
+          acc[m][j][half * 2 + 1] += v.y;
         }
-      }
     }
+    cluster.sync();  // the other block has read this one's partial: hs is free
+    if (c2n == 0) return;
+  }
 
-    // ---- out = shared * sigmoid(a) ----
-    const T* __restrict__ shared = static_cast<const T*>(p.shared);
-    T* __restrict__ out = static_cast<T*>(p.out);
+  // w2's first chunk loads while h' is written
+  stage_w<kK>(wbuf, p.w2, p.hidden, p.c2ch, 0, c2lo, c2lo + c2n, w2cols);
+  cp_async_commit();
+  // ---- h' = relu(x @ w1 + c1) into shared memory; 0 past hidden ----
 #pragma unroll
-    for (int m = 0; m < kMaxTiles; ++m) {
-      const int t = tid + m * kThreads;
-      if (t >= tiles2) continue;
-      const int tr = t / c4, tc = t % c4;
+  for (int j = 0; j < kNt; ++j) {
+    if (j >= nt1) break;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const long long gr = row0 + tr * 4 + r;
-        if (gr >= n) continue;
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn * nt1 * 8 + j * 8 + 2 * tg + e;
+      const bool real = col < p.hidden;
+      const float c = real ? p.c1[col] : 0.f;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = tc * 4 + c;
-          const float a = acc2[m][r][c] + p.c2[col];
-          const float gate = 1.f / (1.f + expf(-a));
-          const long long o = gr * c2ch + col;
-          out[o] = from_f32<T>(to_f32(shared[o]) * gate);
+      for (int m = 0; m < kMt; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wrow0 + m * 16 + half * 8 + g;
+          hs[r * kHs + col] = real ? fmaxf(acc[m][j][half * 2 + e] + c, 0.f) : 0.f;
         }
-      }
+    }
+  }
+
+  // ---- second product: h' @ w2[:, c2lo : c2lo + c2n] ----
+#pragma unroll
+  for (int m = 0; m < kMt; ++m)
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  for (int kc = 0; kc < nk2; ++kc) {
+    const int buf = kc & 1;
+    if (kc + 1 < nk2) {
+      stage_w<kK>(wbuf + (buf ^ 1) * kK * kWs, p.w2, p.hidden, p.c2ch, (kc + 1) * kK, c2lo,
+                  c2lo + c2n, w2cols);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // h' is complete; the chunk has landed
+    const int k8 = (min(kK, p.hidden - kc * kK) + 7) / 8;
+    mma_chunk<kMt>(acc, hs, kHs, kc * kK, wbuf + buf * kK * kWs, k8, nt2, wrow0, wn * nt2 * 8);
+    __syncthreads();  // h' is read
+  }
+
+  // ---- the gates sigmoid(h' @ w2 + c2) into shared memory ----
+  float* gs = hs;
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) {
+    if (j >= nt2) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn * nt2 * 8 + j * 8 + 2 * tg + e;
+      if (col >= c2n) continue;
+      const float c = p.c2[c2lo + col];
+#pragma unroll
+      for (int m = 0; m < kMt; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wrow0 + m * 16 + half * 8 + g;
+          gs[r * kHs + col] = 1.f / (1.f + expf(-(acc[m][j][half * 2 + e] + c)));
+        }
+    }
+  }
+  __syncthreads();
+
+  // ---- out = shared * gate, along the tile's rows ----
+  const T* __restrict__ shared = static_cast<const T*>(p.shared);
+  T* __restrict__ out = static_cast<T*>(p.out);
+  const int rows = (int)min((long long)kRows, n - row0);
+  if (p.vec_out) {
+    constexpr int kPer16 = 16 / sizeof(T);
+    const int segs = c2n / kPer16;
+    for (int i = tid; i < rows * segs; i += kThreads) {
+      const int r = i / segs, s = i - r * segs;
+      const long long o = (row0 + r) * p.c2ch + c2lo + s * kPer16;
+      const uint4 v = *reinterpret_cast<const uint4*>(shared + o);
+      *reinterpret_cast<uint4*>(out + o) = gate16(v, gs + r * kHs + s * kPer16, T());
+    }
+  } else {
+    for (int i = tid; i < rows * c2n; i += kThreads) {
+      const int r = i / c2n, col = i - r * c2n;
+      const long long o = (row0 + r) * p.c2ch + c2lo + col;
+      out[o] = from_f32<T>(to_f32(shared[o]) * gs[r * kHs + col]);
     }
   }
 }
@@ -194,28 +294,66 @@ bool shapes_ok(long long n, int cin, int hidden, int c2ch) {
          c2ch <= kMaxC2 && c2ch % 4 == 0;
 }
 
-long long num_tiles(long long n) { return (n + kRows - 1) / kRows; }
-
-void launch(const Pass& p, unsigned grid, bool bf16, cudaStream_t s) {
-  if (bf16)
-    gate_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
-  else
-    gate_kernel<float><<<grid, kThreads, 0, s>>>(p);
+template <typename T, class Tl, bool kPair>
+cudaError_t launch_tile(const Pass& p, dim3 grid, cudaStream_t s) {
+  static bool opted_in = false;
+  constexpr size_t smem = sizeof(float) * smem_floats<Tl>();
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(gate_kernel<T, Tl, kPair>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];  // a pair: the two blocks of a tile along y
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 2;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = kPair ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, gate_kernel<T, Tl, kPair>, p);
 }
+
+// Grid and slices: tiles along x; along y, a pair of blocks for every 256
+// columns of C2 where blocks pair up (small N, or C2 above 128), else one.
+template <typename T>
+cudaError_t launch(Pass p, cudaStream_t s) {
+  const bool small = small_n(p.n);
+  const bool pair = small || p.c2ch > kSliceC2;
+  const long long tiles = num_tiles(p.n, small ? SmallTile::kRows : BigTile::kRows);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int slices = pair ? 2 * ((p.c2ch + 2 * kSliceC2 - 1) / (2 * kSliceC2)) : 1;
+  p.cols2 = ((p.c2ch + slices - 1) / slices + 7) / 8 * 8;  // whole 16-byte vectors
+  const dim3 grid((unsigned)tiles, slices);
+  if (small)
+    return pair ? launch_tile<T, SmallTile, true>(p, grid, s)
+                : launch_tile<T, SmallTile, false>(p, grid, s);
+  return pair ? launch_tile<T, BigTile, true>(p, grid, s)
+              : launch_tile<T, BigTile, false>(p, grid, s);
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
-// Eval-mode gate. Returns cudaGetLastError() after the launch: 0 when the
+// Eval-mode gate. Returns the first CUDA error of the launch, 0 when the
 // kernel was queued. x, shared, out: (n, cin), (n, c2ch), (n, c2ch) rows of
 // float (is_bf16 = 0) or bf16 (is_bf16 = 1); w1 (cin, hidden), c1 (hidden),
-// w2 (hidden, c2ch), c2 (c2ch) float. hidden and c2ch must be multiples of
-// 4, hidden <= 128, c2ch <= 512. Runs on `stream`, allocates nothing and does
-// not synchronise.
+// w2 (hidden, c2ch), c2 (c2ch) float, w1 and w2 16-byte aligned. hidden and
+// c2ch must be multiples of 4, hidden <= 128, c2ch <= 512. Runs on
+// `stream`, allocates nothing and does not synchronise.
 extern "C" int vmtl_fused_attention_gate(const void* x, const void* shared, const void* w1,
                                          const void* c1, const void* w2, const void* c2,
                                          void* out, long long n, int cin, int hidden, int c2ch,
                                          int is_bf16, void* stream) {
   if (!shapes_ok(n, cin, hidden, c2ch)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(w1) || !aligned16(w2)) return (int)cudaErrorMisalignedAddress;
+  const int per16 = is_bf16 ? 8 : 4;  // elements in 16 bytes
   Pass p = {};
   p.x = x;
   p.shared = shared;
@@ -228,6 +366,8 @@ extern "C" int vmtl_fused_attention_gate(const void* x, const void* shared, cons
   p.cin = cin;
   p.hidden = hidden;
   p.c2ch = c2ch;
-  launch(p, (unsigned)num_tiles(n), is_bf16, reinterpret_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  p.vec_x = cin % per16 == 0 && aligned16(x);
+  p.vec_out = c2ch % per16 == 0 && aligned16(shared) && aligned16(out);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
 }

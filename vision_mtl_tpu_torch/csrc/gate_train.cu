@@ -21,15 +21,11 @@
 // (N, Cin) and (N, C2) rows in f32 or bf16; the weights are f32; out takes
 // shared's type. The variances are biased and clamped at 0.
 //
-// Products in f32 accuracy on the tensor cores (3xTF32). Each f32 operand
-// a is split as it is loaded from shared memory into a_hi, the TF32
-// rounding of a (cvt.rna), and a_lo, the TF32 rounding of a - a_hi; then
-// a * b ~ a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, three
-// mma.sync.m16n8k8.tf32 with f32 accumulators. The dropped a_lo * b_lo is
-// below f32's own rounding. A bf16 x is exact in TF32 (a_lo = 0), so the
-// first product then takes two. One TF32 pass alone would not do: it
-// keeps 11 bits of each operand, and the batch statistics must agree with
-// f32 products to 1e-5.
+// Products in f32 accuracy on the tensor cores (3xTF32), with the tile
+// body of csrc/gate_tile.cuh: two TF32 products for x @ w1 when x is bf16,
+// three otherwise. One TF32 pass alone would not do: it keeps 11 bits of
+// each operand, and the batch statistics must agree with f32 products to
+// 1e-5.
 //
 // Design. 256 threads (8 warps, 4 along the rows x 2 along the columns) for
 // each tile of rows. The first product streams x and w1 over Cin in chunks,
@@ -69,49 +65,30 @@
 // atomic decides an order, so two launches on the same inputs give the
 // same bits; no E[h^2] - E[h]^2 is ever formed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "gate_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWs = 128 + 8;           // weight chunk row pitch: = 8 mod 32, conflict-free B loads
-constexpr int kHs = 128 + 4;           // h' row pitch
+using namespace gate_tile;
+
 constexpr int kMaxHidden = 128;
 constexpr int kMaxC2 = 512;
 constexpr int kSliceC2 = 128;          // C2 columns a block of passes 2 and 3 takes, at most
-constexpr int kSMs = 132;              // SMs of an H100 SXM: sizes the grids, never the result
-constexpr int kNt = 8;                 // n8 tiles of a warp, at most (64 columns)
 
 enum Mode { kStatsH, kStatsA, kGate };
 
-// A tile: the 8 warps as 4 along the rows x 2 along the columns, kMt m16
-// tiles of rows per warp, contraction staged kK rows at a time. Large N
-// takes Tile<2, 32> (128 rows; two blocks fit an SM, so one's loads overlap
-// the other's products); small N Tile<1, 64> (64 rows, twice the blocks;
-// half the pipeline steps, each with twice the products, since there a
-// block's steps run one after another with little else on its SM).
-template <int kMt, int kK>
-struct Tile {
-  static constexpr int kRows = 64 * kMt;       // pixel rows per tile
-  static constexpr int kWarpRows = 16 * kMt;   // rows of a warp
-  static constexpr int kChunk = kK;            // contraction rows per stage
-  static constexpr int kXs = kK + 4;           // f32 x row pitch: 4g + tg spans the 32 banks
-  static constexpr int kXsB = kK + 8;          // bf16 x row pitch (elements): 16-byte rows
-  // floats of shared memory: x stages (two) or, in passes 2 and 3, h' in
-  // their place; weight stages (two); the warps' statistics
-  __host__ __device__ static constexpr int region(int mode) {
-    return mode == kStatsH || 2 * kRows * kXs > kRows * kHs ? 2 * kRows * kXs : kRows * kHs;
-  }
-  __host__ __device__ static constexpr int floats(int mode) {
-    return region(mode) + 2 * kK * kWs + 2 * 4 * 128;
-  }
-};
-using BigTile = Tile<2, 32>;
-using SmallTile = Tile<1, 64>;
+// floats of shared memory a pass takes with tile Tl: x stages (two) or, in
+// passes 2 and 3, h' in their place; weight stages (two); the warps'
+// statistics
+template <class Tl>
+__host__ __device__ constexpr int region(int mode) {
+  return mode == kStatsH || 2 * Tl::kRows * Tl::kXs > Tl::kRows * kHs ? 2 * Tl::kRows * Tl::kXs
+                                                                      : Tl::kRows * kHs;
+}
+template <class Tl>
+__host__ __device__ constexpr int smem_floats(int mode) {
+  return region<Tl>(mode) + 2 * Tl::kChunk * kWs + 2 * 4 * 128;
+}
 
 struct Pass {
   const void* x;
@@ -144,181 +121,6 @@ struct Pass {
   float* fold_s;            // (C,) folded BN for the next passes: scale
   float* fold_c;            // (C,) and constant
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
-}
-
-// d += a * b on a 16 x 8 x 8 tile: TF32 operands, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// d = a * b, the same tile from zero
-__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
-}
-
-__device__ __forceinline__ float load_a(const float* p) { return *p; }
-__device__ __forceinline__ float load_a(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-// acc += A[:, k0 : k0 + 8 * k8] @ B[0 : 8 * k8, warp's columns], 3xTF32
-// (2 products when A is bf16, exact in TF32). A is (rows, lda) in shared
-// memory, B a staged weight chunk (rows of kWs). The tensor cores truncate
-// as they accumulate, so each 8-deep step sums into a fresh partial, which
-// is added to acc in f32 with rounding to nearest: over Cin = 640 the
-// truncation would otherwise pile up to ~1e-6 of the result. The products
-// of kG n8 tiles are issued in phases (every tile's first, then every
-// second, ...), so that the tensor cores see independent products back to
-// back rather than each waiting for the one before.
-template <int kMt, typename TA>
-__device__ __forceinline__ void mma_chunk(float (&acc)[kMt][kNt][4], const TA* A, int lda, int k0,
-                                          const float* B, int k8, int nt, int row0, int col0) {
-  constexpr bool kExactA = !std::is_same<TA, float>::value;
-  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-  for (int ks = 0; ks < k8; ++ks) {
-    const int k = ks * 8;
-    uint32_t ahi[kMt][4], alo[kMt][4];
-#pragma unroll
-    for (int m = 0; m < kMt; ++m) {
-      const TA* a0 = A + (row0 + m * 16 + g) * lda + k0 + k + tg;
-      const float v[4] = {load_a(a0), load_a(a0 + 8 * lda), load_a(a0 + 4),
-                          load_a(a0 + 8 * lda + 4)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (kExactA) {
-          ahi[m][i] = __float_as_uint(v[i]);
-          alo[m][i] = 0u;
-        } else {
-          split(v[i], ahi[m][i], alo[m][i]);
-        }
-      }
-    }
-    constexpr int kG = 4 / kMt;                   // n8 tiles per phase group
-#pragma unroll
-    for (int j0 = 0; j0 < kNt; j0 += kG) {
-      if (j0 >= nt) break;
-      uint32_t bhi[kG][2], blo[kG][2];
-      float t[kMt][kG][4];
-#pragma unroll
-      for (int jj = 0; jj < kG; ++jj) {
-        const float* b0 = B + (k + tg) * kWs + col0 + (j0 + jj) * 8 + g;
-        split(b0[0], bhi[jj][0], blo[jj][0]);
-        split(b0[4 * kWs], bhi[jj][1], blo[jj][1]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kG; ++jj)
-#pragma unroll
-        for (int m = 0; m < kMt; ++m) {
-          if (kExactA)
-            mma_tf32_zero(t[m][jj], ahi[m], blo[jj]);
-          else
-            mma_tf32_zero(t[m][jj], alo[m], bhi[jj]);
-        }
-      if (!kExactA) {
-#pragma unroll
-        for (int jj = 0; jj < kG; ++jj)
-#pragma unroll
-          for (int m = 0; m < kMt; ++m) mma_tf32(t[m][jj], ahi[m], blo[jj]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kG; ++jj)
-#pragma unroll
-        for (int m = 0; m < kMt; ++m) mma_tf32(t[m][jj], ahi[m], bhi[jj]);
-#pragma unroll
-      for (int jj = 0; jj < kG; ++jj) {
-        if (j0 + jj >= nt) break;
-#pragma unroll
-        for (int m = 0; m < kMt; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][j0 + jj][e] += t[m][jj][e];
-      }
-    }
-  }
-}
-
-// Stages rows [k0, k0 + kK) x columns [col0, col0 + ncols) of the row-major
-// (K, ld) weight w into a (kK, kWs) chunk; zeros past K and past the column
-// limit `col_end`. ncols is a multiple of 4, at most 128.
-template <int kK>
-__device__ __forceinline__ void stage_w(float* dst, const float* w, int K, int ld, int k0,
-                                        int col0, int col_end, int ncols) {
-  const int segs = ncols / 4;
-  for (int i = threadIdx.x; i < kK * segs; i += kThreads) {
-    const int r = i / segs, s = i - r * segs;
-    const int k = k0 + r, col = col0 + 4 * s;
-    const bool valid = k < K && col < col_end;
-    cp_async16(dst + r * kWs + 4 * s, valid ? w + (long long)k * ld + col : w, valid);
-  }
-}
-
-// Stages rows [row0, row0 + kRows) x contraction [k0, k0 + kChunk) of x into
-// a tile; zeros past N and Cin.
-template <class Tl, typename T>
-__device__ __forceinline__ void stage_x(T* dst, const T* x, long long n, int cin, long long row0,
-                                        int k0, bool vec) {
-  constexpr int kPer16 = 16 / sizeof(T);                // elements per 16 bytes
-  constexpr int kPitch = sizeof(T) == 4 ? Tl::kXs : Tl::kXsB;
-  if (vec) {
-    constexpr int segs = Tl::kChunk / kPer16;
-    for (int i = threadIdx.x; i < Tl::kRows * segs; i += kThreads) {
-      const int r = i / segs, s = i - r * segs;
-      const long long gr = row0 + r;
-      const int k = k0 + s * kPer16;
-      const bool valid = gr < n && k < cin;
-      cp_async16(dst + r * kPitch + s * kPer16, valid ? x + gr * cin + k : x, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < Tl::kRows * Tl::kChunk; i += kThreads) {
-      const int r = i / Tl::kChunk, k = i - r * Tl::kChunk;
-      const long long gr = row0 + r;
-      dst[r * kPitch + k] = (gr < n && k0 + k < cin) ? x[gr * cin + k0 + k] : from_f32<T>(0.f);
-    }
-  }
-}
 
 // Chan's update: (n, mean, m2) += (nb, mean_b, m2_b)
 __device__ __forceinline__ void chan(float& n, float& mean, float& m2, float nb, float mb,
@@ -469,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 2) gate_train_kernel(const Pass p) {
   float* wbuf = smem;                                   // [2][kK][kWs]
   float* xbuf = wbuf + 2 * kK * kWs;                    // [2][kRows][kXs] (bf16: kXsB)
   float* hs = xbuf;                                     // passes 2, 3: [kRows][kHs] h'
-  float* red_mean = xbuf + Tl::region(kMode);           // [4][128]
+  float* red_mean = xbuf + region<Tl>(kMode);           // [4][128]
   float* red_m2 = red_mean + 4 * 128;
 
   const T* __restrict__ x = static_cast<const T*>(p.x);
@@ -684,11 +486,6 @@ bool shapes_ok(long long n, int cin, int hidden, int c2ch) {
          c2ch <= kMaxC2 && c2ch % 4 == 0;
 }
 
-long long num_tiles(long long n, int rows) { return (n + rows - 1) / rows; }
-
-// small N: fewer 128-row tiles than half the SMs (N at most 8,320)
-bool small_n(long long n) { return num_tiles(n, BigTile::kRows) < kSMs / 2; }
-
 int tile_rows(long long n) { return small_n(n) ? SmallTile::kRows : BigTile::kRows; }
 
 // blocks in x of a statistics pass, two per SM at most: they depend on N
@@ -712,7 +509,7 @@ bool stores_h(int cin) { return cin > 16; }
 template <typename T, int kMode, class Tl>
 cudaError_t launch_mode(const Pass& p, dim3 grid, cudaStream_t s) {
   static bool opted_in = false;
-  const size_t smem = sizeof(float) * Tl::floats(kMode);
+  const size_t smem = sizeof(float) * smem_floats<Tl>(kMode);
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(gate_train_kernel<T, kMode, Tl>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

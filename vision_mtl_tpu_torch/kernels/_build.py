@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first use
-it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
-checkout's ``build/kernels/`` (named after a hash of its source and flags, so
-an edited source never loads a stale build) and loaded with ``ctypes``.
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface; sources may
+share ``csrc/*.cuh`` headers. At first use it is compiled by ``nvcc`` for
+``sm_90a`` into a shared library under the checkout's ``build/kernels/``
+(named after a hash of its source, the headers and the flags, so an edited
+source or header never loads a stale build) and loaded with ``ctypes``.
 Nothing here runs when a module is imported: the CPU tests import every
 module, and a machine without a card may have no ``nvcc``.
 """
@@ -65,8 +66,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of ``csrc/<name>.cu`` goes: named after a hash of the
+    source, every header of ``csrc/`` (a source may include any) and the
+    flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``vision_mtl_tpu/ops/pallas/confmat.py``. The JAX function
 takes float weights; the metric path only ever passes 0/1 per-sample
 ``valid`` weights, so the port takes them as a boolean ``mask`` and counts
-in integers (``csrc/confmat.cu`` states the exactness bound).
+in integers (``csrc/confmat.cu`` states the exactness bound). A call is one
+launch: the kernel's accumulator is kept per stream and left zero by each
+launch, so no memset precedes it.
 :func:`confusion_matrix_plain` computes the same function with PyTorch ops
 and is what runs for CPU tensors.
 """
@@ -11,6 +13,7 @@ and is what runs for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import threading
 import typing as t
 
 import torch
@@ -22,6 +25,10 @@ SOURCE = "confmat"
 MAX_CLASSES = 110
 
 launches = LaunchCounter()
+
+# one accumulator per (device, stream): the kernel leaves it zero (csrc/confmat.cu)
+_scratch: t.Dict[t.Tuple[int, int], torch.Tensor] = {}
+_scratch_lock = threading.Lock()
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 3
@@ -70,20 +77,33 @@ def confusion_matrix(
     _check(targets, preds, num_classes, mask)
     c = num_classes
     n = targets.numel()
-    scratch = torch.zeros(c * c + 1, dtype=torch.int32, device=targets.device)
     out = torch.empty((c, c), dtype=torch.float32, device=targets.device)
     fn = load(SOURCE, "vmtl_confusion_matrix", _SIGNATURE)
     with torch.cuda.device(targets.device):
+        stream = torch.cuda.current_stream(targets.device).cuda_stream
         rc = fn(
             targets.data_ptr(), preds.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            n, c, scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(targets.device).cuda_stream,
+            n, c, _stream_scratch(targets.device, stream).data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"confusion_matrix: kernel launch failed, CUDA error {rc}")
     launches.add()
     return out
+
+
+def _stream_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's accumulator and done counter for ``stream``: zeroed once
+    here, on that stream, and left zero by every launch. Launches on one
+    stream run in order, so each finds it zero; other streams have their
+    own. Kept for the life of the process."""
+    key = (device.index, stream)
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None:
+            buf = torch.zeros(MAX_CLASSES**2 + 1, dtype=torch.int32, device=device)
+            _scratch[key] = buf
+    return buf
 
 
 def _check(targets, preds, num_classes, mask) -> None:

@@ -9,6 +9,14 @@ is two per-pixel products with affine BNs, folded by :func:`fold_bn` into
 ``(w, c)`` pairs. The CUDA kernel (``csrc/fused_gate.cu``) keeps the
 ``(N, hidden)`` intermediate in shared memory; :func:`fused_attention_gate_plain`
 computes the same function with PyTorch ops and is what runs for CPU tensors.
+
+The kernel takes its products on the tensor cores as 3xTF32: each f32
+operand ``a`` is split into ``a_hi``, its TF32 rounding, and ``a_lo``, the
+TF32 rounding of ``a - a_hi``, and ``a @ b`` is taken as
+``a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi`` (:func:`tf32_matmul`).
+:func:`fused_attention_gate_tf32` emulates that arithmetic with PyTorch ops
+(and, with ``split=False``, a single TF32 product, which is not accurate
+enough); it is for tests and never on the main path.
 """
 
 from __future__ import annotations
@@ -64,6 +72,37 @@ def fused_attention_gate_plain(
     return out.to(shared.dtype).reshape(shared.shape)
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: add half of the dropped
+    13 bits' range to the bit pattern and mask them off."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """``a @ b`` from TF32 operands as the gate kernels take it on the tensor
+    cores: 3xTF32 (``a_lo b_hi + a_hi b_lo + a_hi b_hi``), or one TF32
+    product ``a_hi b_hi`` when ``split`` is False."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if not split:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def fused_attention_gate_tf32(x, shared, w1, c1, w2, c2, split=True):
+    """The kernel's function with both products taken from TF32 operands as
+    the kernel takes them (:func:`tf32_matmul`); f32 or bf16 inputs, f32
+    math, output in shared's dtype. For tests: the CUDA kernel's arithmetic,
+    emulated on the CPU."""
+    cin, c2ch = x.shape[-1], shared.shape[-1]
+    h = torch.relu(tf32_matmul(x.reshape(-1, cin), w1, split) + c1)
+    attn = torch.sigmoid(tf32_matmul(h, w2, split) + c2)
+    out = shared.reshape(-1, c2ch).float() * attn
+    return out.to(shared.dtype).reshape(shared.shape)
+
+
 def fused_attention_gate(
     x: torch.Tensor,
     shared: torch.Tensor,
@@ -81,8 +120,8 @@ def fused_attention_gate(
       w2: (hidden, C2); c2: (C2,) — second conv1x1 + folded BN2.
 
     CPU tensors take :func:`fused_attention_gate_plain`. CUDA tensors launch
-    the kernel (f32 or bf16 activations, f32 weights, all contiguous) or
-    raise; there is no fallback.
+    the kernel (f32 or bf16 activations, f32 weights, all contiguous, w1
+    and w2 16-byte aligned) or raise; there is no fallback.
     """
     if x.device.type == "cpu":
         return fused_attention_gate_plain(x, shared, w1, c1, w2, c2)

@@ -15,10 +15,8 @@ statistics, which the caller folds into its running statistics.
 :func:`fused_attention_gate_train_plain` computes the same function with
 PyTorch ops and is what runs for CPU tensors.
 
-The kernel takes its products on the tensor cores as 3xTF32: each f32
-operand ``a`` is split into ``a_hi``, its TF32 rounding, and ``a_lo``, the
-TF32 rounding of ``a - a_hi``, and ``a @ b`` is taken as
-``a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi``.
+The kernel takes its products on the tensor cores as 3xTF32, as the eval
+gate's does (``fused_gate.tf32_matmul``).
 :func:`fused_attention_gate_train_tf32` emulates that arithmetic with
 PyTorch ops (and, with ``split=False``, a single TF32 product, which is not
 accurate enough); it is for tests and never on the main path.
@@ -39,7 +37,7 @@ import typing as t
 import torch
 
 from vision_mtl_tpu_torch.kernels._build import LaunchCounter, load
-from vision_mtl_tpu_torch.kernels.fused_gate import check_gate_args
+from vision_mtl_tpu_torch.kernels.fused_gate import check_gate_args, tf32_matmul
 
 SOURCE = "gate_train"
 
@@ -96,14 +94,6 @@ def fused_attention_gate_train_plain(
     return out, mean1, var1, mean2, var2
 
 
-def tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """f32 ``v`` rounded to TF32 (10 explicit mantissa bits), to nearest with
-    ties away from zero, as ``cvt.rna.tf32.f32``: add half of the dropped
-    13 bits' range to the bit pattern and mask them off."""
-    bits = v.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 def fused_attention_gate_train_tf32(
     x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps=1e-5, split=True
 ):
@@ -113,18 +103,11 @@ def fused_attention_gate_train_tf32(
     inputs, f32 math, statistics in f64. For tests: the CUDA kernel's
     arithmetic, emulated on the CPU."""
 
-    def matmul(a, b):
-        a_hi, b_hi = tf32_round(a), tf32_round(b)
-        if not split:
-            return a_hi @ b_hi
-        a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
-        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
-
     cin, c2ch = x.shape[-1], shared.shape[-1]
-    h = matmul(x.reshape(-1, cin), w1) + b1
+    h = tf32_matmul(x.reshape(-1, cin), w1, split) + b1
     mean1, var1 = _batch_stats(h)
     h = torch.relu((h - mean1) * (scale1 / torch.sqrt(var1 + eps)) + bias1)
-    a = matmul(h, w2) + b2
+    a = tf32_matmul(h, w2, split) + b2
     mean2, var2 = _batch_stats(a)
     attn = torch.sigmoid((a - mean2) * (scale2 / torch.sqrt(var2 + eps)) + bias2)
     out = (shared.reshape(-1, c2ch).float() * attn).to(shared.dtype).reshape(shared.shape)
