@@ -6,13 +6,14 @@
 
 Builds the hand-written CUDA kernels from ``vision_mtl_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, then drives those paths for both ported models at their trained
+paths, then drives those paths for the three ported models at their trained
 widths (Cityscapes 128x256, 19 classes, seeded random weights). MTAN:
 serving (a ``BatchingServer`` answering concurrent requests, a timed
 ``Predictor(8)``), a predict-eval sweep with metrics, and training
 (``create_train_state`` + ``make_train_step`` for a few warm-up and timed
 bf16 steps at batch 8, then one ``make_eval_step``). The basic model
-(MobileNetV3 + Unet): a timed ``Predictor(8)``, the predict-eval sweep and
+(MobileNetV3 + Unet) and CSNet (two MobileNetV3 + Unet networks joined by
+cross-stitch units): a timed ``Predictor(8)``, the predict-eval sweep and
 the same training. The launch counters, set to 0 before each path and read
 after it, show that each path went through its kernels (exact counts per
 forward and per train step). Any mismatch or error ends the run with a
@@ -37,10 +38,11 @@ Tolerances, kernel against plain version:
     order);
   * fused_attention_gate: bit-identical on a second launch (no atomics);
   * confusion_matrix: exact (integer counts) on every label mix;
-  * conv3x3_small (B3), forward and dx shapes: f32 max |diff| <= 1e-4 of
-    the output's largest magnitude (sums of up to 603 products in another
-    order), bf16 within one bf16 rounding step as the gates, and
-    bit-identical on a second launch.
+  * conv3x3_small (B3), at the forward and dx shapes of a basic and of a
+    CSNet train step: f32 max |diff| <= 1e-4 of the output's largest
+    magnitude (sums of up to 720 products in another order), bf16 within
+    one bf16 rounding step as the gates, and bit-identical on a second
+    launch.
 
 The model's output is held against a reference too: the f32 forward on the
 card (kernels, cuDNN without TF32) against the same seeded weights on the
@@ -69,9 +71,10 @@ SXM data sheet at 700 W. B3's products are those of a bf16 dot with f32
 accumulation in the TPU kernel, so its bf16 calls (the tensor-core kernel)
 take the bf16 tensor-core peak, 989 TFLOP/s, and its f32 calls (the SIMT
 kernel) the f32 peak, 67 TFLOP/s. B3's ``library_ms`` is one ``F.conv2d``
-(cuDNN, no TF32) of the same inputs, timed here only. Each gate's function
-needs each of its two products once, 2N(Cin hidden + hidden C2) operations
-in f32: ``bound_f32_ms`` at the f32 peak. The kernels take them as 3xTF32,
+(cuDNN, no TF32) of the same inputs, timed here only; its ``kernels``
+entry sums one bf16 train step of the basic model and one of CSNet. Each
+gate's function needs each of its two products once, 2N(Cin hidden +
+hidden C2) operations in f32: ``bound_f32_ms`` at the f32 peak. The kernels take them as 3xTF32,
 three TF32 products each at 495 TFLOP/s (two for x @ w1 when x is bf16,
 which TF32 holds exactly): ``bound_ms`` (the function's products once,
 3xTF32, which a kernel could reach) and ``bound_design_ms`` state those
@@ -91,10 +94,10 @@ them bounds once the kernels are short. The confusion matrix is timed on
 three label mixes (:func:`confmat_mixes`); its ``kernels`` entry is the
 main path's own ids.
 
-Lines before the last: per-shape results of both gates and of B3, each
-model's serving and evaluation numbers and training numbers, the confusion
-matrix on its label mixes, the ``kernels`` JSON line, the card's name and
-power limit. The last line is
+Lines before the last: per-shape results of both gates and of B3 (the
+basic model's shapes, then CSNet's), each model's serving and evaluation
+numbers and training numbers, the confusion matrix on its label mixes, the
+``kernels`` JSON line, the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -120,10 +123,15 @@ BUCKETS = (1, 4, 8)
 N_REQUESTS = 16
 N_EVAL_BATCHES = 3
 # kernel launches of one eval forward and of one train step, by model
-PER_FORWARD = {"mtan": {"fused_attention_gate": 16}, "basic": {"conv3x3_small": 4}}
+PER_FORWARD = {
+    "mtan": {"fused_attention_gate": 16},
+    "basic": {"conv3x3_small": 4},
+    "csnet": {"conv3x3_small": 12},  # 5 decoder convs and a head per task
+}
 PER_TRAIN_STEP = {
     "mtan": {"fused_attention_gate_train": 16, "confusion_matrix": 1},
     "basic": {"conv3x3_small": 8, "confusion_matrix": 1},  # 4 forward, 4 dx
+    "csnet": {"conv3x3_small": 24, "confusion_matrix": 1},  # 12 forward, 12 dx
 }
 LR = 1e-3
 TRAIN_WARMUP = 3
@@ -143,9 +151,10 @@ PROFILE_CATEGORIES = (
 )
 # parameters whose gradient is 0 up to rounding: biases that feed a
 # batch-statistic BN (MTAN: the gates' b1, b2; the attention modules' 3x3
-# conv biases, each followed by a BatchNorm; basic: the projection BN biases
-# of encoder stages 3 and 5, whose outputs reach the loss only through a 1x1
-# conv and a BatchNorm)
+# conv biases, each followed by a BatchNorm; basic and both CSNet encoders:
+# the projection BN biases of encoder stages 3 and 5, whose outputs reach
+# the loss only through a 1x1 conv and a BatchNorm, in CSNet after a
+# per-channel stitch scale, which keeps a per-channel constant constant)
 ZERO_GRAD = re.compile(
     r"(GateChain_0\.b[12]|_attn_\d+_task\d+\.Conv_\d\.bias|stages_[35]_\d\.BatchNorm_2\.bias)$"
 )
@@ -161,19 +170,38 @@ GATE_SHAPES = [
     ("dec3", 192, 32, 128, 256),
 ]
 HIDDEN = 128
-# (call, C, O, H, W, bias) of kernel B3 in a basic train step at 128x256:
-# the forward's four convs and the backward's four dx (the same kernel on the
-# flipped, transposed weights, O and C swapped, no bias)
-SMALL_CONV_SHAPES = [
-    ("fwd block_3.conv1", 67, 67, 64, 128, False),
-    ("fwd block_4.conv0", 67, 33, 128, 256, False),
-    ("fwd block_4.conv1", 33, 33, 128, 256, False),
-    ("fwd merged head", 33, 20, 128, 256, True),
-    ("dx block_3.conv1", 67, 67, 64, 128, False),
-    ("dx block_4.conv0", 33, 67, 128, 256, False),
-    ("dx block_4.conv1", 33, 33, 128, 256, False),
-    ("dx merged head", 20, 33, 128, 256, False),
-]
+# (call, C, O, H, W, bias, calls per train step) of kernel B3 on 128x256
+# images, by model: the forward's convs and the backward's dx (the same kernel on the
+# flipped, transposed weights, O and C swapped, no bias). CSNet runs each
+# decoder conv once per task, each head once.
+SMALL_CONV_SHAPES = {
+    "basic": [
+        ("fwd block_3.conv1", 67, 67, 64, 128, False, 1),
+        ("fwd block_4.conv0", 67, 33, 128, 256, False, 1),
+        ("fwd block_4.conv1", 33, 33, 128, 256, False, 1),
+        ("fwd merged head", 33, 20, 128, 256, True, 1),
+        ("dx block_3.conv1", 67, 67, 64, 128, False, 1),
+        ("dx block_4.conv0", 33, 67, 128, 256, False, 1),
+        ("dx block_4.conv1", 33, 33, 128, 256, False, 1),
+        ("dx merged head", 20, 33, 128, 256, False, 1),
+    ],
+    "csnet": [
+        ("fwd decoders_t_2.conv1", 64, 64, 32, 64, False, 2),
+        ("fwd decoders_t_3.conv0", 80, 32, 64, 128, False, 2),
+        ("fwd decoders_t_3.conv1", 32, 32, 64, 128, False, 2),
+        ("fwd decoders_t_4.conv0", 32, 16, 128, 256, False, 2),
+        ("fwd decoders_t_4.conv1", 16, 16, 128, 256, False, 2),
+        ("fwd depth head", 16, 1, 128, 256, True, 1),
+        ("fwd segm head", 16, 19, 128, 256, True, 1),
+        ("dx decoders_t_2.conv1", 64, 64, 32, 64, False, 2),
+        ("dx decoders_t_3.conv0", 32, 80, 64, 128, False, 2),
+        ("dx decoders_t_3.conv1", 32, 32, 64, 128, False, 2),
+        ("dx decoders_t_4.conv0", 16, 32, 128, 256, False, 2),
+        ("dx decoders_t_4.conv1", 16, 16, 128, 256, False, 2),
+        ("dx depth head", 1, 16, 128, 256, False, 1),
+        ("dx segm head", 19, 16, 128, 256, False, 1),
+    ],
+}
 
 
 def fail(msg: str) -> None:
@@ -522,19 +550,21 @@ def capture_confmat_inputs():
         metrics.confusion_matrix = real
 
 
-def check_small_conv(dev, small_conv) -> tuple:
-    """Kernel B3 against its plain version at the eight shapes of a basic
-    train step, bf16 and f32: output, the same bits from a second launch;
-    times of the kernel, the plain version and one cuDNN ``F.conv2d``.
-    Totals are for one bf16 train step (four forward and four dx calls)."""
+def check_small_conv(dev, small_conv, shapes: list) -> tuple:
+    """Kernel B3 against its plain version at the shapes of one model's
+    train step (``SMALL_CONV_SHAPES``), bf16 and f32: output, the same bits
+    from a second launch; times of the kernel, the plain version and one
+    cuDNN ``F.conv2d``. Totals are for one bf16 train step, each shape
+    counted as often as the step calls it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(20)
     rows = []
     totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
-              "fwd_ms": 0.0, "dx_ms": 0.0, "fwd_library_ms": 0.0, "dx_library_ms": 0.0}
-    step_bytes = step_flops = 0.0
-    for call, c, o, h, w, has_bias in SMALL_CONV_SHAPES:
+              "fwd_ms": 0.0, "dx_ms": 0.0, "fwd_library_ms": 0.0, "dx_library_ms": 0.0,
+              "bytes": 0.0, "flops": 0.0}
+    slower_than_library = []
+    for call, c, o, h, w, has_bias, per_step in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
             k = (torch.rand(3, 3, c, o, generator=gen, device=dev) * 2 - 1) / (9 * c) ** 0.5
@@ -562,6 +592,7 @@ def check_small_conv(dev, small_conv) -> tuple:
 
             row = {
                 "call": call, "dtype": str(dtype).replace("torch.", ""), "N": n, "C": c, "O": o,
+                "calls_per_step": per_step,
                 "kernel": ("conv3x3_small_tc_kernel (mma.sync bf16)" if dtype == torch.bfloat16
                            else "conv3x3_small_kernel (SIMT f32)"),
                 "max_abs_err": err,
@@ -575,14 +606,19 @@ def check_small_conv(dev, small_conv) -> tuple:
             totals["err"] = max(totals["err"], err)
             if dtype == torch.bfloat16:  # the main path's dtype
                 for key in ("ms", "events_ms", "plain_ms", "library_ms"):
-                    totals[key] += row[key]
+                    totals[key] += per_step * row[key]
                 part = call.split()[0]
-                totals[f"{part}_ms"] += row["ms"]
-                totals[f"{part}_library_ms"] += row["library_ms"]
-                step_bytes += nbytes
-                step_flops += flops
-    totals["bound_ms"], totals["bound_by"] = bound(step_bytes, step_flops, BF16_TC_FLOPS_PER_S)
+                totals[f"{part}_ms"] += per_step * row["ms"]
+                totals[f"{part}_library_ms"] += per_step * row["library_ms"]
+                totals["bytes"] += per_step * nbytes
+                totals["flops"] += per_step * flops
+                if row["ms"] >= row["library_ms"]:
+                    slower_than_library.append(call)
+    totals["bound_ms"], totals["bound_by"] = bound(
+        totals["bytes"], totals["flops"], BF16_TC_FLOPS_PER_S
+    )
     totals["faster_than_library"] = totals["ms"] < totals["library_ms"]
+    totals["bf16_shapes_not_faster_than_library"] = slower_than_library
     return rows, totals
 
 
@@ -794,8 +830,8 @@ def _bf16(v: torch.Tensor) -> torch.Tensor:
 @contextlib.contextmanager
 def bf16_kernel_inputs(name: str):
     """The control of the f32 step check: the model's kernel fed inputs
-    rounded to bf16 (MTAN: the train gate's input and weights; basic: B3's
-    input and weights on its four convs)."""
+    rounded to bf16 (MTAN: the train gate's input and weights; basic and
+    CSNet: B3's input and weights on every conv it takes)."""
     if name == "mtan":
         from vision_mtl_tpu_torch.models import mtan as module
 
@@ -1010,9 +1046,12 @@ def main(argv: list) -> int:
         return 0
     gate_train_rows, gate_train = check_gate_train(dev, fused_gate_train)
     print(json.dumps({"gate_train_shapes": gate_train_rows}), flush=True)
-    conv_rows, conv = check_small_conv(dev, small_conv)
+    conv_rows, conv = check_small_conv(dev, small_conv, SMALL_CONV_SHAPES["basic"])
     print(json.dumps({"small_conv_shapes": conv_rows}), flush=True)
     print(json.dumps({"small_conv_per_train_step": conv}), flush=True)
+    cs_conv_rows, cs_conv = check_small_conv(dev, small_conv, SMALL_CONV_SHAPES["csnet"])
+    print(json.dumps({"small_conv_shapes_csnet": cs_conv_rows}), flush=True)
+    print(json.dumps({"small_conv_per_train_step_csnet": cs_conv}), flush=True)
 
     # the timed paths run first: after the CPU reference steps below, the
     # host launched the same train steps about 10% slower in this process
@@ -1032,11 +1071,20 @@ def main(argv: list) -> int:
     basic_eval.pop("confmat_inputs")
     del model
     basic_training = train_model("basic", cfg, build_model, dev, kernels)
+    model = build_model("csnet", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    csnet_params = sum(p.numel() for p in model.parameters())
+    csnet_timing = time_predictor("csnet", model, cfg, dev, kernels)
+    csnet_eval = predict_eval("csnet", model, cfg, dev, kernels)
+    csnet_eval.pop("confmat_inputs")
+    del model
+    csnet_training = train_model("csnet", cfg, build_model, dev, kernels)
     phases = [  # launch counts of every main-path run
         serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
         mtan_training["launches"], mtan_training["eval_step"]["launches"],
         basic_timing["launches"], basic_eval["launches"],
         basic_training["launches"], basic_training["eval_step"]["launches"],
+        csnet_timing["launches"], csnet_eval["launches"],
+        csnet_training["launches"], csnet_training["eval_step"]["launches"],
     ]
     timed_s = time.perf_counter() - t_start
     cmat_mixes = check_confmat(confmat, cfg.num_classes, confmat_mixes(dev, cfg.num_classes, main_ids))
@@ -1082,11 +1130,36 @@ def main(argv: list) -> int:
         **basic_training,
         "small_conv_ms_per_step": conv["ms"], "small_conv_bound_ms_per_step": conv["bound_ms"],
         "small_conv_share_of_step_events": conv["ms"] / basic_training["step_ms_p50"],
+    }
+    print(json.dumps({"train": train_line}), flush=True)
+    model_line = {
+        "model": "csnet", "config": "cityscapes 128x256, 19 classes, bf16", "params": csnet_params,
+        "reference_f32_vs_cpu": check_model_against_cpu("csnet", cfg, build_model, dev),
+        "predictor_8": csnet_timing, "predict_eval": csnet_eval,
+        "small_conv_fwd_share_of_forward_events":
+            cs_conv["fwd_ms"] / csnet_timing["forward_events_ms"],
+    }
+    print(json.dumps({"model": model_line}), flush=True)
+    train_line = {
+        "model": "csnet", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
+        "reference_f32_step_vs_cpu": check_train_step_against_cpu("csnet", cfg, build_model, dev),
+        **csnet_training,
+        "small_conv_ms_per_step": cs_conv["ms"],
+        "small_conv_bound_ms_per_step": cs_conv["bound_ms"],
+        "small_conv_share_of_step_events": cs_conv["ms"] / csnet_training["step_ms_p50"],
         "timed_paths_s": timed_s, "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"train": train_line}), flush=True)
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
+    # B3's entry: one bf16 train step of the basic model and one of CSNet
+    conv_both = {
+        "max_abs_err": max(conv["err"], cs_conv["err"]),
+        **{k: conv[k] + cs_conv[k] for k in ("ms", "plain_ms", "library_ms")},
+    }
+    conv_both["bound_ms"], conv_both["bound_by"] = bound(
+        conv["bytes"] + cs_conv["bytes"], conv["flops"] + cs_conv["flops"], BF16_TC_FLOPS_PER_S
+    )
     kernel_line = {"kernels": [
         {
             "name": "fused_attention_gate", "route": "cuda",
@@ -1117,9 +1190,7 @@ def main(argv: list) -> int:
             "name": "conv3x3_small", "route": "cuda",
             "source": "vision_mtl_tpu_torch/csrc/small_conv.cu",
             "replaces": "vision_mtl_tpu/ops/pallas/small_conv.py:100",
-            "launches": launches["conv3x3_small"], "max_abs_err": conv["err"],
-            "ms": conv["ms"], "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
-            "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
+            "launches": launches["conv3x3_small"], **conv_both,
         },
     ]}
     for k in kernel_line["kernels"]:

@@ -7,10 +7,13 @@ card's machine need not have).
 ``chip_smoke.py`` covers the full-width shapes of the main path.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from vision_mtl_tpu_torch.cfg import fetch_data_cfg
 from vision_mtl_tpu_torch.kernels import confmat, fused_gate, fused_gate_train, small_conv
+from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.ops.small_conv import conv3x3_small
 
 
@@ -468,6 +471,47 @@ def test_small_conv_backward_matches_cpu(cuda, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2  # dw: bf16 output of another sum order
     assert float((dw - dw_cpu).abs().max()) <= tol * float(dw_cpu.abs().max())
     assert float((db - db_cpu).abs().max()) <= 1e-4 * float(db_cpu.abs().max())
+
+
+# CSNet's heads (16 -> 1 and 16 -> 19, with bias) and their dx (1 -> 16,
+# 19 -> 16, no bias): one input or output channel in an 8-wide output tile
+# and a 16-deep contraction, at a ragged size
+@pytest.mark.parametrize("c,o,bias", [(16, 1, True), (1, 16, False), (16, 19, True),
+                                      (19, 16, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_conv_csnet_head_shapes(cuda, c, o, bias, dtype):
+    g = torch.Generator(device=cuda).manual_seed(c * 100 + o)
+    x = torch.randn(2, 37, 70, c, generator=g, device=cuda).to(dtype)
+    k = (torch.rand(3, 3, c, o, generator=g, device=cuda) * 2 - 1) / (9 * c) ** 0.5
+    bv = torch.randn(o, generator=g, device=cuda) if bias else None
+    got = small_conv.conv3x3_small(x, k, bv)
+    again = small_conv.conv3x3_small(x, k, bv)
+    want = small_conv.conv3x3_small_plain(x, k, bv)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, 37, 70, o)
+    _assert_conv_close(got, want)
+    assert torch.equal(got, again)
+
+
+def test_csnet_bf16_forward_matches_cpu(cuda):
+    """The registry's CSNet in bf16 on the card (12 B3 launches) against the
+    same seeded weights in f32 on the CPU, within 5% of each output's scale
+    (the bf16 tolerance of the CPU model tests)."""
+    cfg = fetch_data_cfg("synthetic")
+    img = torch.from_numpy(
+        np.random.default_rng(0).uniform(size=(2, cfg.height, cfg.width, 3)).astype(np.float32)
+    )
+    ref = build_model("csnet", cfg, dtype=torch.float32, device="cpu")
+    model = build_model("csnet", cfg, dtype=torch.bfloat16, device=cuda)
+    before = small_conv.launches.value
+    with torch.inference_mode():
+        want = ref(img)
+        got = model(img.to(cuda))
+    assert small_conv.launches.value == before + 12
+    for k, w in want.items():
+        assert got[k].dtype == torch.bfloat16 and got[k].shape == w.shape, k
+        scale = float(w.abs().max())
+        assert float((got[k].float().cpu() - w).abs().max()) <= 0.05 * scale, k
 
 
 def test_small_conv_kernel_rejects_what_it_does_not_take(cuda):

@@ -40,7 +40,7 @@ def test_port_imports_nothing_of_jax():
     assert "vision_mtl_tpu_torch.train.state" in modules
     assert "vision_mtl_tpu_torch.kernels.fused_gate_train" in modules
     for name in ("kernels.small_conv", "ops.small_conv", "models.basic",
-                 "models.mobilenetv3", "models.unet_decoder"):
+                 "models.mobilenetv3", "models.unet_decoder", "models.cross_stitch"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""
@@ -66,7 +66,7 @@ def test_port_imports_nothing_of_jax():
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = fetch_data_cfg("synthetic")
-    for name in ("mtan", "basic"):
+    for name in ("mtan", "basic", "csnet"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(name, cfg)
     model = build_model("mtan", cfg, dtype=torch.float32, device="cpu")

@@ -3,6 +3,7 @@ against the JAX package's on the same small MTAN (weights bridged), on the
 CPU."""
 
 import concurrent.futures
+import copy
 import io
 import json
 import urllib.error
@@ -24,6 +25,7 @@ from vision_mtl_tpu_torch import metrics, serve
 from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
 from vision_mtl_tpu_torch.predict import predict
 from vision_mtl_tpu_torch.serving import BatchingServer, Predictor, latency_bench
+from vision_mtl_tpu_torch.train.state import create_train_state as torch_create_train_state
 from vision_mtl_tpu_torch.train.step import make_predict_eval_step, make_predict_step
 from vision_mtl_tpu_torch.weights import load_jax_variables
 
@@ -222,6 +224,38 @@ def test_predict_step_and_latency_bench(models, rng):
     lat = latency_bench(pred, imgs, n=3, warmup=1)
     assert set(lat) == {"p50_ms", "p95_ms", "p99_ms", "mean_ms"}
     assert lat["p50_ms"] > 0
+
+
+def test_predict_steps_run_in_eval_mode(models, rng):
+    """A model left in train mode (as ``create_train_state`` leaves it)
+    predicts as in eval mode: both predict steps give exactly the eval-mode
+    outputs, leave every running statistic as it was and the model in train
+    mode."""
+    _, _, model = models
+    trained = copy.deepcopy(model)
+    torch_create_train_state(trained, 1e-3, device="cpu")
+    assert trained.training
+    before = {k: b.clone() for k, b in trained.named_buffers()}
+    batch = {k: torch.from_numpy(v) for k, v in _eval_batch(rng).items()}
+    with torch.no_grad():  # the step has teeth: train mode predicts otherwise
+        assert not torch.equal(trained(batch["img"].float() / 255.0)["depth"],
+                               model(batch["img"].float() / 255.0)["depth"])
+    for k, b in trained.named_buffers():
+        b.copy_(before[k])
+    c = TASKS["segm"]
+    got = make_predict_step(trained)(batch["img"])
+    want = make_predict_step(model)(batch["img"])
+    got_eval = make_predict_eval_step(trained)(batch, metrics.init_metrics(c, device="cpu"))
+    want_eval = make_predict_eval_step(model)(batch, metrics.init_metrics(c, device="cpu"))
+    assert trained.training and not model.training
+    for k, b in trained.named_buffers():
+        assert torch.equal(b, before[k]), k
+    for g, w in ((got, want), (got_eval[0], want_eval[0])):
+        for k in ("segm", "depth"):
+            assert torch.equal(g[k], w[k]), k
+    for k in ("loss", "loss_segm", "loss_depth"):
+        assert torch.equal(got_eval[2][k], want_eval[2][k]), k
+    assert torch.equal(got_eval[1].confmat, want_eval[1].confmat)
 
 
 def test_serve_cli_run_dir_not_ported():

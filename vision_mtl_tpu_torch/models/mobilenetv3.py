@@ -74,6 +74,8 @@ MOBILENETV3_LARGE_SPECS: t.Tuple[t.Tuple[IRSpec, ...], ...] = (
 STEM_CH = 16
 CONV_HEAD_CH = 960
 NUM_STAGES = len(MOBILENETV3_LARGE_SPECS)
+# output channels of each stage: (16, 24, 40, 80, 112, 160)
+STAGE_OUT_CHANNELS: t.Tuple[int, ...] = tuple(s[-1].out_ch for s in MOBILENETV3_LARGE_SPECS)
 # encoder feature channels at strides (1, 2, 4, 8, 16, 32) for a depth-5 Unet
 ENCODER_OUT_CHANNELS: t.Tuple[int, ...] = (3, 16, 24, 40, 112, 960)
 # stages after which a pyramid tap is taken; the /32 tap is the conv head's

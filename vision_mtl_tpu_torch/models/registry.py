@@ -5,7 +5,10 @@ Ported so far, at their trained configs (parameters at 19 classes):
   * basic: decoder_first_channel=540, 5 decoder layers, merged heads
     (13,564,301 parameters);
   * mtan: encoder_first_channel=32, 4 encoder levels, hidden=128
-    (13,277,908 parameters).
+    (13,277,908 parameters);
+  * csnet: two per-task MobileNetV3-Unets (decoder_first_channel=256, 5
+    decoder layers) joined by channel-wise stitch units, diagonal-only
+    stitch and zero-pad skip merge (13,382,516 parameters).
 """
 
 from __future__ import annotations
@@ -55,7 +58,15 @@ def build_model(
         )
         return model.to(dev)
     if model_name == "csnet":
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet: see ROADMAP.md, queue A"
+        from vision_mtl_tpu_torch.models.cross_stitch import CSNet
+
+        model = CSNet(
+            task_channels={"depth": 1, "segm": data_cfg.num_classes},
+            decoder_first_channel=256,
+            num_decoder_layers=5,
+            channel_wise_stitching=True,
+            dtype=dtype,
+            seed=seed,
         )
+        return model.to(dev)
     raise NotImplementedError(f"Unknown model name: {model_name}")

@@ -27,15 +27,26 @@ def decoder_channels(decoder_first_channel: int = 256, num_decoder_layers: int =
 
 
 class DecoderBlock(nn.Module):
+    """[nearest x2 upsample] -> [concat the skip] -> two 3x3 conv-BN-ReLU.
+    ``upsample=False`` leaves out the upsample: CSNet merges and stitches
+    its inputs itself and calls its blocks with no skip."""
+
     def __init__(
-        self, in_ch: int, skip_ch: int, out_ch: int, dtype: torch.dtype = torch.bfloat16
+        self,
+        in_ch: int,
+        skip_ch: int,
+        out_ch: int,
+        dtype: torch.dtype = torch.bfloat16,
+        upsample: bool = True,
     ):
         super().__init__()
+        self.upsample = upsample
         self.ConvBNAct_0 = ConvBNAct(in_ch + skip_ch, out_ch, dtype=dtype, small_conv=True)
         self.ConvBNAct_1 = ConvBNAct(out_ch, out_ch, dtype=dtype, small_conv=True)
 
     def forward(self, x: torch.Tensor, skip: t.Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = upsample_nearest_2x(x)
+        if self.upsample:
+            x = upsample_nearest_2x(x)
         if skip is not None:
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
         return self.ConvBNAct_1(self.ConvBNAct_0(x))

@@ -56,14 +56,16 @@ def postprocess_raw_out(out: t.Dict[str, torch.Tensor]) -> t.Dict[str, torch.Ten
 
 
 def make_predict_step(model: nn.Module) -> t.Callable[[torch.Tensor], Batch]:
-    """Returns ``step(img) -> {"segm": argmax ids, "depth": sigmoid depths}``;
-    a uint8 image is normalised on the device."""
+    """Returns ``step(img) -> {"segm": argmax ids, "depth": sigmoid depths}``:
+    an eval-mode forward (running statistics, which stay as they are); a
+    uint8 image is normalised on the device."""
 
     @torch.inference_mode()
     def step(img: torch.Tensor) -> Batch:
         if img.dtype == torch.uint8:
             img = img.float() / 255.0
-        post = postprocess_raw_out(model(img))
+        with _mode(model, False):
+            post = postprocess_raw_out(model(img))
         return {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
 
     return step
@@ -98,14 +100,16 @@ def make_predict_eval_step(
     loss_segm_weight: float = 1.0,
     loss_depth_weight: float = 1.0,
 ) -> t.Callable[[Batch, MetricState], t.Tuple[Batch, MetricState, Losses]]:
-    """Returns ``step(batch, mstate) -> (preds, mstate, losses)``: one pass
-    that returns predictions and, when the batch has ground truth ("mask"
-    and "depth"), its losses and the metric state updated with it."""
+    """Returns ``step(batch, mstate) -> (preds, mstate, losses)``: one
+    eval-mode pass that returns predictions and, when the batch has ground
+    truth ("mask" and "depth"), its losses and the metric state updated with
+    it."""
 
     @torch.inference_mode()
     def step(batch: Batch, mstate: MetricState):
         batch = decode_batch(batch)
-        post = postprocess_raw_out(model(batch["img"]))
+        with _mode(model, False):
+            post = postprocess_raw_out(model(batch["img"]))
         preds = {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
         if "mask" not in batch or "depth" not in batch:
             return preds, mstate, {}

@@ -18,7 +18,8 @@ the leaves that block's flax counterpart owns:
   then (kh, kw, in, out) -> (in, out, kh, kw);
 * ``GateChain``: ``w1``/``w2`` as (in, out) matrices, ``b1, b2, scale1,
   bias1, scale2, bias2`` and the stats ``mean1, var1, mean2, var2`` as they
-  are.
+  are;
+* ``CrossStitchLayer``: ``<path>/weights`` as it is.
 
 It is strict: it raises on a missing leaf, a shape that does not fit, a
 leaf it did not consume, and a port parameter or buffer it did not fill.
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.models.blocks import BatchNorm, Conv, ConvTranspose, RawBatchNorm
+from vision_mtl_tpu_torch.models.cross_stitch import CrossStitchLayer
 from vision_mtl_tpu_torch.models.mtan import GateChain
 
 _Transform = t.Callable[[np.ndarray], np.ndarray]
@@ -86,6 +88,8 @@ def _block_leaves(
         return [(n, f"params/{path}{n}", _same) for n in names] + [
             (n, f"batch_stats/{path}{n}", _same) for n in stats
         ]
+    if isinstance(module, CrossStitchLayer):
+        return [("weights", f"params/{path}weights", _same)]
     return None
 
 
