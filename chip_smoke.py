@@ -14,10 +14,21 @@ serving (a ``BatchingServer`` answering concurrent requests, a timed
 bf16 steps at batch 8, then one ``make_eval_step``). The basic model
 (MobileNetV3 + Unet) and CSNet (two MobileNetV3 + Unet networks joined by
 cross-stitch units): a timed ``Predictor(8)``, the predict-eval sweep and
-the same training. The launch counters, set to 0 before each path and read
-after it, show that each path went through its kernels (exact counts per
-forward and per train step). Any mismatch or error ends the run with a
-non-zero exit; without a CUDA card it exits 2 and prints no result.
+the same training. Then the ``cli`` phase runs the training CLI end to end
+in process (``vision_mtl_tpu_torch.training.main``) on a Cityscapes-layout
+tree of 40 train and 16 val seeded triples that it writes under
+``build/chip_smoke/`` (about 45 MB): MTAN for 2 epochs at batch 8 with a
+checkpoint each, then ``--resume_dir`` on that run to epoch 3 (it must
+start at epoch 3 from ``model_1``'s weights bit for bit, continue the step
+axis and the shuffle stream, and end with a lower epoch train loss than
+the first run's first epoch), then ``serve --run_dir`` on the resumed run,
+whose answer must equal ``Predictor`` on the trained model in memory (ids
+exactly, depth within one bf16 step); basic and CSNet for one epoch each.
+The launch counters, set to 0 before each path and read after it, show
+that each path went through its kernels (exact counts per forward and per
+train step; for a CLI run, what the loaders' lengths predict). Any
+mismatch or error ends the run with a non-zero exit; without a CUDA card
+it exits 2 and prints no result.
 
 ``--kernels`` times the eval gate and the confusion matrix only (the
 ``gate_shapes`` and ``confmat_mixes`` lines, then the card's name and power
@@ -96,8 +107,14 @@ main path's own ids.
 
 Lines before the last: per-shape results of both gates and of B3 (the
 basic model's shapes, then CSNet's), each model's serving and evaluation
-numbers and training numbers, the confusion matrix on its label mixes, the
-``kernels`` JSON line, the card's name and power limit. The last line is
+numbers and training numbers, the confusion matrix on its label mixes, one
+``cli`` line per model (per run: end-to-end epoch train img/s, the train,
+val and predict sweeps' img/s, checkpoint save and restore seconds, peak
+memory above what was live when the run began, launches; beside them the
+bare step's img/s of the training phase, the loader's img/s alone and with
+the copies to the card, and the card's idle share over one more epoch of
+the loop, from torch.profiler), the ``kernels`` JSON line, the card's name and power
+limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -105,11 +122,16 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -137,6 +159,13 @@ LR = 1e-3
 TRAIN_WARMUP = 3
 TRAIN_TIMED = 12
 TRAIN_BATCHES = 4  # cycled: each batch is seen every 4 steps
+# the cli phase's Cityscapes-layout tree and run dirs (under build/, which
+# git ignores)
+CLI_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "cityscapes")
+CLI_LOGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "lightning_logs")
+CLI_SAMPLES = {"train": 40, "val": 16}
 # device kernels by name, first match wins
 PROFILE_CATEGORIES = (
     ("gate kernels (eval and train)", ("gate_kernel<", "gate_train_kernel<")),
@@ -1008,6 +1037,338 @@ def train_model(name, cfg, build_model, dev, kernels) -> dict:
     }
 
 
+def write_cityscapes_tree(root: str, cfg, seed: int = 8) -> dict:
+    """A Cityscapes-layout tree of seeded, learnable triples at the config's
+    size: f32 images in [0, 1] (multiples of 1/255, so the compact wire
+    holds them exactly), int64 labels that are a function of the pixel with
+    some ignore ids -1, f32 inverse depth of the pixel."""
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    nbytes = 0
+    for stage, n in CLI_SAMPLES.items():
+        for sub in ("image", "label", "depth"):
+            os.makedirs(os.path.join(root, stage, sub))
+        for i in range(n):
+            px = rng.integers(0, 256, size=(cfg.height, cfg.width, 3))
+            arrays = {
+                "image": (px / 255.0).astype(np.float32),
+                "label": np.where(px[..., 2] < 8, -1, (px[..., 0] * cfg.num_classes) // 256
+                                  ).astype(np.int64),
+                "depth": (np.maximum(px[..., 1], 1) / 255.0).astype(np.float32),
+            }
+            for sub, a in arrays.items():
+                np.save(os.path.join(root, stage, sub, f"{i:04d}.npy"), a)
+                nbytes += a.nbytes
+    return {"root": root, "samples": dict(CLI_SAMPLES), "bytes": nbytes}
+
+
+@contextlib.contextmanager
+def probe_cli():
+    """Records what one in-process CLI run did, passing every call on:
+    ``run_pipe``'s args, datamodule, start epoch and start weights (copied)
+    and its final state; the train loader's batch orders; each sweep's rows
+    and seconds (ended by a synchronise); each checkpoint save and restore's
+    seconds."""
+    from vision_mtl_tpu_torch import predict as predict_mod
+    from vision_mtl_tpu_torch import training
+    from vision_mtl_tpu_torch.data import loader
+    from vision_mtl_tpu_torch.train import checkpoint, loop
+
+    rec: dict = {"orders": [], "sweeps": [], "save_s": [], "restore_s": []}
+    real = {
+        (training, "run_pipe"): training.run_pipe,
+        (loader.DataLoader, "_index_batches"): loader.DataLoader._index_batches,
+        (loop, "prefetch_to_device"): loop.prefetch_to_device,
+        (predict_mod, "prefetch_to_device"): predict_mod.prefetch_to_device,
+        (loop, "save_ckpt"): loop.save_ckpt,
+        (checkpoint, "restore_session"): checkpoint.restore_session,
+    }
+
+    def run_pipe(args, state, datamodule, **kw):
+        rec.update(args=args, datamodule=datamodule, start_epoch=kw.get("start_epoch", 0),
+                   start_weights={k: v.detach().clone() for k, v in state.model.state_dict().items()})
+        state, metrics = real[(training, "run_pipe")](args, state, datamodule, **kw)
+        rec["state"] = state
+        return state, metrics
+
+    def index_batches(self):
+        batches = real[(loader.DataLoader, "_index_batches")](self)
+        if self.shuffle:
+            rec["orders"].append([b.tolist() for b in batches])
+        return batches
+
+    def timed_sweeps(module, label):
+        def prefetch(iterator, device, size=2):
+            kind = label or ("train" if getattr(iterator, "shuffle", False) else "val")
+            t0, rows = time.perf_counter(), 0
+            for batch in real[(module, "prefetch_to_device")](iterator, device, size):
+                rows += batch["img"].shape[0]
+                yield batch
+            torch.cuda.synchronize()
+            rec["sweeps"].append({"kind": kind, "rows": rows, "s": time.perf_counter() - t0})
+        return prefetch
+
+    def timed(key, out):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            result = real[key](*args, **kw)
+            rec[out].append(time.perf_counter() - t0)
+            return result
+        return call
+
+    patches = {
+        (training, "run_pipe"): run_pipe,
+        (loader.DataLoader, "_index_batches"): index_batches,
+        (loop, "prefetch_to_device"): timed_sweeps(loop, None),
+        (predict_mod, "prefetch_to_device"): timed_sweeps(predict_mod, "predict"),
+        (loop, "save_ckpt"): timed((loop, "save_ckpt"), "save_s"),
+        (checkpoint, "restore_session"): timed((checkpoint, "restore_session"), "restore_s"),
+    }
+    for (obj, attr), fn in patches.items():
+        setattr(obj, attr, fn)
+    try:
+        yield rec
+    finally:
+        for (obj, attr), fn in real.items():
+            setattr(obj, attr, fn)
+
+
+def run_cli(name: str, argv: list, cfg, kernels) -> dict:
+    """One in-process run of ``python -m vision_mtl_tpu_torch.training``
+    with the launch counters set to 0 just before and read just after; the
+    launches must equal what the loaders' lengths predict (train steps,
+    val and predict forwards)."""
+    from vision_mtl_tpu_torch import training
+
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with probe_cli() as rec:
+        t0 = time.perf_counter()
+        run_dir = training.main(argv)
+        wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    args, dm = rec["args"], rec["datamodule"]
+    epochs = args.num_epochs - rec["start_epoch"]
+    n_train, n_val, n_pred = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.predict_dataloader()))
+    forwards = epochs * n_val + n_pred
+    want = expected(kernels, PER_TRAIN_STEP[name], epochs * n_train, confusion_matrix=forwards)
+    for k, v in PER_FORWARD[name].items():
+        want[k] += v * forwards
+    if counts != want:
+        fail(f"{name} cli {argv}: launches {counts}, want {want} ({epochs} epochs of {n_train} "
+             f"train and {n_val} val steps, {n_pred} predict steps)")
+    records = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+    epoch_loss = [r["epoch/train/loss"] for r in records if "epoch/train/loss" in r]
+    if len(epoch_loss) != epochs or not all(np.isfinite(epoch_loss)):
+        fail(f"{name} cli: epoch train losses {epoch_loss}")
+    predict_metrics = {k: v for r in records for k, v in r.items() if k.startswith("predict/")}
+    if len(predict_metrics) != 7 or not all(np.isfinite(list(predict_metrics.values()))):
+        fail(f"{name} cli: predict metrics {predict_metrics}")
+    preds = np.load(os.path.join(run_dir, "preds.npz"))
+    n_pred_rows = len(dm.data_predict)
+    if preds["segm"].shape != (n_pred_rows, cfg.height, cfg.width) or preds["segm"].max() >= \
+            cfg.num_classes or not np.isfinite(preds["depth"]).all():
+        fail(f"{name} cli: preds.npz segm {preds['segm'].shape}, depth finite "
+             f"{np.isfinite(preds['depth']).all()}")
+
+    def img_per_s(kind):
+        return [s["rows"] / s["s"] for s in rec["sweeps"] if s["kind"] == kind]
+
+    return {
+        "run_dir": run_dir, "rec": rec, "records": records, "launches": counts,
+        "loader_lengths": {"train": n_train, "val": n_val, "predict": n_pred},
+        "epoch_train_loss": epoch_loss,
+        "first_logged_step": min(r["step"] for r in records if "step/train/loss" in r),
+        "line": {
+            "argv": argv, "wall_s": wall_s, "epochs": epochs, "launches": counts,
+            "loader_lengths": {"train": n_train, "val": n_val, "predict": n_pred},
+            "epoch_train_loss": epoch_loss,
+            "epoch_train_img_per_s_end_to_end":
+                [r["epoch/train/imgs_per_sec"] for r in records if "epoch/train/imgs_per_sec" in r],
+            "train_sweep_img_per_s": img_per_s("train"),
+            "val_sweep_img_per_s": img_per_s("val"),
+            "predict_sweep_img_per_s": img_per_s("predict"),
+            "ckpt_save_s": rec["save_s"], "ckpt_restore_s": rec["restore_s"],
+            # what the run allocated beyond what was live when it began
+            "peak_memory_above_start_bytes": torch.cuda.max_memory_allocated() - base_bytes,
+            "predict_metrics": predict_metrics,
+        },
+    }
+
+
+def time_loading(run: dict, dev) -> dict:
+    """The host side of the loop alone, over one epoch of a fresh train
+    loader of the run's datamodule: decode on the thread pool, collate and
+    the compact wire; then the same through ``prefetch_to_device`` (pinning
+    and the copies), ended by a synchronise. Images per second."""
+    from vision_mtl_tpu_torch.data.loader import prefetch_to_device
+
+    dm = run["rec"]["datamodule"]
+    out = {}
+    for key, wrap in (("loader_img_per_s", iter),
+                      ("loader_and_copy_img_per_s", lambda it: prefetch_to_device(it, dev))):
+        t0, rows = time.perf_counter(), 0
+        for batch in wrap(dm.train_dataloader()):
+            rows += batch["img"].shape[0]
+        torch.cuda.synchronize()
+        out[key] = rows / (time.perf_counter() - t0)
+    return out
+
+
+def profile_epoch(run: dict, cfg, dev) -> dict:
+    """Where one more epoch of the run's loop (loading, copies, train steps
+    and the val sweep, through ``run_pipe``) spends the card's time, and its
+    idle share (:func:`profile_device`)."""
+    from vision_mtl_tpu_torch.train.loop import run_pipe
+
+    rec = run["rec"]
+    args, dm, state = rec["args"], rec["datamodule"], rec["state"]
+    n = args.num_epochs
+
+    def epoch():
+        run_pipe(args, state, dm, num_epochs=n + 1, num_classes=cfg.num_classes, start_epoch=n,
+                 device=dev)
+
+    return profile_device(epoch, 1)
+
+
+def serve_run_dir(name: str, run_dir: str, model, cfg, dev, kernels) -> dict:
+    """``python -m vision_mtl_tpu_torch.serve --run_dir`` (in process, on a
+    free port, bucket 1, raw uint8 wire) answers one request: its ids equal
+    ``Predictor`` on the trained model in memory, its depth within one bf16
+    step of it. Launches: the bucket's warm-up forward and the request's."""
+    from vision_mtl_tpu_torch import serve
+    from vision_mtl_tpu_torch.serving import Predictor
+
+    servers, errors = [], []
+    make = serve.make_server
+
+    def capture(*a, **k):
+        servers.append(make(*a, **k))
+        return servers[-1]
+
+    def target():
+        try:
+            serve.main(["--run_dir", run_dir, "--port", "0", "--buckets", "1",
+                        "--wire_dtype", "uint8"])
+        except BaseException as e:  # reported by the caller's fail()
+            errors.append(repr(e))
+
+    img = np.random.default_rng(9).integers(0, 256, size=(cfg.height, cfg.width, 3),
+                                            dtype=np.uint8)
+    serve.make_server = capture
+    kernels.reset_launch_counts()
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not servers and not errors and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not servers:
+            fail(f"serve --run_dir {run_dir} did not start: {errors}")
+        httpd = servers[0]
+        try:
+            buf = io.BytesIO()
+            np.save(buf, img)
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/predict", data=buf.getvalue()),
+                timeout=120) as r:
+                out = np.load(io.BytesIO(r.read()))
+            request_s = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+    finally:
+        serve.make_server = make
+        th.join(timeout=120)
+    if th.is_alive() or errors:
+        fail(f"serve --run_dir did not stop cleanly: alive {th.is_alive()}, {errors}")
+    counts = kernels.launch_counts()
+    if counts != expected(kernels, PER_FORWARD[name], 2):
+        fail(f"serve --run_dir: launches {counts} for 2 forwards")
+    want = Predictor(model.eval(), 1, cfg.height, cfg.width, dtype=np.uint8, device=dev)(img[None])
+    if not np.array_equal(out["segm"], want["segm"]):
+        fail(f"serve --run_dir: segm ids differ from Predictor on {(out['segm'] != want['segm']).sum()} "
+             "pixels")
+    depth_err = np.abs(out["depth"] - want["depth"])
+    if not (depth_err <= np.abs(want["depth"]) * 2**-7 + 1e-6).all():
+        fail(f"serve --run_dir: depth off Predictor by {depth_err.max()}")
+    return {"launches": counts, "request_s": request_s,
+            "depth_max_abs_err_vs_predictor": float(depth_err.max())}
+
+
+def cli_phase(cfg, kernels, dev, bare_steps: dict) -> tuple:
+    """The training CLI end to end on a Cityscapes-layout tree, in process:
+    MTAN for 2 epochs with a checkpoint each, then ``--resume_dir`` on its
+    run dir to epoch 3; basic and CSNet for one epoch each; ``serve
+    --run_dir`` on MTAN's resumed run. Returns the ``cli`` lines and the
+    runs' launch counts."""
+    from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
+    from vision_mtl_tpu_torch.train.checkpoint import load_ckpt_model
+
+    tree = write_cityscapes_tree(CLI_DATA, cfg)
+    shutil.rmtree(CLI_LOGS, ignore_errors=True)
+    pipeline_cfg.log_root_dir = CLI_LOGS
+    common = ["--dataset_name", "cityscapes", "--data_dir", CLI_DATA, "--batch_size", str(BATCH),
+              "--num_workers", "4", "--lr", str(LR), "--save_epoch_freq", "1"]
+    lines, launches = [], []
+
+    mtan = run_cli("mtan", common + ["--model_name", "mtan", "--num_epochs", "2"], cfg, kernels)
+    run_dir = mtan["run_dir"]
+    for entry in ("model_0", "session_0", "model_1", "session_1", "train_args.yaml",
+                  "metrics.jsonl", "preds.npz"):
+        if not os.path.exists(os.path.join(run_dir, entry)):
+            fail(f"mtan cli: {entry} missing from {run_dir}")
+    resumed = run_cli("mtan", common + ["--model_name", "mtan", "--num_epochs", "3",
+                                        "--resume_dir", run_dir], cfg, kernels)
+    rec = resumed["rec"]
+    if rec["start_epoch"] != 2:
+        fail(f"mtan resume: started at epoch {rec['start_epoch'] + 1}, want 3")
+    steps_before = 2 * mtan["loader_lengths"]["train"]
+    if resumed["first_logged_step"] != steps_before:
+        fail(f"mtan resume: step axis restarts at {resumed['first_logged_step']}, want "
+             f"{steps_before}")
+    fresh = rec["datamodule"].train_dataloader()
+    fresh.epoch = 2
+    if rec["orders"][:1] != [[b.tolist() for b in fresh._index_batches()]]:
+        fail("mtan resume: epoch 3's batch order is not the shuffle stream's third")
+    saved = load_ckpt_model(run_dir, 1)
+    differ = [k for k, v in saved.items() if not torch.equal(rec["start_weights"][k].cpu(), v)]
+    if differ or saved.keys() != rec["start_weights"].keys():
+        fail(f"mtan resume: start weights differ from model_1 at {differ[:5]}")
+    losses = mtan["epoch_train_loss"] + resumed["epoch_train_loss"]
+    if not losses[-1] < losses[0]:
+        fail(f"mtan cli: epoch train loss went {losses[0]} -> {losses[-1]}")
+    served = serve_run_dir("mtan", resumed["run_dir"], rec["state"].model, cfg, dev, kernels)
+    line = {
+        "model": "mtan", "data": tree, "runs": [mtan["line"], resumed["line"]],
+        "epoch_train_loss_first_last": [losses[0], losses[-1]],
+        "resume": {"start_epoch": rec["start_epoch"] + 1, "first_logged_step":
+                   resumed["first_logged_step"], "weights_equal_model_1": True,
+                   "order_equals_fresh_loader_epoch_2": True},
+        "serve_run_dir": served,
+        "bare_step_img_per_s": bare_steps["mtan"],
+        "host_loading": time_loading(resumed, dev),
+        "profile_one_epoch": profile_epoch(resumed, cfg, dev),
+    }
+    lines.append(line)
+    launches += [mtan["launches"], resumed["launches"], served["launches"]]
+    del mtan, resumed, rec, saved  # the runs' models and weights leave the card
+
+    for name in ("basic", "csnet"):
+        run = run_cli(name, common + ["--model_name", name, "--num_epochs", "1"], cfg, kernels)
+        lines.append({"model": name, "data": tree, "runs": [run["line"]],
+                      "bare_step_img_per_s": bare_steps[name],
+                      "host_loading": time_loading(run, dev),
+                      "profile_one_epoch": profile_epoch(run, cfg, dev)})
+        launches.append(run["launches"])
+        del run
+    return lines, launches
+
+
 def main(argv: list) -> int:
     kernels_only = argv == ["--kernels"]
     if argv and not kernels_only:
@@ -1078,7 +1439,11 @@ def main(argv: list) -> int:
     csnet_eval.pop("confmat_inputs")
     del model
     csnet_training = train_model("csnet", cfg, build_model, dev, kernels)
-    phases = [  # launch counts of every main-path run
+    cli_lines, cli_launches = cli_phase(cfg, kernels, dev, {
+        "mtan": mtan_training["img_per_s"], "basic": basic_training["img_per_s"],
+        "csnet": csnet_training["img_per_s"],
+    })
+    phases = cli_launches + [  # launch counts of every main-path run
         serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
         mtan_training["launches"], mtan_training["eval_step"]["launches"],
         basic_timing["launches"], basic_eval["launches"],
@@ -1150,6 +1515,8 @@ def main(argv: list) -> int:
         "timed_paths_s": timed_s, "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"train": train_line}), flush=True)
+    for line in cli_lines:
+        print(json.dumps({"cli": line}), flush=True)
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     # B3's entry: one bf16 train step of the basic model and one of CSNet

@@ -526,3 +526,36 @@ def test_small_conv_kernel_rejects_what_it_does_not_take(cuda):
                                  torch.randn(3, 3, 100, 8, device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
         small_conv.conv3x3_small(x, k.cpu())
+
+
+def test_prefetch_to_device_copies_before_use(cuda):
+    """20 compact-wire batches through the pinned side-stream copy: each is
+    read at once on the consumer's stream (the copy must be waited for),
+    then again after the stream has been held back ~1 ms while the copies
+    of the next batches run and a step's fresh buffers are written (the
+    batch's memory must not go to another copy before that second read).
+    Both reads equal the host batch."""
+    from vision_mtl_tpu_torch.data.loader import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [
+        {"img": rng.integers(0, 256, (8, 128, 256, 3), dtype=np.uint8),
+         "mask": rng.integers(0, 19, (8, 128, 256), dtype=np.uint8),
+         "depth": rng.integers(0, 65536, (8, 128, 256, 1)).astype(np.uint16)}
+        for _ in range(20)
+    ]
+    first, second = [], []
+    for batch in prefetch_to_device(iter(host), cuda, size=2):
+        assert all(v.device.type == "cuda" for v in batch.values())
+        first.append({k: v.clone() for k, v in batch.items()})
+        torch.cuda._sleep(2_000_000)
+        torch.full_like(batch["img"], 255).add_(1)  # a step's buffers: freed memory overwritten
+        second.append({k: v.to(torch.int32).sum(dim=0) for k, v in batch.items()})
+        del batch
+    torch.cuda.synchronize()
+    assert len(first) == 20
+    for h, a, b in zip(host, first, second):
+        for k, v in h.items():
+            np.testing.assert_array_equal(a[k].cpu().numpy(), v, err_msg=k)
+            np.testing.assert_array_equal(b[k].cpu().numpy(), v.astype(np.int32).sum(axis=0),
+                                          err_msg=k)

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and its entry points refuse to run on a missing card unless the
-caller asks for the CPU."""
+package, nor a package the card's machine lacks (PIL, yaml, orbax,
+matplotlib, comet_ml), and its entry points refuse to run on a missing card
+unless the caller asks for the CPU."""
 
 import pkgutil
 import subprocess
@@ -40,7 +41,10 @@ def test_port_imports_nothing_of_jax():
     assert "vision_mtl_tpu_torch.train.state" in modules
     assert "vision_mtl_tpu_torch.kernels.fused_gate_train" in modules
     for name in ("kernels.small_conv", "ops.small_conv", "models.basic",
-                 "models.mobilenetv3", "models.unet_decoder", "models.cross_stitch"):
+                 "models.mobilenetv3", "models.unet_decoder", "models.cross_stitch",
+                 "data.loader", "data.datamodule", "data.cityscapes", "data.transforms",
+                 "train.loop", "train.checkpoint", "train.plateau", "tracking.logger",
+                 "utils.args", "pipeline", "training"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""
@@ -48,10 +52,11 @@ def test_port_imports_nothing_of_jax():
         for name in {modules!r}:
             importlib.import_module(name)
         runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke_import")
+        banned = ("jax", "flax", "vision_mtl_tpu", "PIL", "yaml", "orbax", "matplotlib",
+                  "comet_ml")
         bad = sorted(
             m for m in sys.modules
-            if m in ("jax", "flax", "vision_mtl_tpu")
-            or m.startswith(("jax.", "flax.", "vision_mtl_tpu."))
+            if m in banned or m.startswith(tuple(b + "." for b in banned))
         )
         print(",".join(bad))
         """
@@ -138,3 +143,23 @@ def test_small_conv_wrapper_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3_small(x.requires_grad_(), k, torch.empty(7, device="meta"))
     assert small_conv.launches.value == before
+
+
+def test_cli_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
+    """``training`` and ``serve --run_dir`` run on the card unless
+    ``--device cpu`` is given; without a card they raise before writing a
+    run dir, and the device copy of a batch has no host fallback."""
+    from vision_mtl_tpu_torch import serve, training
+    from vision_mtl_tpu_torch.cfg import cfg
+    from vision_mtl_tpu_torch.data.loader import prefetch_to_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cfg, "log_root_dir", tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.main(["--dataset_name", "synthetic", "--model_name", "mtan"])
+    assert list(tmp_path.iterdir()) == []
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--run_dir", str(tmp_path), "--model_name", "mtan",
+                    "--dataset_name", "synthetic"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        next(prefetch_to_device([{"img": np.zeros((1, 2, 2, 3), np.float32)}], "cuda"))

@@ -259,7 +259,9 @@ def test_predict_steps_run_in_eval_mode(models, rng):
 
 
 def test_serve_cli_run_dir_not_ported():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    """``--run_dir`` is ported (tests/test_torch_loop.py serves a trained
+    run); a dir without train_args.yaml needs the model and dataset named."""
+    with pytest.raises(SystemExit, match="train_args.yaml"):
         serve.main(["--run_dir", "some/run"])
     with pytest.raises(SystemExit):
         serve.main([])  # neither --run_dir nor --demo

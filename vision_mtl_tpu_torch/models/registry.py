@@ -28,10 +28,17 @@ def build_model(
     dtype: torch.dtype = torch.bfloat16,
     device: t.Union[str, torch.device] = "cuda",
     seed: int = 0,
+    merge_heads: bool = True,
+    channel_wise_stitching: bool = True,
 ) -> nn.Module:
     """The named model in eval mode on ``device``, with fresh weights drawn
     from ``seed``; raises if ``device`` is CUDA and no card is present.
-    ``train.state.create_train_state`` switches it to train mode."""
+    ``train.state.create_train_state`` switches it to train mode.
+
+    ``merge_heads`` (basic) and ``channel_wise_stitching`` (csnet) default
+    to the registry's configs; the training CLI passes its flags, as the JAX
+    registry reads them from its args (``--channel_wise_stitching`` is off
+    unless given, so the CLI trains layer-wise stitching by default)."""
     dev = resolve_device(device)
     if model_name == "mtan":
         from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
@@ -52,7 +59,7 @@ def build_model(
             segm_classes=data_cfg.num_classes,
             decoder_first_channel=540,
             num_decoder_layers=5,
-            merge_heads=True,
+            merge_heads=merge_heads,
             dtype=dtype,
             seed=seed,
         )
@@ -64,7 +71,7 @@ def build_model(
             task_channels={"depth": 1, "segm": data_cfg.num_classes},
             decoder_first_channel=256,
             num_decoder_layers=5,
-            channel_wise_stitching=True,
+            channel_wise_stitching=channel_wise_stitching,
             dtype=dtype,
             seed=seed,
         )

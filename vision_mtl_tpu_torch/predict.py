@@ -1,7 +1,7 @@
 """Inference/eval sweep (counterpart of ``vision_mtl_tpu/predict.py``):
 run the predict-eval step over batches, collect per-batch
 ``{"segm","depth"}`` predictions, and accumulate predict-stage metrics when
-the batches carry ground truth."""
+the batches carry ground truth; ``save_preds`` writes the predictions."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics
 from vision_mtl_tpu_torch.train.step import make_predict_eval_step
@@ -30,6 +31,8 @@ def predict(
     uint8, and optionally "mask" (B,H,W), "depth" (B,H,W,1) float32 or
     uint16, "valid" (B,) 0/1 weights of a padded final batch. Predictions of
     padded rows are dropped. Without ground truth the metrics are ``{}``.
+    Batches reach the device through ``prefetch_to_device`` (two in
+    flight).
     """
     dev = resolve_device(device)
     step = make_predict_eval_step(
@@ -37,12 +40,11 @@ def predict(
     )
     mstate = init_metrics(num_classes, dev)
     preds: t.List[t.Dict[str, np.ndarray]] = []
-    for batch in batches:
-        dbatch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
-        batch_preds, mstate, _ = step(dbatch, mstate)
+    for batch in prefetch_to_device(batches, dev, size=2):
+        batch_preds, mstate, _ = step(batch, mstate)
         host_preds = {k: v.cpu().numpy() for k, v in batch_preds.items()}
         if "valid" in batch:
-            n_valid = int(np.sum(np.asarray(batch["valid"])))
+            n_valid = int(batch["valid"].sum())
             host_preds = {k: v[:n_valid] for k, v in host_preds.items()}
         preds.append(host_preds)
     if float(mstate.num_steps) == 0.0:
@@ -50,3 +52,14 @@ def predict(
     predict_metrics = {f"predict/{k}": float(v) for k, v in compute_metrics(mstate).items()}
     return preds, predict_metrics
 
+
+def save_preds(preds: t.List[t.Dict[str, np.ndarray]], path: str) -> None:
+    """The concatenated predictions as a compressed ``.npz`` (``segm``,
+    ``depth``); nothing is written for no predictions."""
+    if not preds:
+        return
+    np.savez_compressed(
+        path,
+        segm=np.concatenate([p["segm"] for p in preds], axis=0),
+        depth=np.concatenate([p["depth"] for p in preds], axis=0),
+    )

@@ -1,8 +1,9 @@
 """Model-server CLI: serve a model over HTTP with dynamic batching
 (counterpart of ``vision_mtl_tpu/serve.py``).
 
-    python -m vision_mtl_tpu_torch.serve --demo --model_name mtan \
+    python -m vision_mtl_tpu_torch.serve --run_dir <version_dir> \
         [--host 127.0.0.1 --port 8008] [--buckets 1,4,8] [--max_wait_ms 2]
+    python -m vision_mtl_tpu_torch.serve --demo --model_name mtan
 
 Endpoints:
 
@@ -17,8 +18,10 @@ Endpoints:
 
 ``--wire_dtype uint8`` takes raw uint8 images and normalizes them on the
 device (the host-to-device transfer shrinks 4x); float bodies are then
-rejected. ``--demo`` serves fresh seeded weights at the dataset's config.
-Serving a trained run (``--run_dir``) waits for the checkpoint slice.
+rejected. ``--run_dir`` serves a run of ``python -m
+vision_mtl_tpu_torch.training``: the model its ``train_args.yaml`` names,
+with the weights of its newest ``model_{e}`` checkpoint. ``--demo`` serves
+fresh seeded weights at the dataset's config.
 """
 
 from __future__ import annotations
@@ -170,8 +173,17 @@ def serve_in_thread(server: MTLHTTPServer) -> threading.Thread:
 def main(argv: t.Optional[t.Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--run_dir", default=None, help="training run version dir")
-    p.add_argument("--model_name", default="mtan")
-    p.add_argument("--dataset_name", default="cityscapes")
+    p.add_argument(
+        "--model_name",
+        default=None,
+        help="--demo: the model (default mtan); --run_dir: overrides train_args.yaml",
+    )
+    p.add_argument(
+        "--dataset_name",
+        default=None,
+        help="--demo: the dataset config (default cityscapes); --run_dir: overrides "
+        "train_args.yaml",
+    )
     p.add_argument(
         "--demo",
         action="store_true",
@@ -198,19 +210,28 @@ def main(argv: t.Optional[t.Sequence[str]] = None) -> None:
     args = p.parse_args(argv)
     if bool(args.run_dir) == bool(args.demo):
         raise SystemExit("pass exactly one of --run_dir / --demo")
-    if args.run_dir:
-        raise NotImplementedError(
-            "serving a trained run needs the checkpoint slice: see ROADMAP.md, queue A"
-        )
 
-    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
-    from vision_mtl_tpu_torch.models.registry import build_model
     from vision_mtl_tpu_torch.serving import BatchingServer
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    data_cfg = fetch_data_cfg(args.dataset_name)
-    model = build_model(args.model_name, data_cfg, device=args.device)
-    info: t.Dict[str, t.Any] = {
+    info: t.Dict[str, t.Any] = {}
+    if args.run_dir:
+        from vision_mtl_tpu_torch.pipeline import load_run_model
+
+        model, data_cfg, run_args = load_run_model(
+            args.run_dir, args.device, args.model_name, args.dataset_name
+        )
+        args.model_name, args.dataset_name = run_args.model_name, run_args.dataset_name
+        info["run_dir"] = args.run_dir
+    else:
+        from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+        from vision_mtl_tpu_torch.models.registry import build_model
+
+        args.model_name = args.model_name or "mtan"
+        args.dataset_name = args.dataset_name or "cityscapes"
+        data_cfg = fetch_data_cfg(args.dataset_name)
+        model = build_model(args.model_name, data_cfg, device=args.device)
+    info.update({
         "model": args.model_name,
         "dataset": args.dataset_name,
         "height": data_cfg.height,
@@ -219,7 +240,7 @@ def main(argv: t.Optional[t.Sequence[str]] = None) -> None:
         "wire_dtype": args.wire_dtype,
         "compact_out": args.compact_out,
         "device": args.device,
-    }
+    })
     wire_dtype = np.dtype(args.wire_dtype).type
     batcher = BatchingServer(
         model,

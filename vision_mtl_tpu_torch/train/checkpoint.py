@@ -1,0 +1,308 @@
+"""Checkpoint and resume (counterpart of ``vision_mtl_tpu/train/checkpoint.py``).
+
+Each save epoch writes two directories into the run dir, with the JAX
+package's names: ``model_{e}/`` (the model's ``state_dict``: parameters
+and BatchNorm statistics) and ``session_{e}/`` (the optimizer's
+``state_dict``, the lr, the plateau scheduler, ``epoch`` and ``step``),
+each holding one ``torch.save`` file with every tensor on the CPU. Each is
+written under a temporary name and renamed into place, so a reader finds a
+complete artifact or none. The CLI args go to ``train_args.yaml``, a flat
+YAML mapping under ``args:`` written and read without PyYAML.
+
+The names ``model_{e}.pt`` are left to reference PyTorch checkpoints,
+which the JAX package imports; the port will read them in ROADMAP.md A8.
+Preemption checkpoints wait for a later slice (A7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import re
+import shutil
+import tempfile
+import typing as t
+
+import torch
+
+from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
+from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
+
+MODEL_FILE = "model.pt"
+SESSION_FILE = "session.pt"
+
+
+def _to_cpu(tree: t.Any) -> t.Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def _save_dir_atomic(obj: t.Any, path: str, filename: str) -> None:
+    """``torch.save(obj)`` as ``path/filename``: written into a temporary
+    directory beside ``path``, then renamed onto it (an existing ``path`` is
+    removed first, as the JAX package's forced save overwrites)."""
+    parent = os.path.dirname(path)
+    tmp = tempfile.mkdtemp(prefix=f".{os.path.basename(path)}.", dir=parent)
+    try:
+        torch.save(obj, os.path.join(tmp, filename))
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def save_ckpt(
+    state: TrainState, scheduler: ReduceLROnPlateau, epoch: int, save_dir: str
+) -> t.Tuple[str, str]:
+    """Write ``model_{epoch}`` and ``session_{epoch}``; returns their paths.
+    Blocks until both are on disk."""
+    os.makedirs(save_dir, exist_ok=True)
+    model_path = os.path.abspath(os.path.join(save_dir, f"model_{epoch}"))
+    session_path = os.path.abspath(os.path.join(save_dir, f"session_{epoch}"))
+    _save_dir_atomic(_to_cpu(state.model.state_dict()), model_path, MODEL_FILE)
+    session = {
+        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "lr": get_lr(state),
+        "scheduler": scheduler.state_dict(),
+        "epoch": epoch,
+        "step": int(state.step),
+    }
+    _save_dir_atomic(session, session_path, SESSION_FILE)
+    print(f"Saved model to {model_path}")
+    return model_path, session_path
+
+
+def _epochs(ckpt_dir: str, prefix: str) -> t.List[int]:
+    pattern = re.compile(rf"{prefix}_(\d+)$")
+    return [int(m.group(1)) for f in os.listdir(ckpt_dir) if (m := pattern.match(f))]
+
+
+def _latest_epoch(ckpt_dir: str, prefix: str) -> int:
+    epochs = _epochs(ckpt_dir, prefix)
+    if not epochs:
+        hint = ""
+        if any(re.match(r"model_\d+\.pt$", f) for f in os.listdir(ckpt_dir)):
+            hint = (" (it holds reference PyTorch model_{e}.pt checkpoints, which the "
+                    "port does not import yet: ROADMAP.md A8)")
+        raise ValueError(f"No {prefix} ckpt found in {ckpt_dir}{hint}")
+    return max(epochs)
+
+
+def _latest_common_epoch(ckpt_dir: str) -> int:
+    """The latest epoch with both a model and a session artifact: a crash
+    between the two saves can leave model_N without session_N."""
+    common = set(_epochs(ckpt_dir, "model")) & set(_epochs(ckpt_dir, "session"))
+    if not common:
+        raise ValueError(
+            f"No epoch with both model_* and session_* artifacts in "
+            f"{ckpt_dir} — cannot exact-resume (use --ckpt_dir for a "
+            f"weights-only warm start)."
+        )
+    return max(common)
+
+
+def load_ckpt_model(ckpt_dir: str, epoch: t.Optional[int] = None) -> t.Dict[str, torch.Tensor]:
+    """The model ``state_dict`` of ``epoch`` (the latest by default), on the
+    CPU."""
+    if epoch is None:
+        epoch = _latest_epoch(ckpt_dir, "model")
+    path = os.path.abspath(os.path.join(ckpt_dir, f"model_{epoch}"))
+    print(f"Loading model from {path}")
+    return torch.load(os.path.join(path, MODEL_FILE), map_location="cpu", weights_only=True)
+
+
+def load_ckpt_session(ckpt_dir: str, epoch: t.Optional[int] = None) -> t.Dict[str, t.Any]:
+    if epoch is None:
+        epoch = _latest_epoch(ckpt_dir, "session")
+    path = os.path.join(ckpt_dir, f"session_{epoch}", SESSION_FILE)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_state(state: TrainState, ckpt_dir: str, epoch: t.Optional[int] = None) -> TrainState:
+    """Warm start: the checkpoint's parameters and BatchNorm statistics
+    into ``state.model`` (shapes checked, strict both ways); the optimizer
+    stays fresh."""
+    state.model.load_state_dict(load_ckpt_model(ckpt_dir, epoch))
+    return state
+
+
+def restore_session(
+    state: TrainState,
+    scheduler: ReduceLROnPlateau,
+    ckpt_dir: str,
+    epoch: t.Optional[int] = None,
+) -> t.Tuple[TrainState, ReduceLROnPlateau, int]:
+    """Exact resume: weights, BatchNorm statistics, Adam's moments and
+    steps, the lr, the plateau scheduler and the step counter. Returns
+    ``(state, scheduler, start_epoch)``, the epoch after the checkpoint's.
+    The optimizer's state is loaded after the model sits on its device, so
+    the moments land beside their parameters."""
+    if epoch is None:
+        epoch = _latest_common_epoch(ckpt_dir)
+    state = restore_state(state, ckpt_dir, epoch)
+    session = load_ckpt_session(ckpt_dir, epoch)
+    state.optimizer.load_state_dict(session["optimizer"])
+    state = set_lr(state, float(session["lr"]))
+    state.step = int(session["step"])
+    scheduler.load_state_dict(session["scheduler"])
+    return state, scheduler, int(session["epoch"]) + 1
+
+
+def _is_resumable(d: str) -> bool:
+    try:
+        _latest_common_epoch(d)
+        return True
+    except (ValueError, OSError):
+        return False
+
+
+def prune_old_ckpts(save_dir: str, keep_last_k: int) -> t.List[int]:
+    """Delete all but the newest ``keep_last_k`` epochs' model and session
+    pairs (both go together); returns the pruned epochs. ``keep_last_k <=
+    0`` keeps every epoch."""
+    if keep_last_k <= 0:
+        return []
+    epochs = sorted(set(_epochs(save_dir, "model")) | set(_epochs(save_dir, "session")))
+    pruned = epochs[:-keep_last_k] if len(epochs) > keep_last_k else []
+    for e in pruned:
+        for prefix in ("model", "session"):
+            shutil.rmtree(os.path.join(save_dir, f"{prefix}_{e}"), ignore_errors=True)
+    return pruned
+
+
+def find_latest_resumable_run(base_dir: str) -> t.Optional[str]:
+    """The most recently written run dir under ``base_dir`` (``version_*``,
+    or one level deeper under a run name) that holds a complete model and
+    session epoch pair; None when there is none. Backs ``--auto_resume``."""
+    if not os.path.isdir(base_dir):
+        return None
+    pattern = re.compile(r"version_(\d+)$")
+    candidates: t.List[str] = []
+    for name in os.listdir(base_dir):
+        d = os.path.join(base_dir, name)
+        if not os.path.isdir(d):
+            continue
+        if pattern.match(name):
+            candidates.append(d)
+        else:  # a run-name level
+            candidates.extend(
+                os.path.join(d, sub)
+                for sub in os.listdir(d)
+                if pattern.match(sub) and os.path.isdir(os.path.join(d, sub))
+            )
+    resumable = [d for d in candidates if _is_resumable(d)]
+    if not resumable:
+        return None
+    return max(resumable, key=os.path.getmtime)
+
+
+# ---- train_args.yaml without PyYAML ---------------------------------------
+# Values are written as JSON scalars, which YAML reads as the same values,
+# except floats: YAML 1.1 (PyYAML) reads a float only with a dot and a
+# signed exponent, and names infinities and NaN .inf / .nan.
+
+
+def _yaml_float(v: float) -> str:
+    if math.isnan(v):
+        return ".nan"
+    if math.isinf(v):
+        return ".inf" if v > 0 else "-.inf"
+    mant, _, exp = repr(v).partition("e")
+    if "." not in mant:
+        mant += ".0"
+    if exp and exp[0] not in "+-":
+        exp = "+" + exp
+    return f"{mant}e{exp}" if exp else mant
+
+
+def _yaml_scalar(v: t.Any) -> str:
+    if isinstance(v, bool) or v is None:
+        return json.dumps(v)
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        return _yaml_float(v)
+    if isinstance(v, str):
+        return json.dumps(v)
+    raise TypeError(f"train_args.yaml takes scalars and lists of them, not {type(v).__name__}")
+
+
+def _yaml_value(v: t.Any) -> str:
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+    return _yaml_scalar(v)
+
+
+def _read_scalar(text: str) -> t.Any:
+    specials = {".inf": math.inf, "-.inf": -math.inf, ".nan": math.nan}
+    return specials[text] if text in specials else json.loads(text)
+
+
+def _read_value(text: str) -> t.Any:
+    if text.startswith("[") and text.endswith("]"):
+        inner = text[1:-1].strip()
+        if not inner:
+            return []
+        # items are JSON scalars: split on commas outside strings
+        return [_read_scalar(x) for x in _split_items(inner)]
+    return _read_scalar(text)
+
+
+def _split_items(text: str) -> t.List[str]:
+    items, cur, in_str, esc = [], [], False, False
+    for ch in text:
+        if in_str:
+            cur.append(ch)
+            if esc:
+                esc = False
+            elif ch == "\\":
+                esc = True
+            elif ch == '"':
+                in_str = False
+        elif ch == '"':
+            in_str = True
+            cur.append(ch)
+        elif ch == ",":
+            items.append("".join(cur).strip())
+            cur = []
+        else:
+            cur.append(ch)
+    items.append("".join(cur).strip())
+    return items
+
+
+def log_args(args: t.Union[argparse.Namespace, t.Mapping[str, t.Any]], save_path: str) -> None:
+    """Write the CLI args to ``save_path`` as ``args:`` and one indented
+    ``key: value`` line per arg, keys sorted. ``yaml.load(...,
+    Loader=yaml.FullLoader)["args"]`` reads back the same dict."""
+    args_map = vars(args) if isinstance(args, argparse.Namespace) else dict(args)
+    lines = ["args:"] + [f"  {k}: {_yaml_value(args_map[k])}" for k in sorted(args_map)]
+    with open(save_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def load_args(load_path: str) -> argparse.Namespace:
+    """Read a ``train_args.yaml`` that :func:`log_args` wrote."""
+    with open(load_path) as f:
+        lines = [ln.rstrip("\n") for ln in f if ln.strip()]
+    if not lines or lines[0] != "args:":
+        raise ValueError(f"{load_path}: expected an 'args:' mapping")
+    args: t.Dict[str, t.Any] = {}
+    for ln in lines[1:]:
+        key, sep, value = ln.strip().partition(": ")
+        if not ln.startswith("  ") or not sep:
+            raise ValueError(f"{load_path}: cannot read line {ln!r}")
+        try:
+            args[key] = _read_value(value.strip())
+        except (ValueError, KeyError) as e:
+            raise ValueError(f"{load_path}: cannot read the value of {key!r}: {value!r}") from e
+    return argparse.Namespace(**args)

@@ -1,0 +1,195 @@
+"""The training loop (counterpart of ``vision_mtl_tpu/train/loop.py``, one
+device).
+
+Per epoch: the train steps over batches copied to the device ahead of use
+(``prefetch_to_device``), the epoch's metrics, every ``val_epoch_freq``
+epochs a validation sweep and the plateau scheduler stepped on the summed
+validation loss, and a checkpoint every ``save_epoch_freq`` epochs and at
+the last one. Metric names are the JAX package's: ``step/{stage}/{k}``,
+``epoch/{stage}/{k}``; ``epoch_metrics`` is keyed ``{stage}/{k}``.
+
+Nothing in the step loop reads the device: a step's losses are fetched
+after the next step has been queued (``_LaggedLossLog``), and the epoch's
+metrics are the one read that waits for the epoch's work.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+import typing as t
+from collections import defaultdict
+
+import torch
+
+from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
+from vision_mtl_tpu_torch.data.loader import prefetch_to_device
+from vision_mtl_tpu_torch.device import resolve_device
+from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metrics
+from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt
+from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
+from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
+from vision_mtl_tpu_torch.train.step import make_eval_step, make_train_step
+
+METRIC_KEYS = ("loss", "accuracy", "jaccard_index", "fbeta_score", "mae")
+
+
+def _host_floats(values: t.Mapping[str, torch.Tensor]) -> t.Dict[str, float]:
+    """Scalar tensors to floats through one device-to-host copy."""
+    keys = list(values)
+    stacked = torch.stack([values[k].detach().float().reshape(()) for k in keys])
+    return dict(zip(keys, stacked.cpu().tolist()))
+
+
+def _metrics_float(mstate: MetricState) -> t.Dict[str, float]:
+    return _host_floats(compute_metrics(mstate))
+
+
+class _LaggedLossLog:
+    """One-step-lagged step-loss logging: step N's losses are read only
+    after step N+1 has been queued, so the read overlaps the device's work
+    instead of draining it; one copy per logged step. Call ``flush()`` after
+    the loop for the last pending step."""
+
+    def __init__(self, prefix: str, logger: t.Any):
+        self._prefix, self._logger = prefix, logger
+        self._pending: t.Optional[t.Tuple[int, t.Mapping[str, torch.Tensor]]] = None
+
+    def offer(self, step_no: int, step_losses: t.Mapping[str, torch.Tensor], want: bool) -> None:
+        self.flush()
+        if self._logger is not None and want:
+            self._pending = (step_no, step_losses)
+
+    def flush(self) -> None:
+        if self._pending is None:
+            return
+        step_no, step_losses = self._pending
+        self._pending = None
+        stats = {f"{self._prefix}/{k}": v for k, v in _host_floats(step_losses).items()}
+        self._logger.log_metrics(stats, step=step_no)
+
+
+def run_pipe(
+    args: argparse.Namespace,
+    state: TrainState,
+    datamodule: MTLDataModule,
+    num_epochs: int,
+    num_classes: int,
+    logger: t.Any = None,
+    log_every_n_steps: int = 1,
+    scheduler: t.Optional[ReduceLROnPlateau] = None,
+    start_epoch: int = 0,
+    epoch_callback: t.Optional[t.Callable[[int, t.Dict[str, float]], None]] = None,
+    start_batch: int = 0,
+    device: t.Union[str, torch.device] = "cuda",
+) -> t.Tuple[TrainState, t.Dict[str, t.Dict[str, list]]]:
+    """Train ``state`` from ``start_epoch`` to ``num_epochs``; returns the
+    state and the epoch metrics. Checkpoints go to ``logger.log_dir``.
+    ``epoch_callback(epoch, val_metrics)`` runs after each validation; its
+    exceptions propagate. ``start_batch`` skips that many batches of
+    ``start_epoch``'s order."""
+    dev = resolve_device(device)
+    train_step = make_train_step(
+        loss_segm_weight=args.loss_segm_weight,
+        loss_depth_weight=args.loss_depth_weight,
+        grad_accum_steps=getattr(args, "grad_accum_steps", 1),
+        device=dev,
+    )
+    eval_step = make_eval_step(
+        loss_segm_weight=args.loss_segm_weight,
+        loss_depth_weight=args.loss_depth_weight,
+        device=dev,
+    )
+    if scheduler is None:
+        scheduler = ReduceLROnPlateau(patience=2, factor=0.9)
+    if datamodule.benchmark_batch is None:
+        print("A batch for benchmarking is not found.")
+
+    # a resumed run continues the step axis (restore_session set state.step)
+    global_step = int(state.step)
+    val_step = 0
+    if logger is None:
+        print(
+            "WARNING: run_pipe called without a logger — no checkpoints "
+            "will be saved (save_dir comes from logger.log_dir)."
+        )
+    epoch_metrics: t.Dict[str, t.Dict[str, list]] = {
+        "train": defaultdict(list),
+        "val": defaultdict(list),
+    }
+
+    # one loader across epochs: its seeded reshuffle advances with its epoch
+    # counter, which a resumed run sets to continue the shuffle stream
+    train_loader = datamodule.train_dataloader()
+    train_loader.epoch = start_epoch
+    train_loader.skip_batches = start_batch
+
+    for epoch in range(start_epoch, num_epochs):
+        print(f"### Epoch {epoch + 1}/{num_epochs} ###")
+        epoch_t0 = time.perf_counter()
+        mstate = init_metrics(num_classes, dev)
+        batch_in_epoch = start_batch if epoch == start_epoch else 0
+        epoch_start_batch = batch_in_epoch
+
+        step_log = _LaggedLossLog("step/train", logger)
+        for batch in prefetch_to_device(train_loader, dev, size=2):
+            state, mstate, losses = train_step(state, batch, mstate)
+            step_log.offer(global_step, losses, global_step % log_every_n_steps == 0)
+            global_step += 1
+            batch_in_epoch += 1
+        step_log.flush()
+
+        # reading the metrics waits for the epoch's work: the epoch's time
+        # is end to end (host decode, copies and steps)
+        train_metrics = _metrics_float(mstate)
+        epoch_dt = time.perf_counter() - epoch_t0
+        imgs_seen = (batch_in_epoch - epoch_start_batch) * train_loader.batch_size
+        if epoch_dt > 0 and imgs_seen > 0:
+            ips = imgs_seen / epoch_dt
+            print(
+                f"epoch/train throughput: {ips:.1f} img/s end-to-end "
+                f"({imgs_seen} imgs in {epoch_dt:.1f}s)"
+            )
+            if logger is not None:
+                logger.log_metrics({"epoch/train/imgs_per_sec": ips}, step=epoch)
+        for k, v in train_metrics.items():
+            epoch_metrics["train"][f"train/{k}"].append(v)
+        print("epoch/train: " + " ".join(f"{k}: {train_metrics[k]:.3f}" for k in METRIC_KEYS))
+        if logger is not None:
+            logger.log_metrics({f"epoch/train/{k}": v for k, v in train_metrics.items()}, step=epoch)
+
+        if (epoch + 1) % args.val_epoch_freq == 0:
+            val_mstate = init_metrics(num_classes, dev)
+            val_log = _LaggedLossLog("step/val", logger)
+            for batch in prefetch_to_device(datamodule.val_dataloader(), dev, size=2):
+                val_mstate, losses = eval_step(state, batch, val_mstate)
+                val_log.offer(val_step, losses, val_step % log_every_n_steps == 0)
+                val_step += 1
+            val_log.flush()
+
+            val_metrics = _host_floats(
+                {**compute_metrics(val_mstate), "loss_sum": val_mstate.loss_sum}
+            )
+            # the summed validation loss drives the plateau scheduler
+            val_loss_sum = val_metrics.pop("loss_sum")
+            for k, v in val_metrics.items():
+                epoch_metrics["val"][f"val/{k}"].append(v)
+            print("epoch/val: " + " ".join(f"{k}: {val_metrics[k]:.3f}" for k in METRIC_KEYS))
+            if logger is not None:
+                logger.log_metrics({f"epoch/val/{k}": v for k, v in val_metrics.items()}, step=epoch)
+
+            new_lr = scheduler.step(val_loss_sum, get_lr(state))
+            if new_lr != get_lr(state):
+                print(f"Plateau: reducing lr to {new_lr:.3e}")
+                state = set_lr(state, new_lr)
+
+            if epoch_callback is not None:
+                epoch_callback(epoch, val_metrics)
+
+        if ((epoch + 1) % args.save_epoch_freq == 0 or epoch == num_epochs - 1) and (
+            logger is not None
+        ):
+            save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir)
+            prune_old_ckpts(logger.log_dir, getattr(args, "keep_ckpt_last_k", 0))
+
+    return state, epoch_metrics

@@ -1,0 +1,105 @@
+"""Training CLI (counterpart of ``vision_mtl_tpu/training.py``): parse the
+args, set up the configs and the device, build the datamodule, model and
+logger, optionally resume, train (``run_pipe``), run the predict sweep and
+write ``preds.npz`` beside the run's metrics and checkpoints.
+
+    python -m vision_mtl_tpu_torch.training --dataset_name cityscapes \
+        --model_name mtan --num_epochs 20 --batch_size 8 --lr 5e-4
+
+It runs on the card; ``--device cpu`` runs it on the CPU. Run dirs are
+``<log_root>/training-<model>[/<run_name>]/version_N`` (``VMTL_LOG_ROOT``
+sets the root). The hyperparameter search, the mesh, preemption and the
+registry of finished runs wait for later slices (ROADMAP.md A7, A9, A10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import typing as t
+
+from vision_mtl_tpu_torch.cfg import cfg, fetch_data_cfg
+from vision_mtl_tpu_torch.device import resolve_device
+from vision_mtl_tpu_torch.pipeline import create_main_components, create_tools
+from vision_mtl_tpu_torch.predict import predict, save_preds
+from vision_mtl_tpu_torch.train.loop import run_pipe
+from vision_mtl_tpu_torch.utils.args import check_ported, parse_args, torch_device
+
+
+def main(argv: t.Optional[t.Sequence[str]] = None) -> str:
+    """Run the CLI on ``argv`` (``sys.argv[1:]`` by default); returns the
+    run dir."""
+    args = parse_args(argv)
+    check_ported(args)
+    return _main(args)
+
+
+def _main(args: argparse.Namespace) -> str:
+    cfg.update_fields_with_args(args)
+    device = resolve_device(torch_device(args.device))
+
+    data_cfg = fetch_data_cfg(args.dataset_name)
+    if getattr(args, "data_dir", None):
+        data_cfg.data_dir = args.data_dir
+
+    if args.auto_resume and not args.resume_dir:
+        # a relaunch of the same command line finds its own interrupted run
+        from vision_mtl_tpu_torch.train.checkpoint import find_latest_resumable_run
+
+        base = os.path.join(str(cfg.log_root_dir), f"training-{args.model_name}")
+        if args.run_name:
+            base = os.path.join(base, args.run_name)
+        found = find_latest_resumable_run(base)
+        if found:
+            args.resume_dir = found
+            print(f"--auto_resume: resuming {found}")
+        else:
+            print("--auto_resume: no resumable run found; starting fresh")
+
+    tools = create_tools(args)
+    logger = tools["logger"]
+    try:
+        components = create_main_components(args, data_cfg, device)
+        datamodule = components["datamodule"]
+        state = components["state"]
+
+        scheduler = None
+        start_epoch = 0
+        if args.resume_dir:
+            from vision_mtl_tpu_torch.train.checkpoint import restore_session
+            from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
+
+            scheduler = ReduceLROnPlateau(patience=2, factor=0.9)
+            state, scheduler, start_epoch = restore_session(state, scheduler, args.resume_dir)
+            print(f"Resumed from {args.resume_dir} at epoch {start_epoch}")
+
+        state, _ = run_pipe(
+            args,
+            state,
+            datamodule,
+            num_epochs=args.num_epochs,
+            num_classes=data_cfg.num_classes,
+            logger=logger,
+            scheduler=scheduler,
+            start_epoch=start_epoch,
+            device=device,
+        )
+
+        preds, predict_metrics = predict(
+            datamodule.predict_dataloader(),
+            state.model,
+            num_classes=data_cfg.num_classes,
+            loss_segm_weight=args.loss_segm_weight,
+            loss_depth_weight=args.loss_depth_weight,
+            device=device,
+        )
+        save_preds(preds, os.path.join(logger.log_dir, "preds.npz"))
+        print("predict: " + " ".join(f"{k}: {v:.3f}" for k, v in predict_metrics.items()))
+        logger.log_metrics(predict_metrics, step=args.num_epochs)
+    finally:
+        logger.close()
+    return logger.log_dir
+
+
+if __name__ == "__main__":
+    main()
