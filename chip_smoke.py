@@ -30,6 +30,25 @@ train step; for a CLI run, what the loaders' lengths predict). Any
 mismatch or error ends the run with a non-zero exit; without a CUDA card
 it exits 2 and prints no result.
 
+The ``nyuv2`` phase writes a NYUv2-layout tree under
+``build/chip_smoke/nyuv2/`` (40 train and 16 test seeded triples at the
+dataset's 480x640: 8-bit RGB, 8-bit ids 0-13 and 16-bit depth in metres x
+1e4 as PNGs, written with zlib and struct, each row's filter type cycling
+0-4), holds the native decoder to the written arrays, times the loader
+alone (batch 4, 256x256) from the PNGs and from the prepared-array cache,
+and runs the training CLI with basic at batch 4 (the reference's NYUv2
+run) for one epoch from the PNGs, then from the cache. The MTAN
+preemption drill then runs the CLI at batch 8 in four processes with
+PyTorch's deterministic algorithms set: two uninterrupted 2-epoch runs, a
+run that ``VMTL_PREEMPT_AT_STEP`` stops half way through its second
+epoch, which must exit 143, and ``--resume_dir`` on it to the end.
+``eval_harness`` then evaluates the phase's run dirs and two of the
+``cli`` phase's, and a ``Predictor(8)`` of MTAN is timed at 256x256. The
+kernels are also held against their plain versions at the NYUv2 shapes:
+MTAN's gates at 256x256 and batch 8, basic's and CSNet's B3 convs at
+256x256 and batch 4 (basic's merged head 33 -> 15, CSNet's segmentation
+head 16 -> 14), B2 at 14 classes on basic's predict ids.
+
 ``--kernels`` times the eval gate and the confusion matrix only (the
 ``gate_shapes`` and ``confmat_mixes`` lines, then the card's name and power
 limit) and prints no ``ok`` line. Its wrappers' API is that of earlier
@@ -54,6 +73,13 @@ Tolerances, kernel against plain version:
     magnitude (sums of up to 720 products in another order), bf16 within
     one bf16 rounding step as the gates, and bit-identical on a second
     launch.
+
+NYUv2 and the CLI paths: ``read_png`` exact for the three formats; the
+resumed drill run's final weights bit for bit those of the uninterrupted
+run, or, where the two uninterrupted runs differ, within 10 times their
+relative L2 distance; its position and batch order exactly; the
+harness's table within one unit of its third decimal of the runs' own
+predict metrics, rounded as it rounds.
 
 The model's output is held against a reference too: the f32 forward on the
 card (kernels, cuDNN without TF32) against the same seeded weights on the
@@ -113,7 +139,9 @@ val and predict sweeps' img/s, checkpoint save and restore seconds, peak
 memory above what was live when the run began, launches; beside them the
 bare step's img/s of the training phase, the loader's img/s alone and with
 the copies to the card, and the card's idle share over one more epoch of
-the loop, from torch.profiler), the ``kernels`` JSON line, the card's name and power
+the loop, from torch.profiler), the per-shape and per-call kernel lines at
+the NYUv2 shapes and the ``nyuv2`` line, the ``kernels`` JSON line (each
+entry with its ``nyuv2`` numbers beside), the card's name and power
 limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -122,16 +150,21 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import csv
+import glob
 import io
 import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -166,6 +199,14 @@ CLI_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ch
 CLI_LOGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
                         "lightning_logs")
 CLI_SAMPLES = {"train": 40, "val": 16}
+# the nyuv2 phase's tree (PNGs at the dataset's 480x640) and the
+# preemption drill's run dirs
+NYU_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "nyuv2")
+NYU_DRILL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                         "drill")
+NYU_SAMPLES = {"train": 40, "test": 16}
+NYU_HW = (480, 640)
 # device kernels by name, first match wins
 PROFILE_CATEGORIES = (
     ("gate kernels (eval and train)", ("gate_kernel<", "gate_train_kernel<")),
@@ -198,6 +239,8 @@ GATE_SHAPES = [
     ("dec2", 256, 64, 64, 128),
     ("dec3", 192, 32, 128, 256),
 ]
+# the same at NYUv2's 256x256: every H doubles
+GATE_SHAPES_NYU = [(level, cin, c2, 2 * h, w) for level, cin, c2, h, w in GATE_SHAPES]
 HIDDEN = 128
 # (call, C, O, H, W, bias, calls per train step) of kernel B3 on 128x256
 # images, by model: the forward's convs and the backward's dx (the same kernel on the
@@ -213,6 +256,34 @@ SMALL_CONV_SHAPES = {
         ("dx block_4.conv0", 33, 67, 128, 256, False, 1),
         ("dx block_4.conv1", 33, 33, 128, 256, False, 1),
         ("dx merged head", 20, 33, 128, 256, False, 1),
+    ],
+    # basic on NYUv2 (256x256, batch 4): the merged head is 14 classes + depth
+    "basic_nyuv2": [
+        ("fwd block_3.conv1", 67, 67, 128, 128, False, 1),
+        ("fwd block_4.conv0", 67, 33, 256, 256, False, 1),
+        ("fwd block_4.conv1", 33, 33, 256, 256, False, 1),
+        ("fwd merged head", 33, 15, 256, 256, True, 1),
+        ("dx block_3.conv1", 67, 67, 128, 128, False, 1),
+        ("dx block_4.conv0", 33, 67, 256, 256, False, 1),
+        ("dx block_4.conv1", 33, 33, 256, 256, False, 1),
+        ("dx merged head", 15, 33, 256, 256, False, 1),
+    ],
+    # CSNet on NYUv2 (256x256, batch 4): the segmentation head is 16 -> 14
+    "csnet_nyuv2": [
+        ("fwd decoders_t_2.conv1", 64, 64, 64, 64, False, 2),
+        ("fwd decoders_t_3.conv0", 80, 32, 128, 128, False, 2),
+        ("fwd decoders_t_3.conv1", 32, 32, 128, 128, False, 2),
+        ("fwd decoders_t_4.conv0", 32, 16, 256, 256, False, 2),
+        ("fwd decoders_t_4.conv1", 16, 16, 256, 256, False, 2),
+        ("fwd depth head", 16, 1, 256, 256, True, 1),
+        ("fwd segm head", 16, 14, 256, 256, True, 1),
+        ("dx decoders_t_2.conv1", 64, 64, 64, 64, False, 2),
+        ("dx decoders_t_3.conv0", 32, 80, 128, 128, False, 2),
+        ("dx decoders_t_3.conv1", 32, 32, 128, 128, False, 2),
+        ("dx decoders_t_4.conv0", 16, 32, 256, 256, False, 2),
+        ("dx decoders_t_4.conv1", 16, 16, 256, 256, False, 2),
+        ("dx depth head", 1, 16, 256, 256, False, 1),
+        ("dx segm head", 14, 16, 256, 256, False, 1),
     ],
     "csnet": [
         ("fwd decoders_t_2.conv1", 64, 64, 32, 64, False, 2),
@@ -330,7 +401,7 @@ def tf32_flops(n: int, cin: int, c2: int, x_bf16: bool, first_products: int = 1)
     return 2.0 * n * (first_products * k1 * cin * HIDDEN + 3 * HIDDEN * c2)
 
 
-def check_gate(dev, fused_gate) -> tuple:
+def check_gate(dev, fused_gate, shapes: list = GATE_SHAPES) -> tuple:
     """The eval gate against its plain version at the MTAN gate shapes:
     output and the same bits from a second launch; device times of the
     kernel and the plain version, the kernel's event time, and its bounds:
@@ -344,7 +415,7 @@ def check_gate(dev, fused_gate) -> tuple:
               "bound_f32_ms": 0.0, "bound_design_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
     slower_than_plain = []
-    for level, cin, c2, h, w in GATE_SHAPES:
+    for level, cin, c2, h, w in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(BATCH, h, w, cin, generator=gen, device=dev).to(dtype)
             shared = torch.randn(BATCH, h, w, c2, generator=gen, device=dev).to(dtype)
@@ -399,7 +470,7 @@ def check_gate(dev, fused_gate) -> tuple:
     return rows, totals
 
 
-def check_gate_train(dev, fused_gate_train) -> tuple:
+def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES) -> tuple:
     """The train-mode gate against its plain version at the MTAN gate
     shapes: output, the four statistics, and the same bits from a second
     launch; and the time of its backward (PyTorch ops)."""
@@ -409,7 +480,7 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
               "bound_f32_ms": 0.0, "bound_design_ms": 0.0, "backward_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
     slower_than_plain = []
-    for level, cin, c2, h, w in GATE_SHAPES:
+    for level, cin, c2, h, w in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             def uniform(*shape, bound=1.0):
                 return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
@@ -507,18 +578,18 @@ def check_gate_train(dev, fused_gate_train) -> tuple:
     return rows, totals
 
 
-def confmat_mixes(dev, num_classes: int, main_path: tuple) -> dict:
-    """Label mixes for the confusion matrix at batch 8 x 128 x 256, each
-    (targets, preds, mask): uniform random ids (some outside [0, C), one
-    sample left out of every eight by the mask); the main path's own ids
-    (``main_path``, as MTAN's predict-eval passed them); and one class
+def confmat_mixes(dev, num_classes: int, main_path: tuple, shape: tuple = (BATCH, 128, 256)) -> dict:
+    """Label mixes for the confusion matrix at ``shape``, each
+    (targets, preds, mask): uniform random ids (some outside [0, C), the
+    last sample but one left out by the mask); the main path's own ids
+    (``main_path``, as the path passed them); and one class
     everywhere, every lane of a warp on one cell."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    shape = (BATCH, 128, 256)
     t = torch.randint(-1, num_classes + 2, shape, generator=gen, device=dev, dtype=torch.int32)
     t[0, :4, :4] = 255  # an ignore-style label outside [0, C)
     p = torch.randint(0, num_classes + 1, shape, generator=gen, device=dev, dtype=torch.int32)
-    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], device=dev, dtype=torch.bool)
+    valid = torch.ones(shape[0], device=dev, dtype=torch.bool)
+    valid[-2] = False
     mask = valid[:, None, None].expand(shape).contiguous()
     one = torch.full(shape, num_classes - 1, device=dev, dtype=torch.int32)
     return {"uniform": (t, p, mask), "main_path": main_path,
@@ -579,7 +650,7 @@ def capture_confmat_inputs():
         metrics.confusion_matrix = real
 
 
-def check_small_conv(dev, small_conv, shapes: list) -> tuple:
+def check_small_conv(dev, small_conv, shapes: list, batch: int = BATCH) -> tuple:
     """Kernel B3 against its plain version at the shapes of one model's
     train step (``SMALL_CONV_SHAPES``), bf16 and f32: output, the same bits
     from a second launch; times of the kernel, the plain version and one
@@ -595,7 +666,7 @@ def check_small_conv(dev, small_conv, shapes: list) -> tuple:
     slower_than_library = []
     for call, c, o, h, w, has_bias, per_step in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(BATCH, h, w, c, generator=gen, device=dev).to(dtype)
+            x = torch.randn(batch, h, w, c, generator=gen, device=dev).to(dtype)
             k = (torch.rand(3, 3, c, o, generator=gen, device=dev) * 2 - 1) / (9 * c) ** 0.5
             bias = torch.randn(o, generator=gen, device=dev) * 0.1 if has_bias else None
             got = small_conv.conv3x3_small(x, k, bias)
@@ -608,7 +679,7 @@ def check_small_conv(dev, small_conv, shapes: list) -> tuple:
             if not torch.equal(got, again):
                 fail(f"conv3x3_small {call} {dtype}: a second launch differs")
             es = x.element_size()
-            n = BATCH * h * w
+            n = batch * h * w
             nbytes = es * n * (c + o) + es * 9 * c * o + (4 * o if has_bias else 0)
             flops = 2.0 * n * 9 * c * o
             peak = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
@@ -1169,7 +1240,8 @@ def run_cli(name: str, argv: list, cfg, kernels) -> dict:
         fail(f"{name} cli: predict metrics {predict_metrics}")
     preds = np.load(os.path.join(run_dir, "preds.npz"))
     n_pred_rows = len(dm.data_predict)
-    if preds["segm"].shape != (n_pred_rows, cfg.height, cfg.width) or preds["segm"].max() >= \
+    spec = cfg.test_transform
+    if preds["segm"].shape != (n_pred_rows, spec.height, spec.width) or preds["segm"].max() >= \
             cfg.num_classes or not np.isfinite(preds["depth"]).all():
         fail(f"{name} cli: preds.npz segm {preds['segm'].shape}, depth finite "
              f"{np.isfinite(preds['depth']).all()}")
@@ -1304,8 +1376,8 @@ def cli_phase(cfg, kernels, dev, bare_steps: dict) -> tuple:
     """The training CLI end to end on a Cityscapes-layout tree, in process:
     MTAN for 2 epochs with a checkpoint each, then ``--resume_dir`` on its
     run dir to epoch 3; basic and CSNet for one epoch each; ``serve
-    --run_dir`` on MTAN's resumed run. Returns the ``cli`` lines and the
-    runs' launch counts."""
+    --run_dir`` on MTAN's resumed run. Returns the ``cli`` lines, the
+    runs' launch counts and the last run dir of each model."""
     from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
     from vision_mtl_tpu_torch.train.checkpoint import load_ckpt_model
 
@@ -1356,6 +1428,7 @@ def cli_phase(cfg, kernels, dev, bare_steps: dict) -> tuple:
     }
     lines.append(line)
     launches += [mtan["launches"], resumed["launches"], served["launches"]]
+    run_dirs = {"mtan": resumed["run_dir"]}
     del mtan, resumed, rec, saved  # the runs' models and weights leave the card
 
     for name in ("basic", "csnet"):
@@ -1365,8 +1438,408 @@ def cli_phase(cfg, kernels, dev, bare_steps: dict) -> tuple:
                       "host_loading": time_loading(run, dev),
                       "profile_one_epoch": profile_epoch(run, cfg, dev)})
         launches.append(run["launches"])
+        run_dirs[name] = run["run_dir"]
         del run
-    return lines, launches
+    return lines, launches, run_dirs
+
+
+def write_png(path: str, arr: np.ndarray, level: int = 6) -> None:
+    """A PNG of a uint8 (H, W) or (H, W, 3) array, or a uint16 (H, W) one
+    (16-bit big-endian gray), with the standard library alone (the port
+    needs no PIL). Row y takes filter type y % 5, so each of a
+    decoder's five unfilter paths runs."""
+    h, w = arr.shape[:2]
+    chans = 1 if arr.ndim == 2 else arr.shape[2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    bpp = chans * depth // 8
+    raw = np.ascontiguousarray(arr.astype(">u2") if depth == 16 else arr.astype(np.uint8))
+    rows = raw.view(np.uint8).reshape(h, w * bpp).astype(np.int32)
+    up = np.vstack([np.zeros_like(rows[:1]), rows[:-1]])
+    left = np.hstack([np.zeros_like(rows[:, :bpp]), rows[:, :-bpp]])
+    upleft = np.hstack([np.zeros_like(up[:, :bpp]), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    ftype = np.arange(h) % 5
+    filtered = (rows - np.choose(ftype[:, None], [0 * rows, left, up, (left + up) // 2, paeth])) & 0xFF
+    body = np.hstack([ftype[:, None], filtered]).astype(np.uint8).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, {1: 0, 3: 2}[chans], 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(body, level)))
+        f.write(chunk(b"IEND", b""))
+
+
+def nyu_triple(rng, h: int, w: int) -> dict:
+    """One seeded, learnable NYUv2 triple at the dataset's size: 8-bit RGB,
+    ids 0-13 as a function of the pixel, depth in metres x 1e4 (0.5-10 m)
+    as a function of the pixel, 16-bit."""
+    rgb = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    seg = ((rgb[..., 0].astype(np.int32) * 14) // 256).astype(np.uint8)
+    depth = (5000 + rgb[..., 1].astype(np.int32) * 370).astype(np.uint16)
+    return {"rgb": rgb, "seg13": seg, "depth": depth}
+
+
+def write_nyuv2_tree(root: str, seed: int = 12) -> dict:
+    """A NYUv2-layout tree ``{stage}_{rgb,seg13,depth}/NNNN.png`` of seeded
+    triples at 480x640; returns its size and each stage's first triple."""
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    t0, nbytes, first = time.perf_counter(), 0, {}
+    for stage, n in NYU_SAMPLES.items():
+        for part in ("rgb", "seg13", "depth"):
+            os.makedirs(os.path.join(root, f"{stage}_{part}"))
+        for i in range(n):
+            arrays = nyu_triple(rng, *NYU_HW)
+            for part, a in arrays.items():
+                path = os.path.join(root, f"{stage}_{part}", f"{i + 1:04d}.png")
+                write_png(path, a)
+                nbytes += os.path.getsize(path)
+            first.setdefault(stage, arrays)
+    return {"root": root, "samples": dict(NYU_SAMPLES), "png_bytes": nbytes,
+            "write_s": time.perf_counter() - t0, "first": first}
+
+
+def check_png_decode(tree: dict) -> dict:
+    """The port's native decoder gives back exactly the arrays written, in
+    the three formats (8-bit RGB, 8-bit gray, 16-bit gray); ms per decode."""
+    from vision_mtl_tpu_torch.data import native
+
+    out = {}
+    for stage, arrays in tree["first"].items():
+        for part, want in arrays.items():
+            path = os.path.join(tree["root"], f"{stage}_{part}", "0001.png")
+            got = native.read_png(path)
+            if got.shape != want.shape or not np.array_equal(got, want.astype(np.float32)):
+                fail(f"read_png {path}: differs from the written array")
+            t0 = time.perf_counter()
+            for _ in range(5):
+                native.read_png(path)
+            out[f"{stage}_{part}"] = {"exact": True, "ms": (time.perf_counter() - t0) / 5 * 1e3,
+                                      "dtype": str(want.dtype), "shape": list(want.shape)}
+    return out
+
+
+def time_nyu_loader(batch: int, workers: int) -> dict:
+    """One epoch of the train stage through the loader at 256x256 (no
+    copies to the card): images per second."""
+    from vision_mtl_tpu_torch.data.loader import DataLoader
+    from vision_mtl_tpu_torch.data.nyuv2 import NYUv2
+
+    dl = DataLoader(NYUv2(stage="train"), batch_size=batch, shuffle=True, drop_last=True,
+                    num_workers=workers)
+    t0, rows = time.perf_counter(), 0
+    for b in dl:
+        rows += b["img"].shape[0]
+    return {"img_per_s": rows / (time.perf_counter() - t0), "images": rows,
+            "batch": batch, "num_workers": workers}
+
+
+# run in a fresh interpreter for the preemption drill: argv is
+# [record.json, log root, *training args]; deterministic algorithms where
+# PyTorch has them (warn_only: the bilinear upsample's backward has none)
+DRILL_CODE = r"""
+import json, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.deterministic = True
+torch.use_deterministic_algorithms(True, warn_only=True)
+from vision_mtl_tpu_torch import kernels, training
+from vision_mtl_tpu_torch.cfg import cfg
+from vision_mtl_tpu_torch.data import loader
+from vision_mtl_tpu_torch.train import checkpoint, loop
+
+out_path, cfg.log_root_dir, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+rec = {"orders": [], "save_s": [], "restore_s": [], "exit": 0}
+index_batches = loader.DataLoader._index_batches
+
+
+def recording(self):
+    batches = index_batches(self)
+    if self.shuffle:
+        rec["orders"].append({"epoch": self.epoch, "skip": self.skip_batches,
+                              "order": [b.tolist() for b in batches]})
+    return batches
+
+
+def timed(module, name, key):
+    real = getattr(module, name)
+
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        rec[key].append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, call)
+
+
+loader.DataLoader._index_batches = recording
+timed(loop, "save_preempt_ckpt", "save_s")
+timed(checkpoint, "restore_preempt", "restore_s")
+kernels.reset_launch_counts()
+t0 = time.perf_counter()
+try:
+    rec["run_dir"] = training.main(argv)
+except SystemExit as e:
+    rec["exit"] = e.code
+finally:
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = kernels.launch_counts()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+sys.exit(rec["exit"])
+"""
+
+
+def drill_run(tag: str, argv: list, env_extra: dict) -> dict:
+    """One training CLI run in its own process (:data:`DRILL_CODE`); returns
+    its record, with the exit code and the run dir it wrote."""
+    root = os.path.join(NYU_DRILL, tag)
+    os.makedirs(root, exist_ok=True)
+    out = os.path.join(root, "record.json")
+    log = os.path.join(root, "output.txt")
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", **env_extra}
+    with open(log, "w") as f:
+        proc = subprocess.run([sys.executable, "-c", DRILL_CODE, out, root, *argv], env=env,
+                              stdout=f, stderr=subprocess.STDOUT, timeout=400,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    if not os.path.exists(out):
+        fail(f"drill {tag}: exited {proc.returncode} without a record; "
+             f"{open(log).read()[-3000:]}")
+    rec = json.load(open(out))
+    rec["returncode"] = proc.returncode
+    runs = sorted(glob.glob(os.path.join(root, "training-*", "version_*")), key=os.path.getmtime)
+    rec.setdefault("run_dir", runs[-1] if runs else None)
+    rec["log_tail"] = open(log).read()[-1500:]
+    return rec
+
+
+def weights_distance(a: str, b: str) -> dict:
+    """Largest |difference| and the relative L2 distance of two runs' last
+    model checkpoints."""
+    from vision_mtl_tpu_torch.train.checkpoint import load_ckpt_model
+
+    wa, wb = load_ckpt_model(a), load_ckpt_model(b)
+    if wa.keys() != wb.keys():
+        fail(f"drill: checkpoints of {a} and {b} hold other tensors")
+    diff = num = 0.0
+    max_abs = 0.0
+    for k in wa:
+        x, y = wa[k].double(), wb[k].double()
+        max_abs = max(max_abs, float((x - y).abs().max()) if x.numel() else 0.0)
+        diff += float(((x - y) ** 2).sum())
+        num += float((x ** 2).sum())
+    return {"max_abs": max_abs, "rel_l2": (diff / max(num, 1e-300)) ** 0.5,
+            "bit_identical": max_abs == 0.0}
+
+
+def preemption_drill(kernels, n_train: int, n_val: int, n_pred: int) -> dict:
+    """MTAN at batch 8 on the NYUv2 tree through the CLI, each run in its own
+    process with deterministic algorithms set: two uninterrupted 2-epoch
+    runs (the second a control for run-to-run spread), a run with
+    ``--preempt_save`` and ``VMTL_PREEMPT_AT_STEP`` half way through its
+    second epoch, which must exit 143, and ``--resume_dir`` on it to the
+    end. The resumed run must start at the preempted position, train the
+    second epoch's remaining batches in the uninterrupted run's order, and
+    end with its weights: bit for bit, or, where the control shows two
+    uninterrupted runs differ, within 10 times their relative L2 distance."""
+    shutil.rmtree(NYU_DRILL, ignore_errors=True)
+    argv = ["--dataset_name", "nyuv2", "--data_dir", NYU_DATA, "--model_name", "mtan",
+            "--batch_size", str(BATCH), "--num_workers", "4", "--lr", str(LR),
+            "--num_epochs", "2"]
+    at = n_train + n_train // 2
+    straight = drill_run("straight", argv, {})
+    control = drill_run("control", argv, {})
+    preempted = drill_run("preempted", argv + ["--preempt_save"],
+                          {"VMTL_PREEMPT_AT_STEP": str(at)})
+    if preempted["returncode"] != 143 or preempted["exit"] != 143:
+        fail(f"drill: the preempted run exited {preempted['returncode']}, want 143; "
+             f"{preempted['log_tail']}")
+    meta = json.load(open(os.path.join(preempted["run_dir"], "preempt_meta.json")))
+    if (meta["epoch"], meta["batch_in_epoch"]) != (1, n_train // 2):
+        fail(f"drill: preempted at {meta}, want epoch 1 batch {n_train // 2}")
+    resumed = drill_run("resumed", argv + ["--resume_dir", preempted["run_dir"]], {})
+    for rec in (straight, control, resumed):
+        if rec["returncode"] != 0:
+            fail(f"drill: a run exited {rec['returncode']}; {rec['log_tail']}")
+    # launches: each run's own, as its loader lengths give
+    forwards = {"straight": 2 * n_val + n_pred, "preempted": n_val,
+                "resumed": n_val + n_pred}
+    steps = {"straight": 2 * n_train, "preempted": at, "resumed": 2 * n_train - at}
+    for tag, rec in (("straight", straight), ("preempted", preempted), ("resumed", resumed)):
+        want = expected(kernels, PER_TRAIN_STEP["mtan"], steps[tag],
+                        confusion_matrix=forwards[tag])
+        want["fused_attention_gate"] += PER_FORWARD["mtan"]["fused_attention_gate"] * forwards[tag]
+        if rec["launches"] != want:
+            fail(f"drill {tag}: launches {rec['launches']}, want {want}")
+    order = straight["orders"]
+    if (preempted["orders"] != order or len(resumed["orders"]) != 1
+            or resumed["orders"][0]["order"] != order[1]["order"]
+            or resumed["orders"][0]["skip"] != n_train // 2):
+        fail("drill: the batch orders differ from the uninterrupted run's")
+    drill = weights_distance(straight["run_dir"], resumed["run_dir"])
+    spread = weights_distance(straight["run_dir"], control["run_dir"])
+    ok = drill["bit_identical"] or (
+        not spread["bit_identical"] and drill["rel_l2"] <= 10 * spread["rel_l2"])
+    if not ok:
+        fail(f"drill: resumed weights off the uninterrupted run's by {drill}, two "
+             f"uninterrupted runs by {spread}")
+    return {
+        "argv": argv, "preempt_at_step": at, "exit_code": preempted["returncode"],
+        "preempted_position": meta, "resume_order_equal": True,
+        "deterministic_algorithms": "torch.use_deterministic_algorithms(True, warn_only=True), "
+                                    "cudnn.deterministic",
+        "resumed_vs_uninterrupted": drill, "control_two_uninterrupted": spread,
+        "preempt_save_s": preempted["save_s"], "preempt_restore_s": resumed["restore_s"],
+        "wall_s": {t: r["wall_s"] for t, r in (("straight", straight), ("control", control),
+                                               ("preempted", preempted), ("resumed", resumed))},
+        "launches": {t: r["launches"] for t, r in (("straight", straight), ("control", control),
+                                                   ("preempted", preempted),
+                                                   ("resumed", resumed))},
+        "run_dir": resumed["run_dir"],
+    }
+
+
+def harness_check(dataset: str, runs: dict, data_dir: str, n_holdout: int, batch: int, kernels,
+                  dev) -> dict:
+    """``python -m vision_mtl_tpu_torch.eval_harness --runs`` (in process) on
+    run dirs the phases wrote: its table must equal the table of each run's
+    own predict metrics (metrics.jsonl), rounded as the table rounds, up to
+    one unit of the third decimal where the two sums round to either side
+    (the harness rebuilds the model from its checkpoint, in another process
+    than the drill's runs); the launches are the predict sweeps'."""
+    from vision_mtl_tpu_torch import eval_harness
+
+    out_csv = os.path.join(os.path.dirname(NYU_DATA), f"harness_{dataset}.csv")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        eval_harness.main(["--dataset_name", dataset, "--data_dir", data_dir, "--batch_size",
+                           str(batch), "--out", out_csv, "--device", str(dev),
+                           "--runs", *(f"{m}={d}" for m, d in runs.items())])
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    loop_metrics = {}
+    for model, run_dir in runs.items():
+        records = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+        loop_metrics[model] = {k.replace("predict/", ""): v for r in records
+                               for k, v in r.items() if k.startswith("predict/")}
+    want = eval_harness.build_table(loop_metrics)
+    with open(out_csv) as f:
+        rows = list(csv.reader(f))
+    got = {r[0]: {tag: float(v) for tag, v in zip(rows[0][1:], r[1:])} for r in rows[1:]}
+    cells = [(got[m][tag], want[m][tag]) for m in want for tag in want[m]]
+    if got.keys() != want.keys() or any(abs(g - w) > 1.0001e-3 for g, w in cells):
+        fail(f"eval_harness {dataset}: table {got}, the loops' predict metrics {want}")
+    n_pred = -(-n_holdout // batch)
+    want_counts = expected(kernels, {}, 0, confusion_matrix=n_pred * len(runs))
+    for model in runs:
+        for k, v in PER_FORWARD[model].items():
+            want_counts[k] += v * n_pred
+    if counts != want_counts:
+        fail(f"eval_harness {dataset}: launches {counts}, want {want_counts}")
+    return {"table": got, "cells_equal": sum(g == w for g, w in cells), "cells": len(cells),
+            "wall_s": wall_s, "launches": counts, "printed": printed.getvalue().splitlines()[-6:]}
+
+
+def warm_up_shapes(name: str, build_model, cfg, batch: int, dev) -> float:
+    """One bf16 train step and one eval step of a fresh model at the
+    phase's shapes, before its timed runs: the first call at each new
+    shape pays its one-time setup (cuDNN's, module loading), which would
+    otherwise land in the first timed run alone. Returns its seconds."""
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_eval_step, make_train_step
+
+    (b,) = train_batches(cfg, 1, batch, seed=13)
+    b = {k: v.to(dev) for k, v in b.items()}
+    t0 = time.perf_counter()
+    state = create_train_state(build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0),
+                               LR, device=dev)
+    make_train_step(device=dev)(state, b, init_metrics(cfg.num_classes, dev))
+    make_eval_step(device=dev)(state, b, init_metrics(cfg.num_classes, dev))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def nyuv2_phase(kernels, dev, build_model, cityscapes_runs: dict) -> tuple:
+    """NYUv2 end to end at 256x256, 14 classes: the tree, the decoder held to
+    the written arrays, the loader alone raw and cached, the training CLI
+    with basic at batch 4 (the reference's NYUv2 run) raw, then cached, the
+    MTAN preemption drill, the harness on the phase's and on the ``cli``
+    phase's run dirs (``cityscapes_runs``, model name to run dir), and a
+    timed MTAN ``Predictor(8)``. Returns the ``nyuv2`` line, the launch
+    counts of its runs (the drill's processes' included) and the confusion
+    matrix's inputs from basic's last predict step."""
+    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+    from vision_mtl_tpu_torch.data import nyu_cache
+    from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
+    from vision_mtl_tpu_torch.data.nyuv2 import NYUv2
+
+    cfg = fetch_data_cfg("nyuv2")
+    cfg.data_dir = NYU_DATA
+    tree = write_nyuv2_tree(NYU_DATA)
+    decode = check_png_decode(tree)
+    tree.pop("first")
+    loader_raw = time_nyu_loader(4, 4)
+    hw_cfg = types.SimpleNamespace(height=256, width=256, num_classes=cfg.num_classes)
+    warm_s = warm_up_shapes("basic", build_model, hw_cfg, 4, dev)
+    common = ["--dataset_name", "nyuv2", "--data_dir", NYU_DATA, "--num_workers", "4",
+              "--lr", str(LR), "--save_epoch_freq", "1", "--num_epochs", "1"]
+    basic_argv = common + ["--model_name", "basic", "--batch_size", "4"]
+    raw = run_cli("basic", basic_argv, cfg, kernels)
+    t0 = time.perf_counter()
+    for stage in ("train", "test"):
+        nyu_cache.build_cache(NYUv2(stage=stage))
+    cache_s = time.perf_counter() - t0
+    loader_cached = time_nyu_loader(4, 4)
+    with capture_confmat_inputs() as confmat_inputs:
+        cached = run_cli("basic", basic_argv, cfg, kernels)
+    if cached["rec"]["sweeps"][0]["rows"] != raw["rec"]["sweeps"][0]["rows"]:
+        fail("nyuv2: the cached run trained on other rows than the raw one")
+    idle = profile_epoch(cached, cfg, dev)
+    del raw["rec"], cached["rec"]
+    lengths = cached["loader_lengths"]
+
+    mdm = MTLDataModule("nyuv2", batch_size=BATCH, train_transform=cfg.train_transform,
+                        test_transform=cfg.test_transform)
+    mdm.setup()
+    drill = preemption_drill(kernels, len(mdm.train_dataloader()), len(mdm.val_dataloader()),
+                             len(mdm.predict_dataloader()))
+    harness = {
+        "nyuv2": harness_check("nyuv2", {"basic": cached["run_dir"], "mtan": drill["run_dir"]},
+                               NYU_DATA, NYU_SAMPLES["test"], 4, kernels, dev),
+        "cityscapes": harness_check("cityscapes", cityscapes_runs, CLI_DATA, CLI_SAMPLES["val"],
+                                    BATCH, kernels, dev),
+    }
+    model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    predictor = time_predictor("mtan", model, hw_cfg, dev, kernels)
+    del model
+    line = {
+        "config": "nyuv2 480x640 PNGs resized to 256x256, 14 classes, bf16",
+        "tree": tree, "png_decode": decode,
+        "loader_train_epoch": {"raw": loader_raw, "cached": loader_cached,
+                               "cache_build_s": cache_s},
+        "cli_basic_batch4": {"raw": raw["line"], "cached": cached["line"],
+                             "first_calls_at_these_shapes_s": warm_s,
+                             "loader_lengths": lengths,
+                             "profile_one_epoch_cached": idle},
+        "preemption_drill_mtan_batch8": {k: v for k, v in drill.items() if k != "launches"},
+        "eval_harness": harness,
+        "mtan_predictor_8": predictor,
+    }
+    launches = [raw["launches"], cached["launches"], predictor["launches"],
+                *(h["launches"] for h in harness.values()), *drill["launches"].values()]
+    return line, launches, confmat_inputs[-1]
 
 
 def main(argv: list) -> int:
@@ -1391,8 +1864,15 @@ def main(argv: list) -> int:
     ).stdout.strip().splitlines()[0]
     t_start = time.perf_counter()
 
+    # the CUDA kernels (one nvcc per source) and the native decoders (g++)
+    # build side by side, before anything is timed
+    from vision_mtl_tpu_torch.data import native
+
     t0 = time.perf_counter()
-    kernels.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.build)
+        kernels.build_all()
+        native_build.result()
     build_s = time.perf_counter() - t0
 
     gate_rows, gate = check_gate(dev, fused_gate)
@@ -1413,6 +1893,22 @@ def main(argv: list) -> int:
     cs_conv_rows, cs_conv = check_small_conv(dev, small_conv, SMALL_CONV_SHAPES["csnet"])
     print(json.dumps({"small_conv_shapes_csnet": cs_conv_rows}), flush=True)
     print(json.dumps({"small_conv_per_train_step_csnet": cs_conv}), flush=True)
+    # the same kernels at NYUv2's shapes: MTAN's gates at 256x256, batch 8;
+    # basic's convs at 256x256, batch 4
+    nyu_gate_rows, nyu_gate = check_gate(dev, fused_gate, GATE_SHAPES_NYU)
+    print(json.dumps({"gate_shapes_nyuv2": nyu_gate_rows}), flush=True)
+    nyu_gate_train_rows, nyu_gate_train = check_gate_train(dev, fused_gate_train, GATE_SHAPES_NYU)
+    print(json.dumps({"gate_train_shapes_nyuv2": nyu_gate_train_rows}), flush=True)
+    nyu_conv_rows, nyu_conv = check_small_conv(dev, small_conv, SMALL_CONV_SHAPES["basic_nyuv2"],
+                                               batch=4)
+    print(json.dumps({"small_conv_shapes_nyuv2": nyu_conv_rows}), flush=True)
+    nyu_cs_conv_rows, nyu_cs_conv = check_small_conv(
+        dev, small_conv, SMALL_CONV_SHAPES["csnet_nyuv2"], batch=4)
+    print(json.dumps({"small_conv_shapes_csnet_nyuv2": nyu_cs_conv_rows}), flush=True)
+    print(json.dumps({"nyuv2_kernels_per_call": {
+        "gate_per_forward": nyu_gate, "gate_train_per_step": nyu_gate_train,
+        "small_conv_per_basic_step": nyu_conv, "small_conv_per_csnet_step": nyu_cs_conv}}),
+        flush=True)
 
     # the timed paths run first: after the CPU reference steps below, the
     # host launched the same train steps about 10% slower in this process
@@ -1439,11 +1935,13 @@ def main(argv: list) -> int:
     csnet_eval.pop("confmat_inputs")
     del model
     csnet_training = train_model("csnet", cfg, build_model, dev, kernels)
-    cli_lines, cli_launches = cli_phase(cfg, kernels, dev, {
+    cli_lines, cli_launches, cli_run_dirs = cli_phase(cfg, kernels, dev, {
         "mtan": mtan_training["img_per_s"], "basic": basic_training["img_per_s"],
         "csnet": csnet_training["img_per_s"],
     })
-    phases = cli_launches + [  # launch counts of every main-path run
+    nyu_line, nyu_launches, nyu_ids = nyuv2_phase(
+        kernels, dev, build_model, {k: cli_run_dirs[k] for k in ("mtan", "basic")})
+    phases = cli_launches + nyu_launches + [  # launch counts of every main-path run
         serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
         mtan_training["launches"], mtan_training["eval_step"]["launches"],
         basic_timing["launches"], basic_eval["launches"],
@@ -1459,6 +1957,10 @@ def main(argv: list) -> int:
             fail(f"confusion_matrix {name}: a call ran {mix['kernels_per_call']}, want one kernel")
     cmat = {**cmat_mixes["main_path"],
             "max_abs_err": max(m["max_abs_err"] for m in cmat_mixes.values())}
+    nyu_classes = fetch_data_cfg("nyuv2").num_classes
+    nyu_mixes = check_confmat(confmat, nyu_classes,
+                              confmat_mixes(dev, nyu_classes, nyu_ids, shape=tuple(nyu_ids[0].shape)))
+    print(json.dumps({"confmat_mixes_nyuv2": nyu_mixes}), flush=True)
 
     model_line = {
         "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16", "params": mtan_params,
@@ -1517,6 +2019,7 @@ def main(argv: list) -> int:
     print(json.dumps({"train": train_line}), flush=True)
     for line in cli_lines:
         print(json.dumps({"cli": line}), flush=True)
+    print(json.dumps({"nyuv2": nyu_line}), flush=True)
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     # B3's entry: one bf16 train step of the basic model and one of CSNet
@@ -1527,6 +2030,21 @@ def main(argv: list) -> int:
     conv_both["bound_ms"], conv_both["bound_by"] = bound(
         conv["bytes"] + cs_conv["bytes"], conv["flops"] + cs_conv["flops"], BF16_TC_FLOPS_PER_S
     )
+    nyu_cmat = {**nyu_mixes["main_path"],
+                "err": max(m["max_abs_err"] for m in nyu_mixes.values())}
+
+    def at_nyuv2(totals: dict) -> dict:
+        # each kernel's numbers at NYUv2's shapes: per MTAN forward or train
+        # step at 256x256 and batch 8, per basic train step at batch 4, and
+        # on the ids of basic's last NYUv2 predict step
+        return {"ms": totals["ms"], "plain_ms": totals["plain_ms"],
+                "bound_ms": totals["bound_ms"], "bound_by": totals["bound_by"],
+                "library_ms": totals.get("library_ms"), "max_abs_err": totals["err"]}
+
+    nyu_entries = {"fused_attention_gate": at_nyuv2(nyu_gate),
+                   "fused_attention_gate_train": at_nyuv2(nyu_gate_train),
+                   "confusion_matrix": at_nyuv2(nyu_cmat),
+                   "conv3x3_small": at_nyuv2(nyu_conv)}
     kernel_line = {"kernels": [
         {
             "name": "fused_attention_gate", "route": "cuda",
@@ -1561,6 +2079,8 @@ def main(argv: list) -> int:
         },
     ]}
     for k in kernel_line["kernels"]:
+        k["nyuv2"] = nyu_entries[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], k["nyuv2"]["max_abs_err"])
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on the main path")
     print(json.dumps(kernel_line), flush=True)

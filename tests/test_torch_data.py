@@ -157,10 +157,11 @@ def test_datamodule_split_matches_jax(syn_cfgs, do_overfit):
 
 def test_datamodule_cityscapes_tree(cs_tree, monkeypatch, capsys):
     """The benchmark ids (955-2325) lie beyond a small tree: both report
-    and go on without the batch; val reads the 'val' stage; nyuv2 is not
-    ported. The JAX side decodes through its Python path (its native
-    decoder is the port's ROADMAP A6)."""
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+    and go on without the batch; val reads the 'val' stage; nyuv2 builds
+    its dataset, which finds no tree here. Both decode through their
+    native batch path (the same C++), which without a transform resizes to
+    the config's 128x256."""
+    assert jax_native.available()
     monkeypatch.setattr(jax_cityscapes_cfg, "data_dir", cs_tree)
     monkeypatch.setattr(cityscapes_data_cfg, "data_dir", cs_tree)
     kw = dict(dataset_name="cityscapes", batch_size=2, seed=3,
@@ -181,7 +182,8 @@ def test_datamodule_cityscapes_tree(cs_tree, monkeypatch, capsys):
         assert len(g_all) == len(w_all)
         for g, w in zip(g_all, w_all):
             _assert_batches_equal(g, w)
-    with pytest.raises(NotImplementedError, match="A6"):
+            assert g["img"].shape[1:] == (128, 256, 3)
+    with pytest.raises(RuntimeError, match="Dataset not complete"):
         datamodule._make_dataset("nyuv2", "train", None)
 
 

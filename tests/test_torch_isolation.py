@@ -1,7 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, nor a package the card's machine lacks (PIL, yaml, orbax,
-matplotlib, comet_ml), and its entry points refuse to run on a missing card
-unless the caller asks for the CPU."""
+package, nor a package the port does not depend on (PIL, yaml, orbax,
+matplotlib, comet_ml, pandas), and its entry points refuse to run on a
+missing card unless the caller asks for the CPU."""
 
 import pkgutil
 import subprocess
@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax():
                  "models.mobilenetv3", "models.unet_decoder", "models.cross_stitch",
                  "data.loader", "data.datamodule", "data.cityscapes", "data.transforms",
                  "train.loop", "train.checkpoint", "train.plateau", "tracking.logger",
-                 "utils.args", "pipeline", "training"):
+                 "utils.args", "pipeline", "training", "data.native", "data.nyuv2",
+                 "data.nyu_cache", "train.preempt", "utils.io", "eval_harness"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""
@@ -53,7 +54,7 @@ def test_port_imports_nothing_of_jax():
             importlib.import_module(name)
         runpy.run_path({str(REPO / "chip_smoke.py")!r}, run_name="chip_smoke_import")
         banned = ("jax", "flax", "vision_mtl_tpu", "PIL", "yaml", "orbax", "matplotlib",
-                  "comet_ml")
+                  "comet_ml", "pandas")
         bad = sorted(
             m for m in sys.modules
             if m in banned or m.startswith(tuple(b + "." for b in banned))
@@ -146,10 +147,10 @@ def test_small_conv_wrapper_never_falls_back(monkeypatch):
 
 
 def test_cli_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
-    """``training`` and ``serve --run_dir`` run on the card unless
-    ``--device cpu`` is given; without a card they raise before writing a
+    """``training``, ``serve --run_dir`` and ``eval_harness`` run on the
+    card unless ``--device cpu`` is given; without a card they raise before writing a
     run dir, and the device copy of a batch has no host fallback."""
-    from vision_mtl_tpu_torch import serve, training
+    from vision_mtl_tpu_torch import eval_harness, serve, training
     from vision_mtl_tpu_torch.cfg import cfg
     from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 
@@ -161,5 +162,7 @@ def test_cli_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--run_dir", str(tmp_path), "--model_name", "mtan",
                     "--dataset_name", "synthetic"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_harness.main(["--dataset_name", "synthetic", "--runs", f"mtan={tmp_path}"])
     with pytest.raises((RuntimeError, AssertionError)):
         next(prefetch_to_device([{"img": np.zeros((1, 2, 2, 3), np.float32)}], "cuda"))

@@ -81,3 +81,11 @@ class Subset:
 
     def __getitem__(self, idx: int) -> Sample:
         return self.dataset[self.indices[idx]]
+
+    def load_batch(self, idxs: t.Sequence[int]) -> t.Optional[Sample]:
+        """The dataset's batched load at the translated indices; None when
+        it has none."""
+        inner = getattr(self.dataset, "load_batch", None)
+        if inner is None:
+            return None
+        return inner([self.indices[i] for i in idxs])

@@ -4,6 +4,8 @@
 Layout ``{data_dir}/{stage}/{image,label,depth}/*.npy``: images in [0, 1],
 labels with the ignore id -1 folded into ``num_classes - 1``, inverse depth
 in [0, 1]. Resize: bilinear for images, nearest for masks and depth.
+``load_batch`` decodes a whole batch through the native C++ path
+(``data/native.py``), which the loader takes over the per-sample one.
 """
 
 from __future__ import annotations
@@ -60,6 +62,25 @@ class CityscapesDataset(MTLDataset):
         if len(set(counts.values())) != 1:
             raise ValueError(f"unequal numbers of image, label and depth files: {counts}")
         return paths
+
+    def load_batch(self, idxs: t.Sequence[int]) -> Sample:
+        """Native batched decode, resize and collate. Without a transform it
+        resizes to the config's size, as the JAX package's does; the resize
+        is the identity for trees already at that size, where the batch
+        equals the per-sample path's bit for bit."""
+        from vision_mtl_tpu_torch.data import native
+
+        spec = self.transform
+        return native.load_cityscapes_batch(
+            [self.paths["img"][i] for i in idxs],
+            [self.paths["mask"][i] for i in idxs],
+            [self.paths["depth"][i] for i in idxs],
+            spec.height if spec else data_cfg.height,
+            spec.width if spec else data_cfg.width,
+            ignore_value=-1,
+            remap_to=data_cfg.num_classes - 1,
+            depth_div=1.0,
+        )
 
     def load_raw_sample(self, idx: int) -> Sample:
         img = np.load(self.paths["img"][idx])

@@ -27,10 +27,9 @@ def _make_dataset(dataset_name: str, stage: str, transforms: t.Any) -> MTLDatase
 
         return SyntheticMTLDataset(stage=stage, transforms=transforms)
     if dataset_name == "nyuv2":
-        raise NotImplementedError(
-            "the NYUv2 dataset (PNG decode, its cache and the native decoder "
-            "binding) is not ported yet: ROADMAP.md A6"
-        )
+        from vision_mtl_tpu_torch.data.nyuv2 import NYUv2
+
+        return NYUv2(stage=stage, transforms=transforms)
     raise ValueError(f"Unknown dataset name {dataset_name}")
 
 

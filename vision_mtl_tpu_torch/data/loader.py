@@ -4,6 +4,9 @@ one process).
 
   * static batch shapes: train drops the ragged last batch; eval pads it by
     repeating the last sample and adds a per-sample ``valid`` weight;
+  * a dataset's ``load_batch(idxs)`` decodes a whole batch (the native
+    Cityscapes path, the NYUv2 cache); where it returns None, or raises
+    ``native.DecodeError`` on a file, the samples are decoded one by one;
   * ``num_workers`` is a thread pool (numpy decode releases the GIL);
   * the batch order is the JAX loader's: a numpy ``default_rng(seed +
     epoch)`` permutation, the epoch counted by ``__iter__``;
@@ -19,6 +22,8 @@ import typing as t
 
 import numpy as np
 import torch
+
+from vision_mtl_tpu_torch.data.native import DecodeError
 
 Batch = t.Dict[str, np.ndarray]
 
@@ -115,14 +120,24 @@ class DataLoader:
         self.epoch += 1
 
         pool = cf.ThreadPoolExecutor(self.num_workers) if self.num_workers > 0 else None
+        load_batch = getattr(self.dataset, "load_batch", None)
         try:
             for idxs in batches:
-                if pool is not None:
-                    futures = [pool.submit(self.dataset.__getitem__, int(i)) for i in idxs]
-                    samples = [f.result() for f in futures]
-                else:
-                    samples = [self.dataset[int(i)] for i in idxs]
-                batch = _collate(samples)
+                batch = None
+                if load_batch is not None:
+                    try:
+                        batch = load_batch([int(i) for i in idxs])
+                    except DecodeError:
+                        # a file the native parser cannot read: the
+                        # per-sample path reads it or names it
+                        batch = None
+                if batch is None:
+                    if pool is not None:
+                        futures = [pool.submit(self.dataset.__getitem__, int(i)) for i in idxs]
+                        samples = [f.result() for f in futures]
+                    else:
+                        samples = [self.dataset[int(i)] for i in idxs]
+                    batch = _collate(samples)
                 if self.pad_last:
                     batch = _pad_batch(batch, self.batch_size)
                 elif self.with_valid:

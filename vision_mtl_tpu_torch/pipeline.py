@@ -96,13 +96,21 @@ def load_run_model(
     device: t.Union[str, torch.device],
     model_name: t.Optional[str] = None,
     dataset_name: t.Optional[str] = None,
+    defaults: t.Optional[t.Mapping[str, t.Any]] = None,
+    overrides: t.Optional[t.Mapping[str, t.Any]] = None,
 ) -> t.Tuple[torch.nn.Module, DataConfig, argparse.Namespace]:
     """A trained run's model in eval mode on ``device``: rebuilt from its
     ``train_args.yaml`` (``model_name`` and ``dataset_name`` override the
-    recorded ones) with the weights of its newest ``model_{e}``. Returns
+    recorded ones; ``defaults`` fill args the file lacks, ``overrides``
+    replace them) with the weights of its newest ``model_{e}``. Returns
     ``(model, data_cfg, run_args)``."""
     args_path = os.path.join(run_dir, "train_args.yaml")
     run_args = load_args(args_path) if os.path.exists(args_path) else argparse.Namespace()
+    for k, v in (defaults or {}).items():
+        if not hasattr(run_args, k):
+            setattr(run_args, k, v)
+    for k, v in (overrides or {}).items():
+        setattr(run_args, k, v)
     run_args.model_name = model_name or getattr(run_args, "model_name", None)
     run_args.dataset_name = dataset_name or getattr(run_args, "dataset_name", None)
     if not run_args.model_name or not run_args.dataset_name:

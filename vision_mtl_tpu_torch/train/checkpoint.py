@@ -9,14 +9,20 @@ written under a temporary name and renamed into place, so a reader finds a
 complete artifact or none. The CLI args go to ``train_args.yaml``, a flat
 YAML mapping under ``args:`` written and read without PyYAML.
 
+A preemption (``train/preempt.py``) writes ``preempt_model/`` and
+``preempt_session/`` the same way, the session with the interrupted
+epoch's position and metric accumulators, and a ``preempt_meta.json``
+sidecar with the position, which ``resolve_resume`` compares with the
+newest epoch checkpoint.
+
 The names ``model_{e}.pt`` are left to reference PyTorch checkpoints,
 which the JAX package imports; the port will read them in ROADMAP.md A8.
-Preemption checkpoints wait for a later slice (A7).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -27,8 +33,10 @@ import typing as t
 
 import torch
 
+from vision_mtl_tpu_torch.metrics import MetricState
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
+from vision_mtl_tpu_torch.utils.io import atomic_write_json
 
 MODEL_FILE = "model.pt"
 SESSION_FILE = "session.pt"
@@ -157,7 +165,136 @@ def restore_session(
     return state, scheduler, int(session["epoch"]) + 1
 
 
+PREEMPT_MODEL = "preempt_model"
+PREEMPT_SESSION = "preempt_session"
+PREEMPT_META = "preempt_meta.json"
+
+
+def save_preempt_ckpt(
+    state: TrainState,
+    scheduler: ReduceLROnPlateau,
+    epoch: int,
+    batch_in_epoch: int,
+    train_mstate: MetricState,
+    val_step: int,
+    save_dir: str,
+) -> t.Tuple[str, str]:
+    """The mid-epoch checkpoint of a preemption: the model, and a session
+    with the optimizer, lr, scheduler, step, the interrupted ``epoch``, the
+    ``batch_in_epoch`` batches of it already trained, its train metric
+    accumulators and the validation step counter. The caller waits for the
+    device's queued work first. The position sidecar goes last, written
+    atomically and synced: this runs inside the grace period, and a torn
+    sidecar would stop every later ``--auto_resume``."""
+    os.makedirs(save_dir, exist_ok=True)
+    model_path = os.path.abspath(os.path.join(save_dir, PREEMPT_MODEL))
+    session_path = os.path.abspath(os.path.join(save_dir, PREEMPT_SESSION))
+    _save_dir_atomic(_to_cpu(state.model.state_dict()), model_path, MODEL_FILE)
+    session = {
+        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "lr": get_lr(state),
+        "scheduler": scheduler.state_dict(),
+        "epoch": epoch,
+        "step": int(state.step),
+        "batch_in_epoch": batch_in_epoch,
+        "val_step": int(val_step),
+        "train_metrics": {
+            f.name: _to_cpu(getattr(train_mstate, f.name))
+            for f in dataclasses.fields(train_mstate)
+        },
+    }
+    _save_dir_atomic(session, session_path, SESSION_FILE)
+    atomic_write_json(
+        os.path.join(save_dir, PREEMPT_META),
+        {"epoch": epoch, "batch_in_epoch": batch_in_epoch},
+        fsync=True,
+    )
+    print(f"Preemption checkpoint saved to {model_path} (epoch {epoch}, batch {batch_in_epoch})")
+    return model_path, session_path
+
+
+def _has_preempt_ckpt(ckpt_dir: str) -> bool:
+    return (
+        os.path.isdir(os.path.join(ckpt_dir, PREEMPT_MODEL))
+        and os.path.isdir(os.path.join(ckpt_dir, PREEMPT_SESSION))
+        and os.path.exists(os.path.join(ckpt_dir, PREEMPT_META))
+    )
+
+
+def resolve_resume(ckpt_dir: str) -> str:
+    """``"preempt"`` when the preemption checkpoint is the newest training
+    state in ``ckpt_dir``, else ``"epoch"``: positions compare as ``(epoch,
+    batch_in_epoch)`` against ``(latest epoch + 1, 0)``, so a preemption
+    checkpoint that later epoch saves superseded loses."""
+    if not _has_preempt_ckpt(ckpt_dir):
+        return "epoch"
+    try:
+        with open(os.path.join(ckpt_dir, PREEMPT_META)) as f:
+            meta = json.load(f)
+        preempt_pos = (int(meta["epoch"]), int(meta["batch_in_epoch"]))
+    except (ValueError, KeyError, TypeError, OSError) as e:
+        # the sidecar only caches the position, which the session holds:
+        # without epoch checkpoints the preemption one is the only state;
+        # with them, recency cannot be decided and the epoch ones are taken
+        # (at worst the interrupted epoch is trained again from its start)
+        try:
+            _latest_common_epoch(ckpt_dir)
+        except ValueError:
+            choice = "preempt"
+        else:
+            choice = "epoch"
+        print(
+            f"WARNING: unreadable {PREEMPT_META} in {ckpt_dir} ({type(e).__name__}: {e}); "
+            f"resuming from the {'preemption' if choice == 'preempt' else 'epoch'} checkpoint."
+        )
+        return choice
+    try:
+        epoch_pos = (_latest_common_epoch(ckpt_dir) + 1, 0)
+    except ValueError:
+        return "preempt"
+    return "preempt" if preempt_pos > epoch_pos else "epoch"
+
+
+def restore_preempt(
+    state: TrainState,
+    scheduler: ReduceLROnPlateau,
+    ckpt_dir: str,
+    num_classes: int,
+) -> t.Tuple[TrainState, ReduceLROnPlateau, int, int, MetricState, int]:
+    """Restore a preemption checkpoint. Returns ``(state, scheduler, epoch,
+    batch_in_epoch, train_mstate, val_step)``: ``epoch`` is the interrupted
+    one, to continue (not the next), and ``batch_in_epoch`` the number of
+    its batches already trained. The accumulators land on the model's
+    device."""
+    path = os.path.join(ckpt_dir, PREEMPT_MODEL, MODEL_FILE)
+    state.model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    session = torch.load(os.path.join(ckpt_dir, PREEMPT_SESSION, SESSION_FILE),
+                         map_location="cpu", weights_only=True)
+    state.optimizer.load_state_dict(session["optimizer"])
+    state = set_lr(state, float(session["lr"]))
+    state.step = int(session["step"])
+    scheduler.load_state_dict(session["scheduler"])
+    device = next(state.model.parameters()).device
+    saved = session["train_metrics"]
+    if saved["confmat"].shape != (num_classes, num_classes):
+        raise ValueError(
+            f"{ckpt_dir}: the preemption checkpoint counts {saved['confmat'].shape[0]} "
+            f"classes, not {num_classes}"
+        )
+    mstate = MetricState(**{k: v.to(device) for k, v in saved.items()})
+    return (
+        state,
+        scheduler,
+        int(session["epoch"]),
+        int(session["batch_in_epoch"]),
+        mstate,
+        int(session["val_step"]),
+    )
+
+
 def _is_resumable(d: str) -> bool:
+    if _has_preempt_ckpt(d):
+        return True
     try:
         _latest_common_epoch(d)
         return True
@@ -181,8 +318,9 @@ def prune_old_ckpts(save_dir: str, keep_last_k: int) -> t.List[int]:
 
 def find_latest_resumable_run(base_dir: str) -> t.Optional[str]:
     """The most recently written run dir under ``base_dir`` (``version_*``,
-    or one level deeper under a run name) that holds a complete model and
-    session epoch pair; None when there is none. Backs ``--auto_resume``."""
+    or one level deeper under a run name) that holds a preemption
+    checkpoint or a complete model and session epoch pair; None when there
+    is none. Backs ``--auto_resume``."""
     if not os.path.isdir(base_dir):
         return None
     pattern = re.compile(r"version_(\d+)$")

@@ -11,6 +11,10 @@ the last one. Metric names are the JAX package's: ``step/{stage}/{k}``,
 Nothing in the step loop reads the device: a step's losses are fetched
 after the next step has been queued (``_LaggedLossLog``), and the epoch's
 metrics are the one read that waits for the epoch's work.
+
+A ``PreemptionGuard`` (``train/preempt.py``) is polled after every train
+and validation step and once after each epoch's checkpoint; a request
+writes a checkpoint and exits 143 (``_preempt_exit``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
 from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metrics
-from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt
+from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt, save_preempt_ckpt
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
 from vision_mtl_tpu_torch.train.step import make_eval_step, make_train_step
@@ -80,14 +84,23 @@ def run_pipe(
     scheduler: t.Optional[ReduceLROnPlateau] = None,
     start_epoch: int = 0,
     epoch_callback: t.Optional[t.Callable[[int, t.Dict[str, float]], None]] = None,
+    preempt_guard: t.Any = None,
     start_batch: int = 0,
+    initial_train_mstate: t.Optional[MetricState] = None,
+    start_val_step: int = 0,
     device: t.Union[str, torch.device] = "cuda",
 ) -> t.Tuple[TrainState, t.Dict[str, t.Dict[str, list]]]:
     """Train ``state`` from ``start_epoch`` to ``num_epochs``; returns the
     state and the epoch metrics. Checkpoints go to ``logger.log_dir``.
     ``epoch_callback(epoch, val_metrics)`` runs after each validation; its
-    exceptions propagate. ``start_batch`` skips that many batches of
-    ``start_epoch``'s order."""
+    exceptions propagate.
+
+    ``preempt_guard`` is polled at every step boundary; when it fires, a
+    preemption checkpoint is written and the process exits 143.
+    ``start_batch``, ``initial_train_mstate`` and ``start_val_step``
+    continue an interrupted epoch exactly (``checkpoint.restore_preempt``):
+    the loader skips the batches of ``start_epoch``'s order already
+    trained, and the epoch's accumulators go on from where they stopped."""
     dev = resolve_device(device)
     train_step = make_train_step(
         loss_segm_weight=args.loss_segm_weight,
@@ -107,7 +120,7 @@ def run_pipe(
 
     # a resumed run continues the step axis (restore_session set state.step)
     global_step = int(state.step)
-    val_step = 0
+    val_step = start_val_step
     if logger is None:
         print(
             "WARNING: run_pipe called without a logger — no checkpoints "
@@ -124,19 +137,47 @@ def run_pipe(
     train_loader.epoch = start_epoch
     train_loader.skip_batches = start_batch
 
+    def _preempt_exit(batches: t.Any, epoch: int, batch_in_epoch: int,
+                      mstate_: MetricState, val_step_: int) -> None:
+        """Stop the loader, let the device finish what is queued (the
+        steps and the copies in flight), write the preemption checkpoint
+        and exit 143. A request during validation saves the whole epoch's
+        train state: the resumed run trains no batch of it again and
+        validates from the top."""
+        batches.close()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if logger is not None:
+            save_preempt_ckpt(state, scheduler, epoch, batch_in_epoch, mstate_, val_step_,
+                              save_dir=logger.log_dir)
+        else:
+            print("Preemption requested but run_pipe has no logger: no checkpoint dir to "
+                  "write; exiting without saving.")
+        print(f"Preempted at epoch {epoch + 1} step {global_step}; resume with --resume_dir.")
+        raise SystemExit(143)
+
     for epoch in range(start_epoch, num_epochs):
         print(f"### Epoch {epoch + 1}/{num_epochs} ###")
         epoch_t0 = time.perf_counter()
-        mstate = init_metrics(num_classes, dev)
+        if epoch == start_epoch and initial_train_mstate is not None:
+            # the interrupted epoch's accumulators: its train metrics come
+            # out as the uninterrupted run's
+            mstate = initial_train_mstate
+        else:
+            mstate = init_metrics(num_classes, dev)
         batch_in_epoch = start_batch if epoch == start_epoch else 0
         epoch_start_batch = batch_in_epoch
 
         step_log = _LaggedLossLog("step/train", logger)
-        for batch in prefetch_to_device(train_loader, dev, size=2):
+        batches = prefetch_to_device(train_loader, dev, size=2)
+        for batch in batches:
             state, mstate, losses = train_step(state, batch, mstate)
             step_log.offer(global_step, losses, global_step % log_every_n_steps == 0)
             global_step += 1
             batch_in_epoch += 1
+            if preempt_guard is not None and preempt_guard.requested(global_step):
+                step_log.flush()
+                _preempt_exit(batches, epoch, batch_in_epoch, mstate, val_step)
         step_log.flush()
 
         # reading the metrics waits for the epoch's work: the epoch's time
@@ -161,10 +202,15 @@ def run_pipe(
         if (epoch + 1) % args.val_epoch_freq == 0:
             val_mstate = init_metrics(num_classes, dev)
             val_log = _LaggedLossLog("step/val", logger)
-            for batch in prefetch_to_device(datamodule.val_dataloader(), dev, size=2):
+            val_step0 = val_step  # a preempted sweep is run again from here
+            batches = prefetch_to_device(datamodule.val_dataloader(), dev, size=2)
+            for batch in batches:
                 val_mstate, losses = eval_step(state, batch, val_mstate)
                 val_log.offer(val_step, losses, val_step % log_every_n_steps == 0)
                 val_step += 1
+                if preempt_guard is not None and preempt_guard.requested(global_step):
+                    val_log.flush()
+                    _preempt_exit(batches, epoch, batch_in_epoch, mstate, val_step0)
             val_log.flush()
 
             val_metrics = _host_floats(
@@ -186,10 +232,18 @@ def run_pipe(
             if epoch_callback is not None:
                 epoch_callback(epoch, val_metrics)
 
-        if ((epoch + 1) % args.save_epoch_freq == 0 or epoch == num_epochs - 1) and (
-            logger is not None
-        ):
+        epoch_saved = (epoch + 1) % args.save_epoch_freq == 0 or epoch == num_epochs - 1
+        if epoch_saved and logger is not None:
             save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir)
             prune_old_ckpts(logger.log_dir, getattr(args, "keep_ckpt_last_k", 0))
+
+        # a request after the epoch's last poll: the epoch, its scheduler
+        # step included, is complete, so an epoch checkpoint resumes it
+        # exactly at the next epoch
+        if preempt_guard is not None and preempt_guard.requested(global_step):
+            if logger is not None and not epoch_saved:
+                save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir)
+            print(f"Preempted after epoch {epoch + 1}; resume with --resume_dir.")
+            raise SystemExit(143)
 
     return state, epoch_metrics

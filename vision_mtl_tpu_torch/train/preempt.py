@@ -1,0 +1,58 @@
+"""Preemption-safe training in one process (counterpart of
+``vision_mtl_tpu/train/preempt.py``).
+
+A preemptible machine gets a SIGTERM and a short grace period before it
+goes. ``PreemptionGuard`` turns the signal into a request that
+``run_pipe`` honours at the next step boundary (or between validation
+steps): it writes a mid-epoch checkpoint (``preempt_model/`` and
+``preempt_session/``: the weights, the optimizer, the plateau scheduler,
+the epoch's metric accumulators and the position ``(epoch,
+batch_in_epoch)``) and exits 143. ``--resume_dir`` then continues where
+training stopped: the loader replays the epoch's seeded order and skips
+the batches already trained without decoding them, so the resumed run
+ends with the uninterrupted run's weights.
+
+Fault injection: ``VMTL_PREEMPT_AT_STEP=<k>`` (or ``inject_at_step=k``)
+fires the guard once the global step reaches ``k``.
+
+Several processes (the JAX package's preemption sync point across hosts)
+wait for the parallel slice, ROADMAP.md A10.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import typing as t
+
+
+class PreemptionGuard:
+    """A polled preemption request. Construct it on the main thread (where
+    Python runs signal handlers) before training starts, then call
+    :meth:`requested` at every step boundary."""
+
+    def __init__(
+        self,
+        signals: t.Sequence[int] = (signal.SIGTERM,),
+        inject_at_step: t.Optional[int] = None,
+    ):
+        self._flag = False
+        if inject_at_step is None:
+            env = os.environ.get("VMTL_PREEMPT_AT_STEP")
+            inject_at_step = int(env) if env else None
+        self._inject_at = inject_at_step
+        for s in signals:
+            try:
+                signal.signal(s, self._handle)
+            except ValueError:
+                # not the main thread: injection still works, signals cannot
+                pass
+
+    def _handle(self, signum: int, frame: t.Any) -> None:
+        self._flag = True
+
+    def requested(self, global_step: int) -> bool:
+        """True once a signal arrived or the injected step is reached."""
+        if self._inject_at is not None and global_step >= self._inject_at:
+            return True
+        return self._flag

@@ -8,8 +8,12 @@ write ``preds.npz`` beside the run's metrics and checkpoints.
 
 It runs on the card; ``--device cpu`` runs it on the CPU. Run dirs are
 ``<log_root>/training-<model>[/<run_name>]/version_N`` (``VMTL_LOG_ROOT``
-sets the root). The hyperparameter search, the mesh, preemption and the
-registry of finished runs wait for later slices (ROADMAP.md A7, A9, A10).
+sets the root). ``--preempt_save`` turns a SIGTERM (or
+``VMTL_PREEMPT_AT_STEP``) into a mid-epoch checkpoint and exit 143;
+``--resume_dir`` (or ``--auto_resume``) continues from the newest
+checkpoint of a run, a preemption one included. The hyperparameter
+search, the mesh and the registry of finished runs wait for later slices
+(ROADMAP.md A9, A10).
 """
 
 from __future__ import annotations
@@ -64,14 +68,34 @@ def _main(args: argparse.Namespace) -> str:
         state = components["state"]
 
         scheduler = None
-        start_epoch = 0
+        start_epoch = start_batch = start_val_step = 0
+        initial_train_mstate = None
         if args.resume_dir:
-            from vision_mtl_tpu_torch.train.checkpoint import restore_session
+            from vision_mtl_tpu_torch.train.checkpoint import (
+                resolve_resume,
+                restore_preempt,
+                restore_session,
+            )
             from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 
             scheduler = ReduceLROnPlateau(patience=2, factor=0.9)
-            state, scheduler, start_epoch = restore_session(state, scheduler, args.resume_dir)
-            print(f"Resumed from {args.resume_dir} at epoch {start_epoch}")
+            if resolve_resume(args.resume_dir) == "preempt":
+                # the preemption checkpoint is the newest state: resume
+                # inside the interrupted epoch
+                (state, scheduler, start_epoch, start_batch, initial_train_mstate,
+                 start_val_step) = restore_preempt(
+                    state, scheduler, args.resume_dir, data_cfg.num_classes)
+                print(f"Resumed preempted run {args.resume_dir} at epoch {start_epoch} "
+                      f"batch {start_batch}")
+            else:
+                state, scheduler, start_epoch = restore_session(state, scheduler, args.resume_dir)
+                print(f"Resumed from {args.resume_dir} at epoch {start_epoch}")
+
+        preempt_guard = None
+        if args.preempt_save:
+            from vision_mtl_tpu_torch.train.preempt import PreemptionGuard
+
+            preempt_guard = PreemptionGuard()
 
         state, _ = run_pipe(
             args,
@@ -82,6 +106,10 @@ def _main(args: argparse.Namespace) -> str:
             logger=logger,
             scheduler=scheduler,
             start_epoch=start_epoch,
+            preempt_guard=preempt_guard,
+            start_batch=start_batch,
+            initial_train_mstate=initial_train_mstate,
+            start_val_step=start_val_step,
             device=device,
         )
 

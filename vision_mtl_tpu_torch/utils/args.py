@@ -93,7 +93,11 @@ def parse_args(argv: t.Optional[t.Sequence[str]] = None) -> argparse.Namespace:
         "--keep_ckpt_last_k", type=int, default=0,
         help="Keep only the newest K epoch checkpoint pairs (0 = keep all).",
     )
-    dev_args.add_argument("--preempt_save", action="store_true")
+    dev_args.add_argument(
+        "--preempt_save", action="store_true",
+        help="On SIGTERM (or VMTL_PREEMPT_AT_STEP=k) write a mid-epoch checkpoint at the "
+        "next step boundary and exit 143; --resume_dir continues it exactly.",
+    )
     dev_args.add_argument("--fold_tasks", action="store_true")
     dev_args.add_argument(
         "--torch_bn_var",
@@ -115,7 +119,6 @@ def parse_args(argv: t.Optional[t.Sequence[str]] = None) -> argparse.Namespace:
 NOT_PORTED: t.Dict[str, t.Tuple[t.Any, str]] = {
     "do_optimize": (False, "A9 (tuning.py)"),
     "backbone_weights": (None, "A8 (the timm encoder loader)"),
-    "preempt_save": (False, "A7 (train/preempt.py)"),
     "do_plot_preds": (False, "A9 (vis.py)"),
     "do_show_preds": (False, "A9 (vis.py)"),
     "fold_tail": (False, "A9 (ops/fold.py)"),
