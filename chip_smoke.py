@@ -49,6 +49,27 @@ MTAN's gates at 256x256 and batch 8, basic's and CSNet's B3 convs at
 256x256 and batch 4 (basic's merged head 33 -> 15, CSNet's segmentation
 head 16 -> 14), B2 at 14 classes on basic's predict ids.
 
+The ``interop`` phase (reference checkpoints and exported programs) runs
+each model at Cityscapes 128x256, batch 8: 2 bf16 train steps from seeded
+weights, then a reference run dir under ``build/chip_smoke/reference/``
+(``model_1.pt`` from ``save_reference_checkpoint``, ``session_1.pt`` with
+the port's Adam state re-keyed into the reference's parameter order, a
+``train_args.yaml`` laid out as PyYAML writes it) beside the port's own
+run dir of the same state. Through ``serve --run_dir``'s loader the import
+must equal the source bit for bit and answer ``Predictor(8)`` as it does,
+ids and depth exactly, with ``PER_FORWARD`` launches. For MTAN and basic,
+``training --resume_dir`` on either dir, with PyTorch's deterministic
+algorithms set, must start at epoch 2 with the same state and take the
+same first step bit for bit; ``eval_harness`` on MTAN's reference dir
+must give the import's own predict metrics. Each import is exported
+(``export_model``, uint8 wire, batch 8; its graph must hold the kernel's
+operator at each of its calls), then loaded and run in a fresh process
+that imports no model code: each call launches ``PER_FORWARD`` kernels,
+its ids equal ``Predictor(8)``'s and its depth lies within one bf16 step
+of it (the ``serve --run_dir`` rule); its p50 is timed beside
+``Predictor(8)``'s in that process. The eval gate's host cost per call
+through its operator is timed against the direct launch.
+
 ``--kernels`` times the eval gate and the confusion matrix only (the
 ``gate_shapes`` and ``confmat_mixes`` lines, then the card's name and power
 limit) and prints no ``ok`` line. Its wrappers' API is that of earlier
@@ -140,9 +161,9 @@ memory above what was live when the run began, launches; beside them the
 bare step's img/s of the training phase, the loader's img/s alone and with
 the copies to the card, and the card's idle share over one more epoch of
 the loop, from torch.profiler), the per-shape and per-call kernel lines at
-the NYUv2 shapes and the ``nyuv2`` line, the ``kernels`` JSON line (each
-entry with its ``nyuv2`` numbers beside), the card's name and power
-limit. The last line is
+the NYUv2 shapes and the ``nyuv2`` line, the ``interop`` line, the
+``kernels`` JSON line (each entry with its ``nyuv2`` numbers beside), the
+card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1842,6 +1863,418 @@ def nyuv2_phase(kernels, dev, build_model, cityscapes_runs: dict) -> tuple:
     return line, launches, confmat_inputs[-1]
 
 
+# the interop phase's reference run dirs (one per model, beside the port's
+# own run dir of the same state) and exported programs
+INTEROP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                           "reference")
+# train_args.yaml as PyYAML's yaml.dump(..., default_flow_style=False) lays
+# out the reference's args: sorted keys, plain scalars, block lists
+REFERENCE_ARGS = """args:
+  batch_size: 8
+  channel_wise_stitching: {cw}
+  ckpt_dir: null
+  dataset_name: cityscapes
+  exp_tags:
+  - reference
+  - interop
+  loss_depth_weight: 1.0
+  loss_segm_weight: 1.0
+  lr: 0.001
+  model_name: {name}
+  num_epochs: 2
+  precision: bf16
+  run_name: reference-{name}
+  seed: 11
+"""
+EXPORT_CODE = r"""
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from vision_mtl_tpu_torch import kernels
+from vision_mtl_tpu_torch.serving import latency_bench, load_exported
+
+jobs, out_path = json.loads(sys.argv[1]), sys.argv[2]
+rec = {}
+fns = {}
+for name, job in jobs.items():
+    imgs = np.load(job["imgs"])
+    t0 = time.perf_counter()
+    fns[name] = load_exported(job["program"])
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = fns[name](imgs)
+    first_call_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    out = fns[name](imgs)
+    np.savez(job["out"], **out)
+    rec[name] = {"load_s": load_s, "first_call_s": first_call_s,
+                 "launches_per_call": kernels.launch_counts()}
+rec["model_code_imported_to_load"] = sorted(
+    m for m in sys.modules if m.startswith("vision_mtl_tpu_torch.models"))
+# the exported call's latency beside Predictor(8)'s on the reference run
+# dir's import, in this process, alternated
+from vision_mtl_tpu_torch.pipeline import load_run_model
+from vision_mtl_tpu_torch.serving import Predictor
+for name, job in jobs.items():
+    imgs = np.load(job["imgs"])
+    model = load_run_model(job["run_dir"], job["device"])[0]
+    pred = Predictor(model, imgs.shape[0], imgs.shape[1], imgs.shape[2], dtype=np.uint8,
+                     device=job["device"])
+    p50 = {"exported": [], "predictor": []}
+    for kind in ("exported", "predictor", "predictor", "exported"):
+        fn = fns[name] if kind == "exported" else pred
+        p50[kind].append(latency_bench(fn, imgs, n=20, warmup=3)["p50_ms"])
+    rec[name]["p50_ms"] = p50
+    del model, pred
+with open(out_path, "w") as f:
+    json.dump(rec, f)
+"""
+
+
+@contextlib.contextmanager
+def first_train_step():
+    """Records the train state just before and just after the first train
+    step of a ``run_pipe`` run (CPU copies of the weights, the BatchNorm
+    statistics, Adam's state by parameter index, the lr and the step), and
+    passes every call on."""
+    from vision_mtl_tpu_torch.train import loop
+
+    real = loop.make_train_step
+    snap: dict = {}
+
+    def copy(state) -> dict:
+        out = {f"model.{k}": v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        for i, entry in state.optimizer.state_dict()["state"].items():
+            for k, v in entry.items():
+                out[f"adam.{i}.{k}"] = v.detach().cpu().clone()
+        return {"tensors": out, "lr": state.optimizer.param_groups[0]["lr"], "step": state.step}
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def first(state, batch, mstate):
+            if "before" not in snap:
+                snap["before"] = copy(state)
+            out = step(state, batch, mstate)
+            if "after" not in snap:
+                torch.cuda.synchronize()
+                snap["after"] = copy(out[0])
+            return out
+
+        return first
+
+    loop.make_train_step = make
+    try:
+        yield snap
+    finally:
+        loop.make_train_step = real
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms where it has them, as in the
+    preemption drill, for the span of a comparison."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2], prev[3]
+
+
+def snapshot_diff(a: dict, b: dict) -> list:
+    """Names of the tensors, and of lr and step, that differ between two
+    :func:`first_train_step` records."""
+    diff = [k for k in ("lr", "step") if a[k] != b[k]]
+    if a["tensors"].keys() != b["tensors"].keys():
+        return diff + ["tensor names"]
+    return diff + [k for k, v in a["tensors"].items() if not torch.equal(v, b["tensors"][k])]
+
+
+def weight_only_nodes(program) -> dict:
+    """An exported program's call nodes, and those that read only the
+    weights (the gates' BatchNorm folding), which run on every call."""
+    sig = program.graph_signature
+    weights = set(sig.inputs_to_parameters) | set(sig.inputs_to_buffers)
+    weight_only, calls = set(), 0
+    for node in program.graph.nodes:
+        if node.op == "placeholder" and node.name in weights:
+            weight_only.add(node)
+        elif node.op == "call_function":
+            calls += 1
+            inputs = node.all_input_nodes
+            if inputs and all(n in weight_only for n in inputs):
+                weight_only.add(node)
+    n_weight_only = sum(1 for n in weight_only if n.op == "call_function")
+    ops = [str(n.target) for n in program.graph.nodes if str(n.target).startswith("vmtl.")]
+    return {"call_nodes": calls, "weight_only_call_nodes": n_weight_only, "vmtl_nodes": ops}
+
+
+def gate_dispatch_cost(dev, fused_gate, n_calls: int = 200, rounds: int = 4) -> dict:
+    """Host time per call of the eval gate (B1) through its operator
+    (``torch.ops.vmtl.fused_attention_gate``) and through the direct
+    ctypes launch it wraps, at MTAN's enc3 shape in bf16. The operator is
+    timed under ``torch.inference_mode``, as ``Predictor``, the eval steps
+    and exported programs call it, and with autograd on, where its autograd
+    layer (a backward that raises) runs too. Each round times ``n_calls``
+    calls without a synchronise (the enqueue), the kinds in turn, their
+    order reversed every other round."""
+    _, cin, c2, h, w = GATE_SHAPES[3]
+    g = torch.Generator(device=dev).manual_seed(5)
+    args = (torch.randn(BATCH, h, w, cin, generator=g, device=dev).bfloat16(),
+            torch.randn(BATCH, h, w, c2, generator=g, device=dev).bfloat16(),
+            torch.randn(cin, HIDDEN, generator=g, device=dev) * 0.1,
+            torch.randn(HIDDEN, generator=g, device=dev),
+            torch.randn(HIDDEN, c2, generator=g, device=dev) * 0.1,
+            torch.randn(c2, generator=g, device=dev))
+
+    def operator():
+        return fused_gate.fused_attention_gate(*args)
+
+    # kind: (call, whether it runs under inference mode)
+    fns = {"operator": (operator, True), "operator_autograd_on": (operator, False),
+           "direct": (lambda: fused_gate._launch(*args), False)}
+    want = fused_gate._launch(*args)
+    with torch.inference_mode():
+        same = torch.equal(operator(), want)
+    if not (same and torch.equal(operator(), want)):
+        fail("fused_attention_gate: the operator and the direct launch differ")
+    us = {k: [] for k in fns}
+    for r in range(rounds):
+        for kind in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            fn, inference = fns[kind]
+            torch.cuda.synchronize()
+            with torch.inference_mode(inference):
+                t0 = time.perf_counter()
+                for _ in range(n_calls):
+                    fn()
+                us[kind].append((time.perf_counter() - t0) / n_calls * 1e6)
+            torch.cuda.synchronize()
+    med = {k: float(np.median(v)) for k, v in us.items()}
+    return {"shape": {"level": GATE_SHAPES[3][0], "B": BATCH, "H": h, "W": w, "Cin": cin,
+                      "C2": c2, "dtype": "bf16"},
+            "host_us_per_call": us, "median_us": med,
+            "operator_minus_direct_us": med["operator"] - med["direct"],
+            "autograd_on_minus_direct_us": med["operator_autograd_on"] - med["direct"]}
+
+
+def interop_phase(cfg, kernels, dev, build_model, fused_gate) -> tuple:
+    """Reference-checkpoint interop and exported programs at full width
+    (Cityscapes 128x256, batch 8), for MTAN, basic and CSNet: a reference
+    run dir under ``build/chip_smoke/reference/<model>/`` (``model_1.pt``
+    from ``save_reference_checkpoint``, ``session_1.pt`` from the port's
+    Adam after 2 train steps re-keyed into the reference's parameter order,
+    a ``train_args.yaml`` in PyYAML's layout) beside the port's own run dir
+    of the same state; the import through ``load_run_model`` (``serve
+    --run_dir``'s path) equal to the source bit for bit, with equal
+    ``Predictor(8)`` answers and ``PER_FORWARD`` launches; for MTAN and
+    basic ``training --resume_dir`` on both dirs, deterministic, each
+    starting at epoch 2 with the same state and the same first step; the
+    harness on MTAN's reference dir equal to the import's own predict
+    metrics; ``export_model`` of each import, loaded and timed in a fresh
+    process beside ``Predictor(8)``, its answers held to ``Predictor(8)``
+    under the ``serve --run_dir`` rule; the B1 operator's dispatch cost.
+    Returns the ``interop`` line and the launch counts of its runs."""
+    from vision_mtl_tpu_torch import eval_harness
+    from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.pipeline import load_run_model
+    from vision_mtl_tpu_torch.predict import predict
+    from vision_mtl_tpu_torch.serving import Predictor, export_model
+    from vision_mtl_tpu_torch.train import checkpoint
+    from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+    from vision_mtl_tpu_torch.utils.ckpt_import import (
+        export_reference_session,
+        save_reference_checkpoint,
+    )
+
+    shutil.rmtree(INTEROP_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    imgs = np.random.default_rng(23).integers(0, 256, size=(BATCH, cfg.height, cfg.width, 3),
+                                              dtype=np.uint8)
+    os.makedirs(INTEROP_DIR)
+    np.save(os.path.join(INTEROP_DIR, "imgs.npy"), imgs)
+    lines, launches, jobs, answers = {}, [], {}, {}
+    common = ["--dataset_name", "cityscapes", "--data_dir", CLI_DATA, "--batch_size", str(BATCH),
+              "--num_workers", "4", "--lr", str(LR), "--save_epoch_freq", "1",
+              "--device", str(dev)]
+    for name in ("mtan", "basic", "csnet"):
+        ref_dir = os.path.join(INTEROP_DIR, name)
+        port_dir = os.path.join(INTEROP_DIR, f"{name}_port")
+        os.makedirs(ref_dir)
+        channel_wise = name == "csnet"  # the registry's CSNet stitches channel-wise
+        state = create_train_state(
+            build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0,
+                        channel_wise_stitching=channel_wise), LR, device=dev)
+        step = make_train_step(device=dev)
+        for b in train_batches(cfg, 2, BATCH, seed=21):
+            state, _, _ = step(state, {k: v.to(dev) for k, v in b.items()},
+                               init_metrics(cfg.num_classes, dev))
+        sched = ReduceLROnPlateau(patience=2, factor=0.9)
+        sched.step(3.0, LR)  # a first validation loss: best 3.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_reference_checkpoint(os.path.join(ref_dir, "model_1.pt"), name, state.model)
+        torch.save(export_reference_session(name, state, sched, 1),
+                   os.path.join(ref_dir, "session_1.pt"))
+        with open(os.path.join(ref_dir, "train_args.yaml"), "w") as f:
+            f.write(REFERENCE_ARGS.format(name=name, cw=str(channel_wise).lower()))
+        save_s = time.perf_counter() - t0
+        checkpoint.save_ckpt(state, sched, 1, port_dir)
+        checkpoint.log_args({"model_name": name, "dataset_name": "cityscapes",
+                             "channel_wise_stitching": channel_wise},
+                            os.path.join(port_dir, "train_args.yaml"))
+
+        # import through serve --run_dir's path: the source's tensors bit for bit
+        t0 = time.perf_counter()
+        imported, _, run_args = load_run_model(ref_dir, dev)
+        import_s = time.perf_counter() - t0
+        source = state.model.eval()
+        src_sd, imp_sd = source.state_dict(), imported.state_dict()
+        differ = [k for k, v in src_sd.items() if not torch.equal(imp_sd[k], v)]
+        if differ or src_sd.keys() != imp_sd.keys() or run_args.exp_tags != ["reference",
+                                                                               "interop"]:
+            fail(f"{name} interop: imported tensors differ from the source at {differ[:5]} "
+                 f"(args {vars(run_args)})")
+        want = Predictor(source, BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)(imgs)
+        pred = Predictor(imported, BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)
+        kernels.reset_launch_counts()
+        got = pred(imgs)
+        counts = kernels.launch_counts()
+        if counts != expected(kernels, PER_FORWARD[name], 1):
+            fail(f"{name} interop: Predictor(8) of the import launched {counts}")
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                fail(f"{name} interop: Predictor(8) {k} of the import differs from the source's")
+        launches.append(counts)
+        answers[name] = got
+        line = {"reference_dir": ref_dir, "save_reference_s": save_s, "import_s": import_s,
+                "imported_equal_bit_for_bit": True, "predictor_8_equal": True,
+                "launches_per_forward": counts}
+
+        if name in ("mtan", "basic"):
+            # --resume_dir on the reference dir and on the port's own dir
+            resumed = {}
+            with deterministic():
+                for kind, d in (("reference", ref_dir), ("port", port_dir)):
+                    with first_train_step() as snap:
+                        run = run_cli(name, common + ["--model_name", name, "--num_epochs", "3",
+                                                      "--resume_dir", d], cfg, kernels)
+                    if run["rec"]["start_epoch"] != 2:
+                        fail(f"{name} interop: --resume_dir {kind} started at epoch "
+                             f"{run['rec']['start_epoch']}, want 2")
+                    resumed[kind] = (run, snap)
+                    launches.append(run["launches"])
+            before = snapshot_diff(resumed["reference"][1]["before"], resumed["port"][1]["before"])
+            after = snapshot_diff(resumed["reference"][1]["after"], resumed["port"][1]["after"])
+            if before or after:
+                fail(f"{name} interop: resumed from the reference dir vs the port's own: state "
+                     f"before the first step differs at {before[:5]}, after it at {after[:5]}")
+            line["resume"] = {
+                "start_epoch": 2, "state_before_first_step_equal": True,
+                "first_step_equal_bit_for_bit": True,
+                "runs": {k: v[0]["line"] for k, v in resumed.items()},
+            }
+            del resumed
+        if name == "mtan":
+            # the harness on the reference dir against the import's own predict
+            dm = MTLDataModule("cityscapes", batch_size=BATCH, train_transform=cfg.train_transform,
+                               test_transform=cfg.test_transform)
+            saved_dir, cfg.data_dir = cfg.data_dir, CLI_DATA
+            try:
+                dm.setup(stage="predict")
+                _, metrics = predict(dm.predict_dataloader(), imported, num_classes=cfg.num_classes,
+                                     device=dev)
+            finally:
+                cfg.data_dir = saved_dir
+            out_csv = os.path.join(INTEROP_DIR, "harness_mtan.csv")
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                eval_harness.main(["--dataset_name", "cityscapes", "--data_dir", CLI_DATA,
+                                   "--batch_size", str(BATCH), "--out", out_csv, "--device",
+                                   str(dev), "--runs", f"mtan={ref_dir}"])
+            launches.append(kernels.launch_counts())
+            want_t = eval_harness.build_table({"mtan": {k.replace("predict/", ""): v
+                                                        for k, v in metrics.items()}})
+            with open(out_csv) as f:
+                rows = list(csv.reader(f))
+            got_t = {r[0]: {tag: float(v) for tag, v in zip(rows[0][1:], r[1:])} for r in rows[1:]}
+            cells = [(got_t[m][tag], want_t[m][tag]) for m in want_t for tag in want_t[m]]
+            # as harness_check: within one unit of the third decimal, where
+            # two sums round to either side
+            if got_t.keys() != want_t.keys() or any(abs(g - w) > 1.0001e-3 for g, w in cells):
+                fail(f"interop: eval_harness on the reference dir {got_t}, the import's "
+                     f"predict {want_t}")
+            line["eval_harness"] = {"table": got_t, "cells": len(cells),
+                                    "cells_equal": sum(g == w for g, w in cells)}
+
+        # the import exported: its program and what it keeps
+        path = os.path.join(INTEROP_DIR, f"{name}.pt2")
+        t0 = time.perf_counter()
+        program = export_model(imported, BATCH, cfg.height, cfg.width, path, dtype=np.uint8,
+                               device=dev)
+        line["export_s"] = time.perf_counter() - t0
+        line["program_bytes"] = os.path.getsize(path)
+        line["graph"] = nodes = weight_only_nodes(program)
+        op = "vmtl.fused_attention_gate.default" if name == "mtan" else "vmtl.conv3x3_small.default"
+        if nodes["vmtl_nodes"] != [op] * sum(PER_FORWARD[name].values()):
+            fail(f"{name} export: the graph holds {nodes['vmtl_nodes']}")
+        jobs[name] = {"program": path, "imgs": os.path.join(INTEROP_DIR, "imgs.npy"),
+                      "out": os.path.join(INTEROP_DIR, f"{name}_out.npz"), "run_dir": ref_dir,
+                      "device": str(dev)}
+        lines[name] = line
+        del state, source, imported, pred, step, program
+        torch.cuda.empty_cache()
+
+    # load and run every program in a fresh process that imports no model code
+    rec_path = os.path.join(INTEROP_DIR, "export_record.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CODE, json.dumps(jobs), rec_path],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(rec_path):
+        fail(f"interop: loading the exported programs exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    rec = json.load(open(rec_path))
+    if rec["model_code_imported_to_load"]:
+        fail(f"interop: loading imported {rec['model_code_imported_to_load']}")
+    for name, job in jobs.items():
+        got = np.load(job["out"])
+        want = answers[name]
+        if got["segm"].dtype != want["segm"].dtype or got["depth"].dtype != want["depth"].dtype:
+            fail(f"{name} exported: dtypes {got['segm'].dtype}, {got['depth'].dtype}")
+        ids_differ = np.argwhere(got["segm"] != want["segm"])
+        depth_err = np.abs(got["depth"] - want["depth"])
+        depth_bad = np.argwhere(~(depth_err <= np.abs(want["depth"]) * 2**-7 + 1e-6))
+        if len(ids_differ) or len(depth_bad):
+            fail(f"{name} exported vs Predictor(8): {len(ids_differ)} ids differ (first at "
+                 f"{ids_differ[:5].tolist()}), {len(depth_bad)} depths beyond one bf16 step "
+                 f"(first at {depth_bad[:5].tolist()}, max |diff| {float(depth_err.max())})")
+        counts = rec[name]["launches_per_call"]
+        if counts != expected(kernels, PER_FORWARD[name], 1):
+            fail(f"{name} exported: a call launched {counts}")
+        launches.append(counts)
+        lines[name]["exported"] = {
+            **{k: rec[name][k] for k in ("load_s", "first_call_s", "p50_ms")},
+            "launches_per_call": counts, "ids_equal": True,
+            "depth_max_abs_err_vs_predictor": float(depth_err.max()),
+            "depth_equal_bit_for_bit": bool(np.array_equal(got["depth"], want["depth"])),
+        }
+    line = {"config": "cityscapes 128x256, 19 classes, bf16, batch 8, uint8 wire", **lines,
+            "export_subprocess_s": sub_s, "gate_dispatch": gate_dispatch_cost(dev, fused_gate),
+            "phase_s": time.perf_counter() - t_phase}
+    return line, launches
+
+
 def main(argv: list) -> int:
     kernels_only = argv == ["--kernels"]
     if argv and not kernels_only:
@@ -1941,7 +2374,8 @@ def main(argv: list) -> int:
     })
     nyu_line, nyu_launches, nyu_ids = nyuv2_phase(
         kernels, dev, build_model, {k: cli_run_dirs[k] for k in ("mtan", "basic")})
-    phases = cli_launches + nyu_launches + [  # launch counts of every main-path run
+    interop_line, interop_launches = interop_phase(cfg, kernels, dev, build_model, fused_gate)
+    phases = cli_launches + nyu_launches + interop_launches + [  # every main-path run's launches
         serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
         mtan_training["launches"], mtan_training["eval_step"]["launches"],
         basic_timing["launches"], basic_eval["launches"],
@@ -2020,6 +2454,7 @@ def main(argv: list) -> int:
     for line in cli_lines:
         print(json.dumps({"cli": line}), flush=True)
     print(json.dumps({"nyuv2": nyu_line}), flush=True)
+    print(json.dumps({"interop": interop_line}), flush=True)
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     # B3's entry: one bf16 train step of the basic model and one of CSNet

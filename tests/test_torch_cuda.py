@@ -559,3 +559,69 @@ def test_prefetch_to_device_copies_before_use(cuda):
             np.testing.assert_array_equal(a[k].cpu().numpy(), v, err_msg=k)
             np.testing.assert_array_equal(b[k].cpu().numpy(), v.astype(np.int32).sum(axis=0),
                                           err_msg=k)
+
+
+@pytest.mark.parametrize("kernel", ["fused_attention_gate", "conv3x3_small"])
+def test_operators_pass_opcheck_on_cuda(cuda, kernel):
+    """``torch.library.opcheck`` with CUDA tensors: the fake version gives
+    the kernel's output shape, dtype and strides, and the operator traces;
+    each real call launches the kernel."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if kernel == "fused_attention_gate":
+        op, module = torch.ops.vmtl.fused_attention_gate.default, fused_gate
+        cases = [_gate_args(cuda, dtype, 2, 5, 7, 64, 128, 32) for dtype in
+                 (torch.float32, torch.bfloat16)]
+    else:
+        op, module = torch.ops.vmtl.conv3x3_small.default, small_conv
+        k = torch.randn(3, 3, 33, 20, generator=g, device=cuda)
+        cases = [
+            (torch.randn(2, 9, 13, 33, generator=g, device=cuda), k,
+             torch.randn(20, generator=g, device=cuda)),
+            (torch.randn(2, 9, 13, 20, generator=g, device=cuda).bfloat16(),
+             k.flip(0, 1).transpose(2, 3), None),
+        ]
+    before = module.launches.value
+    for args in cases:
+        torch.library.opcheck(op, args)
+    torch.cuda.synchronize()
+    assert module.launches.value > before
+
+
+def test_exported_program_launches_the_kernels(cuda, tmp_path, monkeypatch):
+    """A small bf16 MTAN and basic exported on the card and loaded back:
+    the loaded program launches B1 at each gate and B3 at each small conv,
+    and answers as ``Predictor`` does (ids exactly, depth within one bf16
+    step). A tensor the kernel does not take raises inside the operator and
+    never reaches the plain version."""
+    from vision_mtl_tpu_torch.models.basic import BasicMTLModel
+    from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
+    from vision_mtl_tpu_torch.serving import Predictor, export_model, load_exported
+
+    tasks = {"depth": 1, "segm": 19}
+    cases = [
+        (MTANMiniUnet(tasks, encoder_first_channel=16, encoder_num_channels=4).to(cuda),
+         fused_gate, 16, (64, 128)),
+        (BasicMTLModel(19, decoder_first_channel=540).to(cuda), small_conv, 4, (64, 128)),
+    ]
+    imgs = np.random.default_rng(1).integers(0, 256, size=(4, 64, 128, 3), dtype=np.uint8)
+    for model, module, per_forward, hw in cases:
+        path = str(tmp_path / "program.pt2")
+        export_model(model, 4, *hw, path, dtype=np.uint8, device=cuda)
+        fn = load_exported(path)
+        before = module.launches.value
+        got = fn(imgs)
+        torch.cuda.synchronize()
+        assert module.launches.value == before + per_forward
+        want = Predictor(model, 4, *hw, dtype=np.uint8, device=cuda)(imgs)
+        np.testing.assert_array_equal(got["segm"], want["segm"])
+        assert np.all(np.abs(got["depth"] - want["depth"]) <= np.abs(want["depth"]) * 2**-7 + 1e-6)
+
+    def plain(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fused_gate, "fused_attention_gate_plain", plain)
+    bad = _gate_args(cuda, torch.float32, 1, 4, 4, 3, 6, 4)  # hidden 6
+    before = fused_gate.launches.value
+    with pytest.raises(ValueError, match="multiples of 4"):
+        torch.ops.vmtl.fused_attention_gate(*bad)
+    assert fused_gate.launches.value == before

@@ -45,7 +45,8 @@ def test_port_imports_nothing_of_jax():
                  "data.loader", "data.datamodule", "data.cityscapes", "data.transforms",
                  "train.loop", "train.checkpoint", "train.plateau", "tracking.logger",
                  "utils.args", "pipeline", "training", "data.native", "data.nyuv2",
-                 "data.nyu_cache", "train.preempt", "utils.io", "eval_harness"):
+                 "data.nyu_cache", "train.preempt", "utils.io", "eval_harness",
+                 "utils.ckpt_import", "utils.torch_port", "export_torch_ckpt"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""
@@ -147,10 +148,10 @@ def test_small_conv_wrapper_never_falls_back(monkeypatch):
 
 
 def test_cli_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
-    """``training``, ``serve --run_dir`` and ``eval_harness`` run on the
-    card unless ``--device cpu`` is given; without a card they raise before writing a
+    """``training``, ``serve --run_dir``, ``eval_harness`` and
+    ``export_torch_ckpt`` run on the card unless ``--device cpu`` is given; without a card they raise before writing a
     run dir, and the device copy of a batch has no host fallback."""
-    from vision_mtl_tpu_torch import eval_harness, serve, training
+    from vision_mtl_tpu_torch import eval_harness, export_torch_ckpt, serve, training
     from vision_mtl_tpu_torch.cfg import cfg
     from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 
@@ -164,5 +165,7 @@ def test_cli_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
                     "--dataset_name", "synthetic"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         eval_harness.main(["--dataset_name", "synthetic", "--runs", f"mtan={tmp_path}"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_torch_ckpt.main([str(tmp_path)])
     with pytest.raises((RuntimeError, AssertionError)):
         next(prefetch_to_device([{"img": np.zeros((1, 2, 2, 3), np.float32)}], "cuda"))

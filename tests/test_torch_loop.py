@@ -355,6 +355,12 @@ def test_checkpoint_dir_helpers(tmp_path):
     assert checkpoint.prune_old_ckpts(str(base / "exp" / "version_0"), 0) == []
     (tmp_path / "ref").mkdir()
     (tmp_path / "ref" / "model_3.pt").write_bytes(b"")
-    with pytest.raises(ValueError, match="A8"):
+    with pytest.raises(ValueError, match="No model ckpt"):
         checkpoint.load_ckpt_model(str(tmp_path / "ref"))
+    # restore_state imports a reference dir's model_{e}.pt; the port's own
+    # model_{e}/ wins where both are present
+    ref = str(tmp_path / "ref")
+    assert checkpoint._maybe_reference_torch_ckpt(ref, None) == os.path.join(ref, "model_3.pt")
+    (tmp_path / "ref" / "model_0").mkdir()
+    assert checkpoint._maybe_reference_torch_ckpt(ref, None) is None
 

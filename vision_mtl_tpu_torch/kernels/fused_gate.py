@@ -10,6 +10,16 @@ is two per-pixel products with affine BNs, folded by :func:`fold_bn` into
 ``(N, hidden)`` intermediate in shared memory; :func:`fused_attention_gate_plain`
 computes the same function with PyTorch ops and is what runs for CPU tensors.
 
+Both are the two kernels of one PyTorch operator,
+``torch.ops.vmtl.fused_attention_gate``, registered when this module is
+imported: the dispatcher runs the plain version for CPU tensors and the
+CUDA launch for CUDA tensors, and its fake version gives the output's
+shape, dtype and strides to tracers, so ``torch.export`` keeps the
+operator itself in an exported graph. The operator is for inference: a
+backward through it raises. Its callers run under ``torch.inference_mode``
+(``Predictor``, the eval and predict steps, ``serving.load_exported``),
+where the dispatcher skips the autograd layer.
+
 The kernel takes its products on the tensor cores as 3xTF32: each f32
 operand ``a`` is split into ``a_hi``, its TF32 rounding, and ``a_lo``, the
 TF32 rounding of ``a - a_hi``, and ``a @ b`` is taken as
@@ -111,7 +121,8 @@ def fused_attention_gate(
     w2: torch.Tensor,
     c2: torch.Tensor,
 ) -> torch.Tensor:
-    """out = shared * sigmoid(relu(x@w1 + c1) @ w2 + c2), NHWC.
+    """out = shared * sigmoid(relu(x@w1 + c1) @ w2 + c2), NHWC, through the
+    operator ``torch.ops.vmtl.fused_attention_gate``.
 
     Args:
       x: (B, H, W, Cin) gate input (folded-BN scales pre-multiplied into w1).
@@ -121,15 +132,19 @@ def fused_attention_gate(
 
     CPU tensors take :func:`fused_attention_gate_plain`. CUDA tensors launch
     the kernel (f32 or bf16 activations, f32 weights, all contiguous, w1
-    and w2 16-byte aligned) or raise; there is no fallback.
+    and w2 16-byte aligned) or raise; there is no fallback, and tensors on
+    any other device raise too.
     """
-    if x.device.type == "cpu":
-        return fused_attention_gate_plain(x, shared, w1, c1, w2, c2)
+    return torch.ops.vmtl.fused_attention_gate(x, shared, w1, c1, w2, c2)
+
+
+def _launch(x, shared, w1, c1, w2, c2) -> torch.Tensor:
+    """The operator's CUDA kernel: checks the tensors, launches, counts."""
     _check(x, shared, w1, c1, w2, c2)
     b, h, w, cin = x.shape
     hidden, c2ch = w2.shape
     n = b * h * w
-    out = torch.empty_like(shared)
+    out = torch.empty_like(shared, memory_format=torch.contiguous_format)
     if n == 0:
         return out
     fn = load(SOURCE, "vmtl_fused_attention_gate", _SIGNATURE)
@@ -144,6 +159,37 @@ def fused_attention_gate(
         raise RuntimeError(f"fused_attention_gate: kernel launch failed, CUDA error {rc}")
     launches.add()
     return out
+
+
+def _fake(x, shared, w1, c1, w2, c2) -> torch.Tensor:
+    """The operator's output from metadata alone; off the CPU the tensors
+    must fit the kernel, as the CUDA launch checks."""
+    if x.device.type != "cpu":
+        _check(x, shared, w1, c1, w2, c2)
+    return torch.empty_like(shared, memory_format=torch.contiguous_format)
+
+
+# the plain version is looked up at each call (tests replace it)
+_lib = torch.library.Library("vmtl", "FRAGMENT")
+_lib.define(
+    "fused_attention_gate(Tensor x, Tensor shared, Tensor w1, Tensor c1, Tensor w2, "
+    "Tensor c2) -> Tensor"
+)
+_lib.impl("fused_attention_gate", lambda *a: fused_attention_gate_plain(*a), "CPU")
+_lib.impl("fused_attention_gate", _launch, "CUDA")
+torch.library.register_fake("vmtl::fused_attention_gate", _fake, lib=_lib)
+
+
+def _no_backward(ctx, grad):
+    raise RuntimeError(
+        "vmtl::fused_attention_gate has no backward: it is MTAN's eval-mode gate; "
+        "a train-mode forward takes kernels/fused_gate_train.py"
+    )
+
+
+# inference only: a backward through the operator raises instead of leaving
+# the gate's inputs without a gradient
+torch.library.register_autograd("vmtl::fused_attention_gate", _no_backward, lib=_lib)
 
 
 def _check(x, shared, w1, c1, w2, c2) -> None:

@@ -10,7 +10,18 @@ on the dtype: bf16 runs an implicit GEMM on the tensor cores (mma.sync, f32
 sums) that rounds the f32 weights to bf16 as it stages them, f32 a SIMT
 kernel on f32 FMAs. :func:`conv3x3_small_plain` computes the same function
 with PyTorch ops and is what runs for CPU tensors. The differentiable entry
-point is ``vision_mtl_tpu_torch.ops.small_conv.conv3x3_small``.
+point is ``vision_mtl_tpu_torch.ops.small_conv.conv3x3_small``: the operator
+below has no autograd formula of its own, and that entry point's autograd
+Function calls it for the forward and for dx (its forward runs without
+autograd, so a Python autograd layer on the operator would only add host
+time to every call).
+
+Both are the two kernels of one PyTorch operator,
+``torch.ops.vmtl.conv3x3_small``, registered when this module is imported:
+the dispatcher runs the plain version for CPU tensors and the CUDA launch
+for CUDA tensors, and its fake version gives the output's shape, dtype and
+strides (NHWC, contiguous) to tracers, so ``torch.export`` keeps the
+operator itself in an exported graph.
 """
 
 from __future__ import annotations
@@ -58,17 +69,21 @@ def conv3x3_small(
     x: torch.Tensor, kernel: torch.Tensor, bias: t.Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """(B, H, W, O) in x's dtype: the 3x3 stride-1 conv of x (B, H, W, C)
-    with kernel (3, 3, C, O), plus bias (O,) when given. Not differentiable
-    (see ``ops.small_conv``).
+    with kernel (3, 3, C, O), plus bias (O,) when given, through the
+    operator ``torch.ops.vmtl.conv3x3_small``. Not differentiable (see
+    ``ops.small_conv``).
 
     CPU tensors take :func:`conv3x3_small_plain`. CUDA tensors launch the
     kernel (x contiguous, bf16 or f32; C, O <= 99) or raise; there is no
-    fallback. bf16 passes the weights in f32 at any strides (the kernel
-    rounds them as it stages them); f32 makes them contiguous. The bias goes
-    in f32.
+    fallback, and tensors on any other device raise too. bf16 passes the
+    weights in f32 at any strides (the kernel rounds them as it stages
+    them); f32 makes them contiguous. The bias goes in f32.
     """
-    if x.device.type == "cpu":
-        return conv3x3_small_plain(x, kernel, bias)
+    return torch.ops.vmtl.conv3x3_small(x, kernel, bias)
+
+
+def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: t.Optional[torch.Tensor]) -> torch.Tensor:
+    """The operator's CUDA kernel: checks the tensors, launches, counts."""
     _check(x, kernel, bias)
     b, h, w, c = x.shape
     o = kernel.shape[-1]
@@ -87,6 +102,27 @@ def conv3x3_small(
         raise RuntimeError(f"conv3x3_small: kernel launch failed, CUDA error {rc}")
     launches.add()
     return out
+
+
+def _fake(x: torch.Tensor, kernel: torch.Tensor, bias: t.Optional[torch.Tensor]) -> torch.Tensor:
+    """The operator's output from metadata alone; off the CPU the tensors
+    must fit the kernel, as the CUDA launch checks."""
+    if x.device.type != "cpu":
+        _check(x, kernel, bias)
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h, w, kernel.shape[-1]))
+
+
+# the plain version is looked up at each call (tests replace it)
+_lib = torch.library.Library("vmtl", "FRAGMENT")
+_lib.define("conv3x3_small(Tensor x, Tensor kernel, Tensor? bias) -> Tensor")
+_lib.impl(
+    "conv3x3_small",
+    lambda x, kernel, bias: conv3x3_small_plain(x, kernel, bias).contiguous(),
+    "CPU",
+)
+_lib.impl("conv3x3_small", _launch, "CUDA")
+torch.library.register_fake("vmtl::conv3x3_small", _fake, lib=_lib)
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, bias: t.Optional[torch.Tensor]) -> None:

@@ -2,8 +2,10 @@
 (counterpart of ``conv3x3_small`` in ``vision_mtl_tpu/ops/pallas/small_conv.py``
 with its custom VJP).
 
-The forward runs kernel B3 (``kernels/small_conv.py``). The backward
-computes dx with the same kernel: correlating the output gradient with the
+The forward runs kernel B3 through its operator
+``torch.ops.vmtl.conv3x3_small`` (``kernels/small_conv.py``), which
+``torch.export`` keeps in an exported graph. The backward computes dx with
+the same operator: correlating the output gradient with the
 flipped, transposed weights ``k[::-1, ::-1].transpose(C, O)`` is another
 small-channel 3x3 conv, with no bias, as the JAX ``_bwd`` does. dw comes
 from PyTorch's conv weight gradient in x's dtype (the JAX package leaves it

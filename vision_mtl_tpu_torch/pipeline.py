@@ -17,9 +17,10 @@ from vision_mtl_tpu_torch.models.blocks import set_torch_bn_running_var
 from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.tracking import MetricsLogger
 from vision_mtl_tpu_torch.train.checkpoint import (
+    _maybe_reference_torch_ckpt,
     load_args,
-    load_ckpt_model,
     log_args,
+    restore_model,
     restore_state,
 )
 from vision_mtl_tpu_torch.train.state import TrainState, create_train_state
@@ -51,10 +52,15 @@ def model_from_args(
 def init_model(
     args: argparse.Namespace, data_cfg: DataConfig, device: t.Union[str, torch.device]
 ) -> t.Tuple[torch.nn.Module, TrainState]:
-    """Model and train state; a weights-only warm start from
-    ``--ckpt_dir`` if given."""
+    """Model and train state; the imagenet encoder with
+    ``--backbone_weights imagenet``, then a weights-only warm start from
+    ``--ckpt_dir`` if given (a port run dir or a reference one)."""
     model = model_from_args(args, data_cfg, device)
     state = create_train_state(model, args.lr, device=device)
+    if getattr(args, "backbone_weights", None) == "imagenet":
+        from vision_mtl_tpu_torch.utils.torch_port import apply_imagenet_backbone
+
+        apply_imagenet_backbone(model, args.model_name)
     if getattr(args, "ckpt_dir", None):
         state = restore_state(state, args.ckpt_dir)
     return model, state
@@ -98,14 +104,29 @@ def load_run_model(
     dataset_name: t.Optional[str] = None,
     defaults: t.Optional[t.Mapping[str, t.Any]] = None,
     overrides: t.Optional[t.Mapping[str, t.Any]] = None,
+    epoch: t.Optional[int] = None,
 ) -> t.Tuple[torch.nn.Module, DataConfig, argparse.Namespace]:
     """A trained run's model in eval mode on ``device``: rebuilt from its
     ``train_args.yaml`` (``model_name`` and ``dataset_name`` override the
     recorded ones; ``defaults`` fill args the file lacks, ``overrides``
-    replace them) with the weights of its newest ``model_{e}``. Returns
-    ``(model, data_cfg, run_args)``."""
+    replace them) with the weights of its checkpoint of ``epoch`` (the
+    newest by default): the port's ``model_{e}/``, or a reference
+    ``model_{e}.pt``, imported as ``restore_state`` does. A reference CSNet
+    run whose args do not record ``channel_wise_stitching`` takes the
+    stitch layout of its checkpoint. Returns ``(model, data_cfg,
+    run_args)``."""
     args_path = os.path.join(run_dir, "train_args.yaml")
     run_args = load_args(args_path) if os.path.exists(args_path) else argparse.Namespace()
+    ref_pt = _maybe_reference_torch_ckpt(run_dir, epoch)
+    ref_sd = None
+    if ref_pt is not None and not hasattr(run_args, "channel_wise_stitching"):
+        from vision_mtl_tpu_torch.utils.ckpt_import import reference_stitching_is_channel_wise
+        from vision_mtl_tpu_torch.utils.torch_port import load_state_dict_file
+
+        ref_sd = load_state_dict_file(ref_pt)
+        channel_wise = reference_stitching_is_channel_wise(ref_sd)
+        if channel_wise is not None:
+            run_args.channel_wise_stitching = channel_wise
     for k, v in (defaults or {}).items():
         if not hasattr(run_args, k):
             setattr(run_args, k, v)
@@ -119,5 +140,5 @@ def load_run_model(
         )
     data_cfg = fetch_data_cfg(run_args.dataset_name)
     model = model_from_args(run_args, data_cfg, device)
-    model.load_state_dict(load_ckpt_model(run_dir))
+    restore_model(model, run_dir, epoch, reference_sd=ref_sd)
     return model.eval(), data_cfg, run_args

@@ -6,11 +6,16 @@
     requests are coalesced into fixed-size bucket batches and demultiplexed
     back to per-request futures;
   * ``latency_bench`` — p50/p95/p99 request latency, synchronised by the
-    output fetch.
+    output fetch;
+  * ``export_model`` / ``load_exported`` — the eval-mode predict function
+    with its weights as a ``torch.export`` program in one file, and the
+    callable that runs it.
 
 PyTorch runs eagerly, so there is no ahead-of-time compile: a ``Predictor``
 is ready at construction and ``warmup`` pays the first launches (and the
-CUDA kernels' first-use build). Export waits for a later slice (ROADMAP.md).
+CUDA kernels' first-use build). An exported program reaches kernels B1 and
+B3 through their operators (``torch.ops.vmtl.*``), which the kernels
+package registers when it is imported.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.device import resolve_device
-from vision_mtl_tpu_torch.train.step import make_predict_step
+from vision_mtl_tpu_torch.train.step import make_predict_step, predict_outputs
 
 
 class Predictor:
@@ -309,6 +314,65 @@ class BatchingServer:
                 continue
             for i, (_, fut) in enumerate(pending):
                 self._resolve(fut, {k: v[i] for k, v in host.items()})
+
+
+class _PredictFunction(nn.Module):
+    """``make_predict_step``'s function (:func:`predict_outputs`) as a
+    module for ``torch.export``."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, img: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        return predict_outputs(self.model, img)
+
+
+def export_model(
+    model: nn.Module,
+    batch_size: int,
+    height: int,
+    width: int,
+    path: str,
+    dtype: t.Any = np.float32,
+    device: t.Union[str, torch.device] = "cuda",
+) -> torch.export.ExportedProgram:
+    """Write the inference function of ``model`` (eval mode, on ``device``,
+    as ``Predictor`` takes it), its weights included, as a
+    ``torch.export`` program at a fixed ``(batch_size, height, width, 3)``
+    input of ``dtype`` (float32 or uint8, the wire types), with
+    ``torch.export.save``; returns the program."""
+    dev = resolve_device(device)
+    p = next(model.parameters())
+    if p.device != dev:
+        raise ValueError(
+            f"model parameters are on {p.device}, export device is {dev}: move the model first"
+        )
+    if model.training:
+        raise ValueError("export_model needs a model in eval mode (model.eval())")
+    img = torch.from_numpy(np.zeros((batch_size, height, width, 3), np.dtype(dtype))).to(dev)
+    with torch.no_grad():
+        program = torch.export.export(_PredictFunction(model), (img,))
+    torch.export.save(program, path)
+    return program
+
+
+def load_exported(path: str) -> t.Callable[[np.ndarray], t.Dict[str, np.ndarray]]:
+    """The program ``export_model`` wrote, as ``fn(imgs) -> {"segm",
+    "depth"}`` on host arrays; it runs on the device it was exported on
+    (the CUDA kernels build at their first launch)."""
+    import vision_mtl_tpu_torch.kernels  # noqa: F401  (registers the vmtl operators)
+
+    program = torch.export.load(path)
+    module = program.module()
+    device = next(iter(program.state_dict.values())).device
+
+    def fn(imgs: np.ndarray) -> t.Dict[str, np.ndarray]:
+        with torch.inference_mode():
+            out = module(torch.from_numpy(np.ascontiguousarray(imgs)).to(device))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    return fn
 
 
 def latency_bench(

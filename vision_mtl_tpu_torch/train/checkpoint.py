@@ -15,8 +15,13 @@ epoch's position and metric accumulators, and a ``preempt_meta.json``
 sidecar with the position, which ``resolve_resume`` compares with the
 newest epoch checkpoint.
 
-The names ``model_{e}.pt`` are left to reference PyTorch checkpoints,
-which the JAX package imports; the port will read them in ROADMAP.md A8.
+The names ``model_{e}.pt`` and ``session_{e}.pt`` belong to the reference
+PyTorch code's checkpoints (and to the JAX package's export of its runs):
+``restore_state`` and ``restore_session`` import a run dir that holds them
+(``utils/ckpt_import.py``), and the port's own ``model_{e}/`` artifacts win
+where both are present. ``load_args`` reads the ``train_args.yaml`` that
+PyYAML writes for the reference and the JAX package as well as the port's
+own.
 """
 
 from __future__ import annotations
@@ -97,11 +102,7 @@ def _epochs(ckpt_dir: str, prefix: str) -> t.List[int]:
 def _latest_epoch(ckpt_dir: str, prefix: str) -> int:
     epochs = _epochs(ckpt_dir, prefix)
     if not epochs:
-        hint = ""
-        if any(re.match(r"model_\d+\.pt$", f) for f in os.listdir(ckpt_dir)):
-            hint = (" (it holds reference PyTorch model_{e}.pt checkpoints, which the "
-                    "port does not import yet: ROADMAP.md A8)")
-        raise ValueError(f"No {prefix} ckpt found in {ckpt_dir}{hint}")
+        raise ValueError(f"No {prefix} ckpt found in {ckpt_dir}")
     return max(epochs)
 
 
@@ -135,11 +136,52 @@ def load_ckpt_session(ckpt_dir: str, epoch: t.Optional[int] = None) -> t.Dict[st
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _maybe_reference_torch_ckpt(ckpt_dir: str, epoch: t.Optional[int]) -> t.Optional[str]:
+    """Path to a reference-format torch ``model_{e}.pt`` when ``ckpt_dir``
+    holds one (and no ``model_{e}/`` artifacts of the port, which always
+    win), else None. Accepts a direct ``*.pt`` file path too, so
+    ``--ckpt_dir``, ``serve --run_dir`` and the harness take reference run
+    dirs as they are."""
+    from vision_mtl_tpu_torch.utils.ckpt_import import find_reference_checkpoint
+
+    if os.path.isfile(ckpt_dir) and ckpt_dir.endswith(".pt"):
+        return ckpt_dir
+    if not os.path.isdir(ckpt_dir) or _epochs(ckpt_dir, "model"):
+        return None
+    if epoch is not None:
+        path = os.path.join(ckpt_dir, f"model_{epoch}.pt")
+        return path if os.path.isfile(path) else None
+    return find_reference_checkpoint(ckpt_dir)
+
+
+def restore_model(
+    model: torch.nn.Module,
+    ckpt_dir: str,
+    epoch: t.Optional[int] = None,
+    reference_sd: t.Optional[t.Mapping[str, t.Any]] = None,
+) -> None:
+    """The checkpoint's parameters and BatchNorm statistics into ``model``
+    in place (shapes checked, strict both ways): the port's ``model_{e}/``,
+    or a reference ``model_{e}.pt``, which is imported
+    (``utils/ckpt_import.py``); ``reference_sd`` is that file's state_dict
+    when the caller has read it already."""
+    ref_pt = _maybe_reference_torch_ckpt(ckpt_dir, epoch)
+    if ref_pt is not None:
+        from vision_mtl_tpu_torch.utils.ckpt_import import import_model
+        from vision_mtl_tpu_torch.utils.torch_port import load_state_dict_file
+
+        print(f"Importing reference torch checkpoint {ref_pt}")
+        import_model(model, reference_sd if reference_sd is not None
+                     else load_state_dict_file(ref_pt))
+        return
+    model.load_state_dict(load_ckpt_model(ckpt_dir, epoch))
+
+
 def restore_state(state: TrainState, ckpt_dir: str, epoch: t.Optional[int] = None) -> TrainState:
     """Warm start: the checkpoint's parameters and BatchNorm statistics
-    into ``state.model`` (shapes checked, strict both ways); the optimizer
-    stays fresh."""
-    state.model.load_state_dict(load_ckpt_model(ckpt_dir, epoch))
+    into ``state.model`` (:func:`restore_model`); the optimizer stays
+    fresh."""
+    restore_model(state.model, ckpt_dir, epoch)
     return state
 
 
@@ -153,7 +195,41 @@ def restore_session(
     steps, the lr, the plateau scheduler and the step counter. Returns
     ``(state, scheduler, start_epoch)``, the epoch after the checkpoint's.
     The optimizer's state is loaded after the model sits on its device, so
-    the moments land beside their parameters."""
+    the moments land beside their parameters.
+
+    Also resumes from the reference's torch artifact pair (``model_{e}.pt``
+    + ``session_{e}.pt``): weights, Adam's moments, lr, plateau state and
+    epoch all import (``utils/ckpt_import.py``), so a reference-trained run
+    continues here."""
+    ref_pt = _maybe_reference_torch_ckpt(ckpt_dir, epoch)
+    if ref_pt is not None:
+        from vision_mtl_tpu_torch.utils.ckpt_import import (
+            import_into_state,
+            import_reference_session,
+            load_reference_session,
+        )
+        from vision_mtl_tpu_torch.utils.torch_port import load_state_dict_file
+
+        base = os.path.basename(ref_pt)
+        if not base.startswith("model_"):
+            raise ValueError(
+                f"{ref_pt} is a torch checkpoint, but a session sibling can "
+                "only be inferred from the reference's model_{e}.pt naming — "
+                "for a weights-only warm start use --ckpt_dir instead of "
+                "--resume_dir."
+            )
+        sess_pt = os.path.join(os.path.dirname(ref_pt), base.replace("model_", "session_", 1))
+        if not os.path.isfile(sess_pt):
+            raise ValueError(
+                f"found reference torch checkpoint {ref_pt} but no matching "
+                f"{os.path.basename(sess_pt)} — a full resume needs the "
+                "session artifact (optimizer/scheduler/epoch). For a "
+                "weights-only warm start use --ckpt_dir instead."
+            )
+        sd = load_state_dict_file(ref_pt)  # loaded once for both steps
+        state = import_into_state(state, sd)
+        print(f"Imported reference torch checkpoint {ref_pt}; importing session {sess_pt}")
+        return import_reference_session(sd, load_reference_session(sess_pt), state, scheduler)
     if epoch is None:
         epoch = _latest_common_epoch(ckpt_dir)
     state = restore_state(state, ckpt_dir, epoch)
@@ -344,9 +420,13 @@ def find_latest_resumable_run(base_dir: str) -> t.Optional[str]:
 
 
 # ---- train_args.yaml without PyYAML ---------------------------------------
-# Values are written as JSON scalars, which YAML reads as the same values,
-# except floats: YAML 1.1 (PyYAML) reads a float only with a dot and a
-# signed exponent, and names infinities and NaN .inf / .nan.
+# The port writes values as JSON scalars, which YAML reads as the same
+# values, except floats: YAML 1.1 (PyYAML) reads a float only with a dot and
+# a signed exponent, and names infinities and NaN .inf / .nan. It reads
+# back its own files and the subset of YAML that PyYAML's ``yaml.dump(...,
+# default_flow_style=False)`` writes for a flat mapping of args (plain,
+# single- and double-quoted scalars, block and empty lists), as the
+# reference and the JAX package write ``train_args.yaml``.
 
 
 def _yaml_float(v: float) -> str:
@@ -380,9 +460,36 @@ def _yaml_value(v: t.Any) -> str:
     return _yaml_scalar(v)
 
 
+# YAML 1.1's implicit types as PyYAML resolves plain scalars
+_YAML_SPECIALS = {".inf": math.inf, ".Inf": math.inf, ".INF": math.inf, "+.inf": math.inf,
+                  "-.inf": -math.inf, "-.Inf": -math.inf, "-.INF": -math.inf,
+                  ".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan,
+                  "~": None, "null": None, "Null": None, "NULL": None}
+_YAML_BOOLS = {w: v for words, v in (("yes Yes YES true True TRUE on On ON", True),
+                                     ("no No NO false False FALSE off Off OFF", False))
+               for w in words.split()}
+_YAML_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
+_YAML_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?")
+
+
 def _read_scalar(text: str) -> t.Any:
-    specials = {".inf": math.inf, "-.inf": -math.inf, ".nan": math.nan}
-    return specials[text] if text in specials else json.loads(text)
+    if text in _YAML_SPECIALS:
+        return _YAML_SPECIALS[text]
+    if text in _YAML_BOOLS:
+        return _YAML_BOOLS[text]
+    if text.startswith('"'):
+        return json.loads(text)
+    if text.startswith("'"):
+        if len(text) < 2 or not text.endswith("'"):
+            raise ValueError(f"unterminated quoted scalar {text!r}")
+        return text[1:-1].replace("''", "'")
+    if _YAML_INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.fullmatch(text) and any(c.isdigit() for c in text):
+        return float(text.replace("_", ""))
+    if text[0] in "!&*{}[]|>%@`#," or (text[0] in "-?:" and text[1:2] in ("", " ")):
+        raise ValueError(f"not a plain scalar: {text!r}")
+    return text
 
 
 def _read_value(text: str) -> t.Any:
@@ -429,16 +536,30 @@ def log_args(args: t.Union[argparse.Namespace, t.Mapping[str, t.Any]], save_path
 
 
 def load_args(load_path: str) -> argparse.Namespace:
-    """Read a ``train_args.yaml`` that :func:`log_args` wrote."""
+    """Read a ``train_args.yaml`` that :func:`log_args` or PyYAML wrote (see
+    above); raises ``ValueError`` naming the first line it cannot read."""
     with open(load_path) as f:
         lines = [ln.rstrip("\n") for ln in f if ln.strip()]
-    if not lines or lines[0] != "args:":
+    if not lines or lines[0].rstrip() != "args:":
         raise ValueError(f"{load_path}: expected an 'args:' mapping")
     args: t.Dict[str, t.Any] = {}
+    block: t.Optional[str] = None  # the key whose block list is being read
     for ln in lines[1:]:
-        key, sep, value = ln.strip().partition(": ")
-        if not ln.startswith("  ") or not sep:
+        body = ln.strip()
+        if block is not None and body.startswith("- ") and ln.startswith("  "):
+            try:
+                args[block] = (args[block] or []) + [_read_scalar(body[2:].strip())]
+            except ValueError as e:
+                raise ValueError(f"{load_path}: cannot read line {ln!r}") from e
+            continue
+        block = None
+        key, sep, value = body.partition(":")
+        if not ln.startswith("  ") or ln.startswith("   ") or not sep or (value and value[0] != " "):
             raise ValueError(f"{load_path}: cannot read line {ln!r}")
+        if not value.strip():
+            # a block list follows, or the key is null
+            args[key], block = None, key
+            continue
         try:
             args[key] = _read_value(value.strip())
         except (ValueError, KeyError) as e:

@@ -62,13 +62,21 @@ def make_predict_step(model: nn.Module) -> t.Callable[[torch.Tensor], Batch]:
 
     @torch.inference_mode()
     def step(img: torch.Tensor) -> Batch:
-        if img.dtype == torch.uint8:
-            img = img.float() / 255.0
         with _mode(model, False):
-            post = postprocess_raw_out(model(img))
-        return {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
+            return predict_outputs(model, img)
 
     return step
+
+
+def predict_outputs(model: nn.Module, img: torch.Tensor) -> Batch:
+    """The predict function in the model's current mode: a uint8 image
+    normalised, the forward, argmax ids and sigmoid depth. Shared by
+    :func:`make_predict_step` and the exported program
+    (``serving.export_model``)."""
+    if img.dtype == torch.uint8:
+        img = img.float() / 255.0
+    post = postprocess_raw_out(model(img))
+    return {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
 
 
 def _losses(post: Batch, batch: Batch, loss_segm_weight: float, loss_depth_weight: float) -> Losses:

@@ -118,7 +118,6 @@ def parse_args(argv: t.Optional[t.Sequence[str]] = None) -> argparse.Namespace:
 # flag: (its default, the ROADMAP.md item that ports its feature)
 NOT_PORTED: t.Dict[str, t.Tuple[t.Any, str]] = {
     "do_optimize": (False, "A9 (tuning.py)"),
-    "backbone_weights": (None, "A8 (the timm encoder loader)"),
     "do_plot_preds": (False, "A9 (vis.py)"),
     "do_show_preds": (False, "A9 (vis.py)"),
     "fold_tail": (False, "A9 (ops/fold.py)"),

@@ -23,6 +23,9 @@ the leaves that block's flax counterpart owns:
 
 It is strict: it raises on a missing leaf, a shape that does not fit, a
 leaf it did not consume, and a port parameter or buffer it did not fill.
+
+``jax_variables_from_model`` is its exact inverse: the same walk, each
+layout change undone, gives the JAX tree of a port module.
 """
 
 from __future__ import annotations
@@ -37,60 +40,73 @@ from vision_mtl_tpu_torch.models.blocks import BatchNorm, Conv, ConvTranspose, R
 from vision_mtl_tpu_torch.models.cross_stitch import CrossStitchLayer
 from vision_mtl_tpu_torch.models.mtan import GateChain
 
-_Transform = t.Callable[[np.ndarray], np.ndarray]
+# layout of a leaf: (JAX -> port, port -> JAX)
+_LAYOUTS: t.Dict[str, t.Tuple[t.Callable[[np.ndarray], np.ndarray], ...]] = {
+    "same": (lambda a: a, lambda a: a),
+    # HWIO (depthwise: (kh, kw, 1, O)) <-> OIHW
+    "conv": (lambda a: a.transpose(3, 2, 0, 1), lambda a: a.transpose(2, 3, 1, 0)),
+    # flax's unflipped (kh, kw, in, out) <-> torch's flipped (in, out, kh, kw)
+    "convt": (
+        lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+        lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+    ),
+}
 
 
-def _same(a: np.ndarray) -> np.ndarray:
-    return a
-
-
-def _conv_kernel(a: np.ndarray) -> np.ndarray:
-    return a.transpose(3, 2, 0, 1)
-
-
-def _conv_transpose_kernel(a: np.ndarray) -> np.ndarray:
-    return a[::-1, ::-1].transpose(2, 3, 0, 1)
-
-
-def _block_leaves(
-    module: nn.Module, path: str
-) -> t.Optional[t.List[t.Tuple[str, str, _Transform]]]:
-    """(torch name, flax key, transform) for each tensor of a leaf block;
-    None for a container, whose children carry the flax names."""
+def _block_leaves(module: nn.Module, path: str) -> t.Optional[t.List[t.Tuple[str, str, str]]]:
+    """(torch name, flax key, layout) for each tensor of a leaf block; None
+    for a container, whose children carry the flax names."""
     path = f"{path}/" if path else ""
     if isinstance(module, Conv):
-        leaves = [("weight", f"params/{path}Conv_0/kernel", _conv_kernel)]
+        leaves = [("weight", f"params/{path}Conv_0/kernel", "conv")]
         if module.bias is not None:
-            leaves.append(("bias", f"params/{path}Conv_0/bias", _same))
+            leaves.append(("bias", f"params/{path}Conv_0/bias", "same"))
         return leaves
     if isinstance(module, RawBatchNorm):
         return [
-            ("weight", f"params/{path}scale", _same),
-            ("bias", f"params/{path}bias", _same),
-            ("running_mean", f"batch_stats/{path}mean", _same),
-            ("running_var", f"batch_stats/{path}var", _same),
+            ("weight", f"params/{path}scale", "same"),
+            ("bias", f"params/{path}bias", "same"),
+            ("running_mean", f"batch_stats/{path}mean", "same"),
+            ("running_var", f"batch_stats/{path}var", "same"),
         ]
     if isinstance(module, BatchNorm):
         return [
-            ("weight", f"params/{path}BatchNorm_0/scale", _same),
-            ("bias", f"params/{path}BatchNorm_0/bias", _same),
-            ("running_mean", f"batch_stats/{path}BatchNorm_0/mean", _same),
-            ("running_var", f"batch_stats/{path}BatchNorm_0/var", _same),
+            ("weight", f"params/{path}BatchNorm_0/scale", "same"),
+            ("bias", f"params/{path}BatchNorm_0/bias", "same"),
+            ("running_mean", f"batch_stats/{path}BatchNorm_0/mean", "same"),
+            ("running_var", f"batch_stats/{path}BatchNorm_0/var", "same"),
         ]
     if isinstance(module, ConvTranspose):
         return [
-            ("weight", f"params/{path}kernel", _conv_transpose_kernel),
-            ("bias", f"params/{path}bias", _same),
+            ("weight", f"params/{path}kernel", "convt"),
+            ("bias", f"params/{path}bias", "same"),
         ]
     if isinstance(module, GateChain):
         names = ("w1", "b1", "w2", "b2", "scale1", "bias1", "scale2", "bias2")
         stats = ("mean1", "var1", "mean2", "var2")
-        return [(n, f"params/{path}{n}", _same) for n in names] + [
-            (n, f"batch_stats/{path}{n}", _same) for n in stats
+        return [(n, f"params/{path}{n}", "same") for n in names] + [
+            (n, f"batch_stats/{path}{n}", "same") for n in stats
         ]
     if isinstance(module, CrossStitchLayer):
-        return [("weights", f"params/{path}weights", _same)]
+        return [("weights", f"params/{path}weights", "same")]
     return None
+
+
+def _leaves(model: nn.Module) -> t.List[t.Tuple[str, str, str]]:
+    """(torch state key, flax key, layout) of every tensor the walk reaches,
+    in module order."""
+    out: t.List[t.Tuple[str, str, str]] = []
+
+    def walk(module: nn.Module, path: str, torch_prefix: str) -> None:
+        leaves = _block_leaves(module, path)
+        if leaves is None:
+            for name, child in module.named_children():
+                walk(child, f"{path}/{name}" if path else name, f"{torch_prefix}{name}.")
+            return
+        out.extend((torch_prefix + name, key, layout) for name, key, layout in leaves)
+
+    walk(model, "", "")
+    return out
 
 
 def _flatten(tree: t.Mapping[str, t.Any], prefix: str, out: t.Dict[str, np.ndarray]) -> None:
@@ -102,42 +118,31 @@ def _flatten(tree: t.Mapping[str, t.Any], prefix: str, out: t.Dict[str, np.ndarr
             out[key] = np.asarray(v)
 
 
-def load_jax_variables(model: nn.Module, variables: t.Mapping[str, t.Any]) -> None:
-    """Copy the JAX ``variables`` into ``model`` in place (see the module
-    docstring for the mapping). Raises ``ValueError``, before changing any
-    tensor, on any leaf or tensor left unmatched and on a shape that does
-    not fit."""
+def port_tensors(model: nn.Module, variables: t.Mapping[str, t.Any]) -> t.Dict[str, np.ndarray]:
+    """The JAX ``variables`` under ``model``'s state keys, each in the port's
+    layout (see the module docstring for the mapping). Raises
+    ``ValueError`` on any leaf or tensor left unmatched and on a shape that
+    does not fit."""
     flat: t.Dict[str, np.ndarray] = {}
     for coll, tree in variables.items():
         _flatten(tree, coll, flat)
     state = model.state_dict(keep_vars=True)
-    pending: t.Dict[str, np.ndarray] = {}  # torch key -> value, copied once all match
-    consumed: t.Set[str] = set()
+    out: t.Dict[str, np.ndarray] = {}
     missing: t.List[str] = []
-
-    def walk(module: nn.Module, path: str, torch_prefix: str) -> None:
-        leaves = _block_leaves(module, path)
-        if leaves is None:
-            for name, child in module.named_children():
-                walk(child, f"{path}/{name}" if path else name, f"{torch_prefix}{name}.")
-            return
-        for torch_name, key, transform in leaves:
-            if key not in flat:
-                missing.append(key)
-                continue
-            target = state[torch_prefix + torch_name]
-            value = transform(flat[key])
-            if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(
-                    f"{key}: shape {value.shape} (after layout change) does not "
-                    f"fit {torch_prefix}{torch_name} {tuple(target.shape)}"
-                )
-            pending[torch_prefix + torch_name] = value
-            consumed.add(key)
-
-    walk(model, "", "")
-    unconsumed = sorted(set(flat) - consumed)
-    unfilled = sorted(set(state) - set(pending))
+    leaves = _leaves(model)
+    for torch_key, key, layout in leaves:
+        if key not in flat:
+            missing.append(key)
+            continue
+        value = _LAYOUTS[layout][0](flat[key])
+        if tuple(value.shape) != tuple(state[torch_key].shape):
+            raise ValueError(
+                f"{key}: shape {value.shape} (after layout change) does not "
+                f"fit {torch_key} {tuple(state[torch_key].shape)}"
+            )
+        out[torch_key] = np.ascontiguousarray(value)
+    unconsumed = sorted(set(flat) - {key for _, key, _ in leaves})
+    unfilled = sorted(set(state) - set(out))
     if missing or unconsumed or unfilled:
         raise ValueError(
             "JAX variables do not match the port's module:\n"
@@ -145,6 +150,41 @@ def load_jax_variables(model: nn.Module, variables: t.Mapping[str, t.Any]) -> No
             f"  JAX leaves not consumed: {unconsumed}\n"
             f"  port tensors not filled: {unfilled}"
         )
+    return out
+
+
+def load_jax_variables(model: nn.Module, variables: t.Mapping[str, t.Any]) -> None:
+    """Copy the JAX ``variables`` into ``model`` in place
+    (:func:`port_tensors`); raises before changing any tensor."""
+    values = port_tensors(model, variables)
+    state = model.state_dict(keep_vars=True)
     with torch.no_grad():
-        for name, value in pending.items():
-            state[name].copy_(torch.tensor(np.ascontiguousarray(value)))
+        for name, value in values.items():
+            state[name].copy_(torch.tensor(value))
+
+
+def jax_variables_from_model(
+    model: nn.Module, tensors: t.Optional[t.Mapping[str, torch.Tensor]] = None
+) -> t.Dict[str, t.Any]:
+    """The JAX ``{"params": ..., "batch_stats": ...}`` tree of ``model``, as
+    nested dicts of numpy arrays under flax's paths: the exact inverse of
+    :func:`load_jax_variables`. ``tensors`` (torch state key to tensor)
+    stands in for the module's own tensors where it has a key, so a
+    parameter-shaped quantity, such as Adam's moments, takes the
+    parameters' layout changes. Raises ``ValueError`` on a module tensor the
+    walk does not reach."""
+    state = model.state_dict()
+    leaves = _leaves(model)
+    unreached = sorted(set(state) - {torch_key for torch_key, _, _ in leaves})
+    if unreached:
+        raise ValueError(f"port tensors with no JAX leaf: {unreached}")
+    out: t.Dict[str, t.Any] = {}
+    for torch_key, key, layout in leaves:
+        value = (tensors or {}).get(torch_key, state[torch_key])
+        array = _LAYOUTS[layout][1](value.detach().cpu().numpy())
+        node = out
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(array)
+    return out
