@@ -367,6 +367,101 @@ def test_train_gate_kernel_rejects_what_it_does_not_take(cuda):
         fused_gate_train.fused_attention_gate_train(args[0], args[1].cpu(), *args[2:])
 
 
+def _tasks_of(n_tasks, per_task_args):
+    """The task-axis arguments of ``n_tasks`` tasks: task t's x and
+    weights from ``per_task_args(t)``, shared from task 0's."""
+    per_task = [per_task_args(t) for t in range(n_tasks)]
+    stacked = [torch.stack(parts).contiguous() for parts in zip(*per_task)]
+    stacked[1] = per_task[0][1]
+    return stacked, per_task
+
+
+# the task axis at T = 1, 2, 3: ragged N around the 64- and 128-row tiles
+# and at the small-N switch (8,320: blocks pair up in clusters; 8,321: not),
+# C2 of 256 (two slices, paired) and 12 (bf16 rows written element by
+# element), Cin 3 (staged element by element) and 640
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 5, 7, 3, 8, 4),
+        (2, 9, 13, 33, 128, 12),
+        (1, 1, 65, 640, 128, 256),
+        (1, 1, 8320, 192, 128, 32),
+        (1, 1, 8321, 64, 128, 256),
+        (1, 129, 129, 3, 128, 32),
+    ],
+)
+@pytest.mark.parametrize("n_tasks", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_kernel_task_axis(cuda, shape, n_tasks, dtype):
+    """One task-axis launch of B1 against its plain version, and each task
+    bit for bit against a launch of that task alone."""
+    stacked, per_task = _tasks_of(n_tasks, lambda t: _gate_args(cuda, dtype, *shape, seed=t))
+    before = fused_gate.tasks.launches.value
+    got = fused_gate.fused_attention_gate_tasks(*stacked)
+    torch.cuda.synchronize()
+    assert fused_gate.tasks.launches.value == before + 1
+    want = fused_gate.fused_attention_gate_tasks_plain(*stacked)
+    assert got.shape == (n_tasks, *stacked[1].shape) and got.dtype == dtype
+    _assert_gate_close(got, want)
+    for t, task_args in enumerate(per_task):
+        alone = fused_gate.fused_attention_gate(task_args[0], stacked[1], *task_args[2:])
+        assert torch.equal(got[t], alone)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 5, 7, 3, 8, 4),
+        (2, 9, 13, 33, 128, 12),
+        (1, 1, 8320, 256, 128, 64),
+        (1, 1, 8321, 64, 128, 32),
+        (8, 16, 32, 640, 128, 256),
+        (2, 67, 71, 20, 16, 12),
+    ],
+)
+@pytest.mark.parametrize("n_tasks", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_kernel_task_axis(cuda, shape, n_tasks, dtype):
+    """One task-axis call of B4 against its plain version, and each task's
+    output and statistics bit for bit against a call of that task alone."""
+    stacked, per_task = _tasks_of(
+        n_tasks, lambda t: _train_gate_args(cuda, dtype, *shape, seed=t))
+    before = fused_gate_train.tasks.launches.value
+    got = fused_gate_train.fused_attention_gate_train_tasks(*stacked)
+    torch.cuda.synchronize()
+    assert fused_gate_train.tasks.launches.value == before + 1
+    want = fused_gate_train.fused_attention_gate_train_tasks_plain(*stacked)
+    assert got[0].shape == (n_tasks, *stacked[1].shape)
+    _assert_train_gate_close(got, want)
+    for t, task_args in enumerate(per_task):
+        alone = fused_gate_train.fused_attention_gate_train(
+            task_args[0], stacked[1], *task_args[2:])
+        for a, b in zip(got, alone):
+            assert torch.equal(a[t], b)
+
+
+def test_train_gate_task_axis_backward_matches_cpu(cuda):
+    """The task-axis Function's gradients on the card (kernel forward)
+    against the CPU (plain forward), all ten inputs, shared's summed over
+    the tasks."""
+    stacked, _ = _tasks_of(
+        2, lambda t: _train_gate_args(cuda, torch.float32, 2, 17, 9, 40, 16, 24, seed=t))
+    cot = torch.randn(2, 2, 17, 9, 24, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_() for a in stacked]
+        out = fused_gate_train.fused_attention_gate_train_tasks(*leaves)[0]
+        (out * cot.to(dev)).sum().backward()
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    top = max(float(g.abs().max()) for g in grads[1])
+    for i, (got, want) in enumerate(zip(*grads)):
+        if i in (3, 7):  # b1, b2: 0 up to rounding, as a batch-statistic BN follows
+            assert max(float(got.abs().max()), float(want.abs().max())) <= 1e-4 * top
+        else:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
+
+
 def _assert_conv_close(got, want):
     diff = (got.float() - want.float()).abs()
     if got.dtype == torch.float32:  # sums of up to 891 products in another order
@@ -561,7 +656,8 @@ def test_prefetch_to_device_copies_before_use(cuda):
                                           err_msg=k)
 
 
-@pytest.mark.parametrize("kernel", ["fused_attention_gate", "conv3x3_small"])
+@pytest.mark.parametrize(
+    "kernel", ["fused_attention_gate", "fused_attention_gate_tasks", "conv3x3_small"])
 def test_operators_pass_opcheck_on_cuda(cuda, kernel):
     """``torch.library.opcheck`` with CUDA tensors: the fake version gives
     the kernel's output shape, dtype and strides, and the operator traces;
@@ -571,6 +667,12 @@ def test_operators_pass_opcheck_on_cuda(cuda, kernel):
         op, module = torch.ops.vmtl.fused_attention_gate.default, fused_gate
         cases = [_gate_args(cuda, dtype, 2, 5, 7, 64, 128, 32) for dtype in
                  (torch.float32, torch.bfloat16)]
+    elif kernel == "fused_attention_gate_tasks":
+        op, module = torch.ops.vmtl.fused_attention_gate_tasks.default, fused_gate.tasks
+        cases = []
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(_tasks_of(2, lambda t: _gate_args(
+                cuda, dtype, 2, 5, 7, 64, 128, 32, seed=t))[0])
     else:
         op, module = torch.ops.vmtl.conv3x3_small.default, small_conv
         k = torch.randn(3, 3, 33, 20, generator=g, device=cuda)

@@ -2,7 +2,8 @@
 against the JAX package's on a tiny f32 MTAN, exact resume, the
 ``train_args.yaml`` format, ``training.main`` and ``serve --run_dir`` at the
 full MTAN width on a tiny synthetic set, the refusal of unported flags, and
-the model options the CLI passes to the registry."""
+the model options the CLI passes to the registry, the six model option
+flags among them."""
 
 import argparse
 import io
@@ -42,7 +43,7 @@ from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import create_train_state, get_lr
 from vision_mtl_tpu_torch.train.step import make_predict_step
 from vision_mtl_tpu_torch.utils.args import NOT_PORTED, parse_args
-from vision_mtl_tpu_torch.weights import load_jax_variables
+from vision_mtl_tpu_torch.weights import jax_variables_from_model, load_jax_variables
 
 NC = 5
 LR = 2e-3
@@ -331,6 +332,51 @@ def test_cli_model_options_reach_the_registry():
     assert not blocks.torch_bn_running_var()
     assert compute_dtype(parse_args([])) is torch.bfloat16
     assert compute_dtype(parse_args(["--precision", "f32"])) is torch.float32
+
+
+# each model option flag: its argv and the model it shapes
+MODEL_OPTION_FLAGS = {
+    "fold_tail": (["--fold_tail"], "basic"),
+    "remat_tail": (["--remat_tail", "2"], "csnet"),
+    "remat_encoder": (["--remat_encoder"], "basic"),
+    "remat_attention": (["--remat_attention"], "mtan"),
+    "remat_shared": (["--remat_shared"], "mtan"),
+    "fold_tasks": (["--fold_tasks"], "mtan"),
+}
+
+
+def _model_options(model):
+    """The model options a port model was built with, under the JAX
+    models' field names."""
+    if isinstance(model, MTANMiniUnet):
+        return {k: getattr(model, k) for k in ("remat_attention", "remat_shared", "fold_tasks")}
+    if model.__class__.__name__ == "BasicMTLModel":
+        return {"fold_tail": model.fold_tail, "remat_tail": model.backbone.decoder.remat_tail,
+                "remat_encoder": model.backbone.encoder.remat}
+    return {"remat_encoder": model.encoders_0.remat and model.encoders_1.remat,
+            "remat_tail": model.remat_tail}
+
+
+@pytest.mark.parametrize("flag", sorted(MODEL_OPTION_FLAGS))
+def test_model_option_flags_reach_the_model(flag):
+    """Each model option flag, given to ``parse_args``, builds through
+    ``model_from_args`` the model that JAX's ``build_model`` builds from the
+    same argv, with the same option set; the port's parameter tree has
+    JAX's names and shapes (the tree-shaping ``fold_tasks`` and the
+    tree-keeping ``fold_tail`` included)."""
+    flags, name = MODEL_OPTION_FLAGS[flag]
+    cfg_syn = fetch_data_cfg("synthetic")
+    argv = ["--model_name", name] + flags
+    jmodel = jax_build_model(jax_parse_args(argv), cfg_syn)
+    model = model_from_args(parse_args(argv), cfg_syn, "cpu")
+    got = _model_options(model)
+    assert got == {k: getattr(jmodel, k) for k in got}
+    assert got[flag] not in (False, 0)
+    if flag in ("fold_tasks", "fold_tail"):
+        want = jax.eval_shape(lambda: jmodel.init(
+            jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False))
+        tree = jax_variables_from_model(model)
+        assert jax.tree.map(np.shape, tree) == jax.tree.map(lambda a: a.shape, want)
 
 
 def test_checkpoint_dir_helpers(tmp_path):

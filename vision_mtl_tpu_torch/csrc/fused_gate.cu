@@ -46,6 +46,13 @@
 // (on an H100, dec0 in f32 then took 69 us a call, the plain version 51). At
 // large N with C2 <= 128 (every other MTAN level) a block takes the tile
 // alone.
+//
+// Tasks. MTAN's task-folded levels (fold_tasks) take the T tasks' gates in
+// one launch: x, the weights and out carry a leading task axis, shared is
+// the tasks' one map, and the task index is blockIdx.z. A task's blocks
+// take the tiles, slices and pairs that a launch of that task alone takes
+// (a cluster never spans two tasks), so each task's result is bit for bit
+// that of its own launch.
 
 #include <cooperative_groups.h>
 
@@ -71,6 +78,7 @@ struct Pass {
   long long n;
   int cin, hidden, c2ch;
   int cols2;    // C2 columns a block takes (a slice; a pair takes two)
+  // x, w1, c1, w2, c2 and out hold T tasks back to back, shared one map
   int vec_x;    // x rows are 16-byte aligned: staged by cp.async
   int vec_out;  // shared and out rows are 16-byte aligned: read and written as 16-byte vectors
 };
@@ -96,9 +104,22 @@ __device__ __forceinline__ uint4 gate16(uint4 s, const float* gate, __nv_bfloat1
   return s;
 }
 
+// The pass of task t: its own x, weights and out; shared is every task's.
+template <typename T>
+__device__ __forceinline__ Pass task_pass(Pass p, long long t) {
+  p.x = static_cast<const T*>(p.x) + t * p.n * p.cin;
+  p.out = static_cast<T*>(p.out) + t * p.n * p.c2ch;
+  p.w1 += t * p.cin * p.hidden;
+  p.c1 += t * p.hidden;
+  p.w2 += t * p.hidden * p.c2ch;
+  p.c2 += t * p.c2ch;
+  return p;
+}
+
 template <typename T, class Tl, bool kPair>
-__global__ void __launch_bounds__(kThreads, 2) gate_kernel(const Pass p) {
+__global__ void __launch_bounds__(kThreads, 2) gate_kernel(const Pass task0) {
   extern __shared__ __align__(16) float smem[];
+  const Pass p = task_pass<T>(task0, blockIdx.z);
   constexpr int kRows = Tl::kRows, kK = Tl::kChunk, kMt = Tl::kWarpRows / 16;
   constexpr int kColAlign = 16;                   // 2 column warps x n8
   constexpr int kXBuf = kRows * Tl::kXs;          // floats per x stage (f32 or bf16)
@@ -320,16 +341,17 @@ cudaError_t launch_tile(const Pass& p, dim3 grid, cudaStream_t s) {
 }
 
 // Grid and slices: tiles along x; along y, a pair of blocks for every 256
-// columns of C2 where blocks pair up (small N, or C2 above 128), else one.
+// columns of C2 where blocks pair up (small N, or C2 above 128), else one;
+// the tasks along z.
 template <typename T>
-cudaError_t launch(Pass p, cudaStream_t s) {
+cudaError_t launch(Pass p, int tasks, cudaStream_t s) {
   const bool small = small_n(p.n);
   const bool pair = small || p.c2ch > kSliceC2;
   const long long tiles = num_tiles(p.n, small ? SmallTile::kRows : BigTile::kRows);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int slices = pair ? 2 * ((p.c2ch + 2 * kSliceC2 - 1) / (2 * kSliceC2)) : 1;
   p.cols2 = ((p.c2ch + slices - 1) / slices + 7) / 8 * 8;  // whole 16-byte vectors
-  const dim3 grid((unsigned)tiles, slices);
+  const dim3 grid((unsigned)tiles, slices, tasks);
   if (small)
     return pair ? launch_tile<T, SmallTile, true>(p, grid, s)
                 : launch_tile<T, SmallTile, false>(p, grid, s);
@@ -341,17 +363,21 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 
 }  // namespace
 
-// Eval-mode gate. Returns the first CUDA error of the launch, 0 when the
-// kernel was queued. x, shared, out: (n, cin), (n, c2ch), (n, c2ch) rows of
-// float (is_bf16 = 0) or bf16 (is_bf16 = 1); w1 (cin, hidden), c1 (hidden),
-// w2 (hidden, c2ch), c2 (c2ch) float, w1 and w2 16-byte aligned. hidden and
-// c2ch must be multiples of 4, hidden <= 128, c2ch <= 512. Runs on
-// `stream`, allocates nothing and does not synchronise.
-extern "C" int vmtl_fused_attention_gate(const void* x, const void* shared, const void* w1,
-                                         const void* c1, const void* w2, const void* c2,
-                                         void* out, long long n, int cin, int hidden, int c2ch,
-                                         int is_bf16, void* stream) {
-  if (!shapes_ok(n, cin, hidden, c2ch)) return (int)cudaErrorInvalidValue;
+// Eval-mode gate of T tasks. Returns the first CUDA error of the launch, 0
+// when the kernel was queued. x: (tasks, n, cin) rows; shared: (n, c2ch)
+// rows, the same for every task; out: (tasks, n, c2ch) rows; all float
+// (is_bf16 = 0) or bf16 (is_bf16 = 1). w1 (tasks, cin, hidden), c1 (tasks,
+// hidden), w2 (tasks, hidden, c2ch), c2 (tasks, c2ch) float, w1 and w2
+// 16-byte aligned. hidden and c2ch must be multiples of 4, hidden <= 128,
+// c2ch <= 512, 1 <= tasks <= 65535. Task t's out is bit for bit that of a
+// launch with tasks = 1 on task t's x and weights. Runs on `stream`,
+// allocates nothing and does not synchronise.
+extern "C" int vmtl_fused_attention_gate_tasks(const void* x, const void* shared, const void* w1,
+                                               const void* c1, const void* w2, const void* c2,
+                                               void* out, int tasks, long long n, int cin,
+                                               int hidden, int c2ch, int is_bf16, void* stream) {
+  if (!shapes_ok(n, cin, hidden, c2ch) || tasks < 1 || tasks > 65535)
+    return (int)cudaErrorInvalidValue;
   if (!aligned16(w1) || !aligned16(w2)) return (int)cudaErrorMisalignedAddress;
   const int per16 = is_bf16 ? 8 : 4;  // elements in 16 bytes
   Pass p = {};
@@ -366,8 +392,10 @@ extern "C" int vmtl_fused_attention_gate(const void* x, const void* shared, cons
   p.cin = cin;
   p.hidden = hidden;
   p.c2ch = c2ch;
+  // a task's rows start on a multiple of cin (c2ch) elements: 16-byte
+  // aligned whenever the first task's are and cin (c2ch) fills 16 bytes
   p.vec_x = cin % per16 == 0 && aligned16(x);
   p.vec_out = c2ch % per16 == 0 && aligned16(shared) && aligned16(out);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
+  return (int)(is_bf16 ? launch<__nv_bfloat16>(p, tasks, s) : launch<float>(p, tasks, s));
 }

@@ -64,6 +64,15 @@
 // eps) and constant (bias_conv - mean) * inv + beta. No floating-point
 // atomic decides an order, so two launches on the same inputs give the
 // same bits; no E[h^2] - E[h]^2 is ever formed.
+//
+// Tasks. MTAN's task-folded levels (fold_tasks) take the T tasks' gates in
+// one call: x, the weights, out and the statistics carry a leading task
+// axis, shared is the tasks' one map, and each pass puts the task index on
+// blockIdx.z. Each task has its own scratch (x @ w1, the partials, the
+// folded BNs) and its own counter of finished blocks, so its last block
+// combines its partials alone; a task's blocks walk the tiles that a call
+// for that task alone walks, and each task's results are bit for bit
+// those of its own call.
 
 #include "gate_tile.cuh"
 
@@ -111,7 +120,7 @@ struct Pass {
   float* h;        // (n, hidden) x @ w1: written by pass 1, read by passes 2 and 3
   // statistics passes only
   float* partial;           // (gridDim.x, 2, C): each block's mean and M2
-  unsigned int* done;       // blocks finished, zero before the launch
+  unsigned int* done;       // the task's blocks finished, zero before the launch
   const float* conv_bias;   // (C,) the bias inside the statistics (b1 or b2)
   const float* bn_scale;    // (C,) BN gamma
   const float* bn_bias;     // (C,) BN beta
@@ -120,7 +129,38 @@ struct Pass {
   float* var;               // (C,) biased batch variance, clamped at 0
   float* fold_s;            // (C,) folded BN for the next passes: scale
   float* fold_c;            // (C,) and constant
+  // task t's pointers are the fields above plus t times these (elements)
+  struct Strides {
+    long long x, out, w1, w2, s1, c1, s2, c2, h, partial, done, conv_bias, bn_scale, bn_bias,
+        stats, fold;
+  } ts;
 };
+
+// The pass of task t: each pointer moved to the task's own tensors.
+template <typename T>
+__device__ __forceinline__ Pass task_pass(Pass p, long long t) {
+  p.x = static_cast<const T*>(p.x) + t * p.ts.x;
+  if (p.out != nullptr) p.out = static_cast<T*>(p.out) + t * p.ts.out;
+  p.w1 += t * p.ts.w1;
+  p.w2 += t * p.ts.w2;
+  if (p.s1 != nullptr) p.s1 += t * p.ts.s1;
+  if (p.c1 != nullptr) p.c1 += t * p.ts.c1;
+  if (p.s2 != nullptr) p.s2 += t * p.ts.s2;
+  if (p.c2 != nullptr) p.c2 += t * p.ts.c2;
+  if (p.h != nullptr) p.h += t * p.ts.h;
+  if (p.partial != nullptr) {
+    p.partial += t * p.ts.partial;
+    p.done += t * p.ts.done;
+    p.conv_bias += t * p.ts.conv_bias;
+    p.bn_scale += t * p.ts.bn_scale;
+    p.bn_bias += t * p.ts.bn_bias;
+    p.mean += t * p.ts.stats;
+    p.var += t * p.ts.stats;
+    p.fold_s += t * p.ts.fold;
+    p.fold_c += t * p.ts.fold;
+  }
+  return p;
+}
 
 // Chan's update: (n, mean, m2) += (nb, mean_b, m2_b)
 __device__ __forceinline__ void chan(float& n, float& mean, float& m2, float nb, float mb,
@@ -263,8 +303,9 @@ __device__ void finalize_stats(const Pass& p, int ch, int rows_per_tile, double*
 }
 
 template <typename T, int kMode, class Tl>
-__global__ void __launch_bounds__(kThreads, 2) gate_train_kernel(const Pass p) {
+__global__ void __launch_bounds__(kThreads, 2) gate_train_kernel(const Pass task0) {
   extern __shared__ __align__(16) float smem[];
+  const Pass p = task_pass<T>(task0, blockIdx.z);
   constexpr int kRows = Tl::kRows, kK = Tl::kChunk, kMt = Tl::kWarpRows / 16;
   constexpr int kColAlign = 16;                         // 2 column warps x n8
   constexpr int kXBuf = kRows * Tl::kXs;                // floats per x buffer (f32 or bf16)
@@ -472,6 +513,7 @@ __global__ void __launch_bounds__(kThreads, 2) gate_train_kernel(const Pass p) {
     }
     __threadfence();  // this block's partials are visible before it reports done
     __syncthreads();
+    // the task's counter: its own blocks only
     if (tid == 0) last_block = atomicAdd(p.done, 1u) == gridDim.x * gridDim.y - 1;
     __syncthreads();
     if (last_block) {
@@ -529,34 +571,44 @@ cudaError_t launch(const Pass& p, dim3 grid, bool bf16, bool small, cudaStream_t
               : launch_mode<float, kMode, BigTile>(p, grid, s);
 }
 
-}  // namespace
-
-// Bytes of scratch device memory that vmtl_fused_attention_gate_train needs
-// for n rows: x @ w1 (n, hidden) f32 where it is stored, the statistics
-// passes' partials, the folded BNs and two counters.
-extern "C" long long vmtl_fused_attention_gate_train_scratch_bytes(long long n, int cin,
-                                                                   int hidden, int c2ch) {
+// floats of one task's scratch for n rows: x @ w1 (n, hidden) f32 where it
+// is stored, the statistics passes' partials, the folded BNs
+long long task_scratch_floats(long long n, int cin, int hidden, int c2ch) {
   const long long g = stats_blocks(n);
-  return 4 * ((stores_h(cin) ? n * hidden : 0) + g * 2 * (hidden + c2ch) +
-              2 * (hidden + c2ch) + 2);
+  return (stores_h(cin) ? n * hidden : 0) + g * 2 * (hidden + c2ch) + 2 * (hidden + c2ch);
 }
 
-// Train-mode gate: one memset and three kernels on `stream`, nothing
-// allocated, no synchronisation. x (n, cin) and shared, out (n, c2ch) rows
-// of float (is_bf16 = 0) or bf16 (is_bf16 = 1); w1 (cin, hidden), b1,
-// scale1, bias1 (hidden); w2 (hidden, c2ch), b2, scale2, bias2 (c2ch), all
-// float, the weights 16-byte aligned. hidden and c2ch must be multiples of
-// 4, hidden <= 128, c2ch <= 512. Writes out and stats = [mean1, var1
-// (hidden each), mean2, var2 (c2ch each)] float, biased variances clamped
-// at 0. scratch holds vmtl_fused_attention_gate_train_scratch_bytes(n,
-// cin, hidden, c2ch) bytes, 16-byte aligned, with any contents. Returns the first
-// CUDA error of the launches, 0 when all were queued.
-extern "C" int vmtl_fused_attention_gate_train(
+}  // namespace
+
+// Bytes of scratch device memory that vmtl_fused_attention_gate_train_tasks
+// needs for `tasks` tasks of n rows: each task's scratch (x @ w1 where it
+// is stored, the partials, the folded BNs) and two counters per task.
+extern "C" long long vmtl_fused_attention_gate_train_tasks_scratch_bytes(long long n, int cin,
+                                                                         int hidden, int c2ch,
+                                                                         int tasks) {
+  return 4 * (tasks * task_scratch_floats(n, cin, hidden, c2ch) + 2LL * tasks);
+}
+
+// Train-mode gate of T tasks: one memset and three kernels on `stream`,
+// nothing allocated, no synchronisation. x (tasks, n, cin) rows, shared (n,
+// c2ch) rows (every task's), out (tasks, n, c2ch) rows, all float (is_bf16
+// = 0) or bf16 (is_bf16 = 1); w1 (tasks, cin, hidden), b1, scale1, bias1
+// (tasks, hidden); w2 (tasks, hidden, c2ch), b2, scale2, bias2 (tasks,
+// c2ch), all float, the weights 16-byte aligned. hidden and c2ch must be
+// multiples of 4, hidden <= 128, c2ch <= 512, 1 <= tasks <= 65535. Writes
+// out and stats = (tasks, [mean1, var1 (hidden each), mean2, var2 (c2ch
+// each)]) float, biased variances clamped at 0. scratch holds
+// vmtl_fused_attention_gate_train_tasks_scratch_bytes(n, cin, hidden, c2ch,
+// tasks) bytes, 16-byte aligned, with any contents. Task t's results are
+// bit for bit those of a call with tasks = 1 on its own x and weights.
+// Returns the first CUDA error of the launches, 0 when all were queued.
+extern "C" int vmtl_fused_attention_gate_train_tasks(
     const void* x, const void* shared, const void* w1, const void* b1, const void* scale1,
     const void* bias1, const void* w2, const void* b2, const void* scale2, const void* bias2,
-    void* out, void* stats, void* scratch, long long n, int cin, int hidden, int c2ch, float eps,
-    int is_bf16, void* stream) {
-  if (!shapes_ok(n, cin, hidden, c2ch)) return (int)cudaErrorInvalidValue;
+    void* out, void* stats, void* scratch, int tasks, long long n, int cin, int hidden, int c2ch,
+    float eps, int is_bf16, void* stream) {
+  if (!shapes_ok(n, cin, hidden, c2ch) || tasks < 1 || tasks > 65535)
+    return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) & 15)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -564,6 +616,8 @@ extern "C" int vmtl_fused_attention_gate_train(
   const bool small = small_n(n);
   float* st = static_cast<float*>(stats);
   if (reinterpret_cast<uintptr_t>(scratch) & 15) return (int)cudaErrorMisalignedAddress;
+  // task 0's scratch; task t's lies t * per_task floats further on
+  const long long per_task = task_scratch_floats(n, cin, hidden, c2ch);
   float* f = static_cast<float*>(scratch);
   float* h = stores_h(cin) ? f : nullptr;
   if (h != nullptr) f += n * hidden;
@@ -575,8 +629,10 @@ extern "C" int vmtl_fused_attention_gate_train(
   float* cst1 = f + hidden;
   float* inv2 = f + 2 * hidden;
   float* cst2 = f + 2 * hidden + c2ch;
-  unsigned int* done = reinterpret_cast<unsigned int*>(f + 2 * (hidden + c2ch));
-  cudaError_t err = cudaMemsetAsync(done, 0, 2 * sizeof(unsigned int), s);
+  // the counters: two per task, after every task's scratch
+  unsigned int* done =
+      reinterpret_cast<unsigned int*>(static_cast<float*>(scratch) + tasks * per_task);
+  cudaError_t err = cudaMemsetAsync(done, 0, 2 * sizeof(unsigned int) * tasks, s);
   if (err != cudaSuccess) return (int)err;
 
   Pass p = {};
@@ -589,44 +645,62 @@ extern "C" int vmtl_fused_attention_gate_train(
   p.w1 = static_cast<const float*>(w1);
   p.w2 = static_cast<const float*>(w2);
   p.h = h;
+  // a task's x rows start on a multiple of cin elements: 16-byte aligned
+  // whenever the first task's are and cin fills 16 bytes
   const int per16 = is_bf16 ? 8 : 4;
   p.vec_x = cin % per16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const int slices = c2_slices(c2ch);
   p.cols2 = (c2ch / slices + 3) / 4 * 4;
   if (p.cols2 * slices < c2ch) p.cols2 += 4;
   p.cols1 = hidden;
+  p.ts.x = n * cin;
+  p.ts.out = n * c2ch;
+  p.ts.w1 = (long long)cin * hidden;
+  p.ts.w2 = (long long)hidden * c2ch;
+  p.ts.h = per_task;
+  p.ts.partial = per_task;
+  p.ts.fold = per_task;
+  p.ts.done = 2;
+  p.ts.stats = 2 * (hidden + c2ch);
 
   // pass 1: statistics of h = x @ w1 + b1
   Pass p1 = p;
   const int split1 = hidden_split(n, hidden);
   p1.cols1 = (hidden / split1 + 3) / 4 * 4;
   p1.c1 = static_cast<const float*>(b1);
+  p1.ts.c1 = hidden;
   p1.partial = part1;
   p1.done = done;
   p1.conv_bias = static_cast<const float*>(b1);
   p1.bn_scale = static_cast<const float*>(scale1);
   p1.bn_bias = static_cast<const float*>(bias1);
+  p1.ts.conv_bias = p1.ts.bn_scale = p1.ts.bn_bias = hidden;
   p1.mean = st;
   p1.var = st + hidden;
   p1.fold_s = inv1;
   p1.fold_c = cst1;
-  if ((err = launch<kStatsH>(p1, dim3(g, split1), is_bf16, small, s)) != cudaSuccess) return (int)err;
+  if ((err = launch<kStatsH>(p1, dim3(g, split1, tasks), is_bf16, small, s)) != cudaSuccess)
+    return (int)err;
 
   // pass 2: statistics of a = relu(BN1(h)) @ w2 + b2
   Pass p2 = p;
   p2.s1 = inv1;
   p2.c1 = cst1;
+  p2.ts.s1 = p2.ts.c1 = per_task;
   p2.c2 = static_cast<const float*>(b2);
+  p2.ts.c2 = c2ch;
   p2.partial = part2;
   p2.done = done + 1;
   p2.conv_bias = static_cast<const float*>(b2);
   p2.bn_scale = static_cast<const float*>(scale2);
   p2.bn_bias = static_cast<const float*>(bias2);
+  p2.ts.conv_bias = p2.ts.bn_scale = p2.ts.bn_bias = c2ch;
   p2.mean = st + 2 * hidden;
   p2.var = st + 2 * hidden + c2ch;
   p2.fold_s = inv2;
   p2.fold_c = cst2;
-  if ((err = launch<kStatsA>(p2, dim3(g, slices), is_bf16, small, s)) != cudaSuccess) return (int)err;
+  if ((err = launch<kStatsA>(p2, dim3(g, slices, tasks), is_bf16, small, s)) != cudaSuccess)
+    return (int)err;
 
   // pass 3: out = shared * sigmoid(BN2(a))
   Pass p3 = p;
@@ -636,7 +710,8 @@ extern "C" int vmtl_fused_attention_gate_train(
   p3.c1 = cst1;
   p3.s2 = inv2;
   p3.c2 = cst2;
+  p3.ts.s1 = p3.ts.c1 = p3.ts.s2 = p3.ts.c2 = per_task;
   const long long tiles = num_tiles(n, tile_rows(n));
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return (int)launch<kGate>(p3, dim3((unsigned)tiles, slices), is_bf16, small, s);
+  return (int)launch<kGate>(p3, dim3((unsigned)tiles, slices, tasks), is_bf16, small, s);
 }

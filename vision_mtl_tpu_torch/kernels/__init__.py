@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, one module each, beside their plain
-PyTorch versions. ``KERNELS`` maps each kernel's name to its module, whose
+PyTorch versions. ``KERNELS`` maps each kernel's name to its module (or, for
+the gates' task-axis launches, to the module's ``tasks`` entry point), whose
 ``SOURCE`` names its ``csrc/<SOURCE>.cu`` (two kernels may share one source)
 and whose ``launches`` counter the wrapper bumps once per launch."""
 
@@ -13,6 +14,8 @@ from vision_mtl_tpu_torch.kernels._build import build
 KERNELS = {
     "fused_attention_gate": fused_gate,
     "fused_attention_gate_train": fused_gate_train,
+    "fused_attention_gate_tasks": fused_gate.tasks,
+    "fused_attention_gate_train_tasks": fused_gate_train.tasks,
     "confusion_matrix": confmat,
     "conv3x3_small": small_conv,
 }

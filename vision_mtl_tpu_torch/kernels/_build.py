@@ -52,6 +52,16 @@ class LaunchCounter:
             return self._n
 
 
+class EntryPoint:
+    """A further kernel of a source that has one already (the task-axis
+    gates): the ``SOURCE`` it builds from and its own launch count, as a
+    kernel's module has them."""
+
+    def __init__(self, source: str) -> None:
+        self.SOURCE = source
+        self.launches = LaunchCounter()
+
+
 def nvcc_path() -> str:
     cuda_home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
     if (cuda_home / "bin" / "nvcc").exists():

@@ -10,6 +10,15 @@ is two per-pixel products with affine BNs, folded by :func:`fold_bn` into
 ``(N, hidden)`` intermediate in shared memory; :func:`fused_attention_gate_plain`
 computes the same function with PyTorch ops and is what runs for CPU tensors.
 
+MTAN's task-folded levels (``fold_tasks``) run the T tasks' gates as one
+launch: :func:`fused_attention_gate_tasks` takes x and the weights with a
+leading task axis and one ``shared`` map for every task; each task's result
+is bit for bit that of its own launch. The kernel has one entry, the
+task-axis one: :func:`fused_attention_gate` launches it with T = 1. The
+plain version, :func:`fused_attention_gate_tasks_plain`, is the one-task
+plain version task by task. ``tasks`` counts the task-axis wrapper's
+launches, ``launches`` the one-task wrapper's.
+
 Both are the two kernels of one PyTorch operator,
 ``torch.ops.vmtl.fused_attention_gate``, registered when this module is
 imported: the dispatcher runs the plain version for CPU tensors and the
@@ -36,17 +45,20 @@ import typing as t
 
 import torch
 
-from vision_mtl_tpu_torch.kernels._build import LaunchCounter, load
+from vision_mtl_tpu_torch.kernels._build import EntryPoint, LaunchCounter, load
 
 SOURCE = "fused_gate"
 MAX_HIDDEN = 128
 MAX_C2 = 512
+MAX_TASKS = 65535
 
 launches = LaunchCounter()
+#: the task-axis launch (``vmtl_fused_attention_gate_tasks``)
+tasks = EntryPoint(SOURCE)
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 7
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p]
 )
 
@@ -80,6 +92,22 @@ def fused_attention_gate_plain(
     attn = torch.sigmoid(h @ w2.float() + c2.float())
     out = shared.reshape(-1, c2ch).float() * attn
     return out.to(shared.dtype).reshape(shared.shape)
+
+
+def fused_attention_gate_tasks_plain(
+    x: torch.Tensor,
+    shared: torch.Tensor,
+    w1: torch.Tensor,
+    c1: torch.Tensor,
+    w2: torch.Tensor,
+    c2: torch.Tensor,
+) -> torch.Tensor:
+    """The task-axis kernel's function: :func:`fused_attention_gate_plain`
+    for each task's x and weights on the one ``shared``, stacked."""
+    return torch.stack([
+        fused_attention_gate_plain(x[i], shared, w1[i], c1[i], w2[i], c2[i])
+        for i in range(x.shape[0])
+    ])
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -138,26 +166,65 @@ def fused_attention_gate(
     return torch.ops.vmtl.fused_attention_gate(x, shared, w1, c1, w2, c2)
 
 
+def fused_attention_gate_tasks(
+    x: torch.Tensor,
+    shared: torch.Tensor,
+    w1: torch.Tensor,
+    c1: torch.Tensor,
+    w2: torch.Tensor,
+    c2: torch.Tensor,
+) -> torch.Tensor:
+    """The gates of T tasks on one shared map, through the operator
+    ``torch.ops.vmtl.fused_attention_gate_tasks``: out[t] = shared *
+    sigmoid(relu(x[t] @ w1[t] + c1[t]) @ w2[t] + c2[t]).
+
+    Args:
+      x: (T, B, H, W, Cin); shared: (B, H, W, C2), every task's, same dtype.
+      w1: (T, Cin, hidden); c1: (T, hidden); w2: (T, hidden, C2); c2: (T, C2).
+
+    Returns (T, B, H, W, C2) in shared's dtype. CPU tensors take
+    :func:`fused_attention_gate_tasks_plain`; CUDA tensors launch the kernel
+    once for all tasks, or raise, as :func:`fused_attention_gate` does.
+    """
+    return torch.ops.vmtl.fused_attention_gate_tasks(x, shared, w1, c1, w2, c2)
+
+
 def _launch(x, shared, w1, c1, w2, c2) -> torch.Tensor:
-    """The operator's CUDA kernel: checks the tensors, launches, counts."""
+    """The operator's CUDA kernel: checks the tensors, launches the task-axis
+    kernel with T = 1, counts."""
     _check(x, shared, w1, c1, w2, c2)
-    b, h, w, cin = x.shape
-    hidden, c2ch = w2.shape
+    return _launch_on_tasks(
+        "fused_attention_gate", launches, x[None], shared, w1[None], c1[None], w2[None],
+        c2[None],
+    )[0]
+
+
+def _launch_tasks(x, shared, w1, c1, w2, c2) -> torch.Tensor:
+    """The task-axis operator's CUDA kernel: checks, launches, counts."""
+    _check_tasks(x, shared, w1, c1, w2, c2)
+    return _launch_on_tasks("fused_attention_gate_tasks", tasks.launches, x, shared, w1, c1, w2, c2)
+
+
+def _launch_on_tasks(kernel: str, counter: LaunchCounter, x, shared, w1, c1, w2, c2):
+    """One launch of ``vmtl_fused_attention_gate_tasks`` on checked tensors
+    with a leading task axis; ``counter`` counts it."""
+    n_tasks, b, h, w, cin = x.shape
+    hidden, c2ch = w2.shape[1:]
     n = b * h * w
-    out = torch.empty_like(shared, memory_format=torch.contiguous_format)
+    out = torch.empty((n_tasks, *shared.shape), dtype=shared.dtype, device=shared.device)
     if n == 0:
         return out
-    fn = load(SOURCE, "vmtl_fused_attention_gate", _SIGNATURE)
+    fn = load(SOURCE, "vmtl_fused_attention_gate_tasks", _SIGNATURE)
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), shared.data_ptr(), w1.data_ptr(), c1.data_ptr(),
             w2.data_ptr(), c2.data_ptr(), out.data_ptr(),
-            n, cin, hidden, c2ch, int(x.dtype == torch.bfloat16),
+            n_tasks, n, cin, hidden, c2ch, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_attention_gate: kernel launch failed, CUDA error {rc}")
-    launches.add()
+        raise RuntimeError(f"{kernel}: kernel launch failed, CUDA error {rc}")
+    counter.add()
     return out
 
 
@@ -169,6 +236,12 @@ def _fake(x, shared, w1, c1, w2, c2) -> torch.Tensor:
     return torch.empty_like(shared, memory_format=torch.contiguous_format)
 
 
+def _fake_tasks(x, shared, w1, c1, w2, c2) -> torch.Tensor:
+    if x.device.type != "cpu":
+        _check_tasks(x, shared, w1, c1, w2, c2)
+    return shared.new_empty((x.shape[0], *shared.shape))
+
+
 # the plain version is looked up at each call (tests replace it)
 _lib = torch.library.Library("vmtl", "FRAGMENT")
 _lib.define(
@@ -178,6 +251,15 @@ _lib.define(
 _lib.impl("fused_attention_gate", lambda *a: fused_attention_gate_plain(*a), "CPU")
 _lib.impl("fused_attention_gate", _launch, "CUDA")
 torch.library.register_fake("vmtl::fused_attention_gate", _fake, lib=_lib)
+_lib.define(
+    "fused_attention_gate_tasks(Tensor x, Tensor shared, Tensor w1, Tensor c1, Tensor w2, "
+    "Tensor c2) -> Tensor"
+)
+_lib.impl(
+    "fused_attention_gate_tasks", lambda *a: fused_attention_gate_tasks_plain(*a), "CPU"
+)
+_lib.impl("fused_attention_gate_tasks", _launch_tasks, "CUDA")
+torch.library.register_fake("vmtl::fused_attention_gate_tasks", _fake_tasks, lib=_lib)
 
 
 def _no_backward(ctx, grad):
@@ -187,13 +269,21 @@ def _no_backward(ctx, grad):
     )
 
 
-# inference only: a backward through the operator raises instead of leaving
+# inference only: a backward through the operators raises instead of leaving
 # the gate's inputs without a gradient
 torch.library.register_autograd("vmtl::fused_attention_gate", _no_backward, lib=_lib)
+torch.library.register_autograd("vmtl::fused_attention_gate_tasks", _no_backward, lib=_lib)
 
 
 def _check(x, shared, w1, c1, w2, c2) -> None:
     check_gate_args("fused_attention_gate", x, shared, w1, w2, {"c1": c1}, {"c2": c2})
+
+
+def _check_tasks(x, shared, w1, c1, w2, c2) -> None:
+    check_gate_args(
+        "fused_attention_gate_tasks", x, shared, w1, w2, {"c1": c1}, {"c2": c2},
+        n_tasks=x.shape[0] if x.dim() == 5 else -1,
+    )
 
 
 def check_gate_args(
@@ -204,12 +294,15 @@ def check_gate_args(
     w2: torch.Tensor,
     vectors1: t.Dict[str, torch.Tensor],
     vectors2: t.Dict[str, torch.Tensor],
+    n_tasks: t.Optional[int] = None,
 ) -> None:
     """Raises unless the tensors fit a gate kernel: all CUDA on one device
     and contiguous; x and shared NHWC with the same B, H, W, both float32 or
     both bfloat16; float32 weights w1 (Cin, hidden), w2 (hidden, C2), the
     named (hidden,) ``vectors1`` and (C2,) ``vectors2``; hidden and C2
-    multiples of 4 up to MAX_HIDDEN and MAX_C2."""
+    multiples of 4 up to MAX_HIDDEN and MAX_C2. With ``n_tasks`` (the task
+    axis), x is (T, B, H, W, Cin) and every weight has the leading T, 1 <= T
+    <= MAX_TASKS; shared stays (B, H, W, C2)."""
     weights = {"w1": w1, "w2": w2, **vectors1, **vectors2}
     for name, v in {"x": x, "shared": shared, **weights}.items():
         if v.device != x.device or v.device.type != "cuda":
@@ -227,16 +320,21 @@ def check_gate_args(
     for name, v in weights.items():
         if v.dtype != torch.float32:
             raise TypeError(f"{kernel}: {name} must be float32")
-    if x.dim() != 4 or shared.dim() != 4 or x.shape[:3] != shared.shape[:3]:
+    lead = () if n_tasks is None else (n_tasks,)
+    if n_tasks is not None and not 1 <= n_tasks <= MAX_TASKS:
+        raise ValueError(
+            f"{kernel}: x {tuple(x.shape)} must be (T, B, H, W, Cin) with 1 <= T <= {MAX_TASKS}"
+        )
+    if x.dim() != 4 + len(lead) or shared.dim() != 4 or x.shape[len(lead):-1] != shared.shape[:3]:
         raise ValueError(
             f"{kernel}: x {tuple(x.shape)} and shared {tuple(shared.shape)} must "
-            "be NHWC with the same B, H, W"
+            f"be NHWC with the same B, H, W{' (x with a leading task axis)' if lead else ''}"
         )
     cin, c2ch = x.shape[-1], shared.shape[-1]
-    hidden = w1.shape[-1] if w1.dim() == 2 else -1
-    shapes = {"w1": (cin, hidden), "w2": (hidden, c2ch)}
-    shapes.update({name: (hidden,) for name in vectors1})
-    shapes.update({name: (c2ch,) for name in vectors2})
+    hidden = w1.shape[-1] if w1.dim() == 2 + len(lead) else -1
+    shapes = {"w1": lead + (cin, hidden), "w2": lead + (hidden, c2ch)}
+    shapes.update({name: lead + (hidden,) for name in vectors1})
+    shapes.update({name: lead + (c2ch,) for name in vectors2})
     for name, shape in shapes.items():
         if tuple(weights[name].shape) != shape:
             raise ValueError(

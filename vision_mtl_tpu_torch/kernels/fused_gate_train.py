@@ -15,6 +15,17 @@ statistics, which the caller folds into its running statistics.
 :func:`fused_attention_gate_train_plain` computes the same function with
 PyTorch ops and is what runs for CPU tensors.
 
+MTAN's task-folded levels (``fold_tasks``) run the T tasks' gates as one
+call: :func:`fused_attention_gate_train_tasks` takes x, the weights and the
+statistics with a leading task axis and one ``shared`` map for every task;
+each task's results are bit for bit those of its own call. The kernel
+has one entry, the task-axis one: :func:`fused_attention_gate_train`
+calls it with T = 1. The plain version,
+:func:`fused_attention_gate_train_tasks_plain`, is the one-task plain
+version task by task, and the backward is the one-task backward task by
+task. ``tasks`` counts the task-axis wrapper's calls, ``launches`` the
+one-task wrapper's.
+
 The kernel takes its products on the tensor cores as 3xTF32, as the eval
 gate's does (``fused_gate.tf32_matmul``).
 :func:`fused_attention_gate_train_tf32` emulates that arithmetic with
@@ -36,19 +47,22 @@ import typing as t
 
 import torch
 
-from vision_mtl_tpu_torch.kernels._build import LaunchCounter, load
+from vision_mtl_tpu_torch.kernels._build import EntryPoint, LaunchCounter, load
 from vision_mtl_tpu_torch.kernels.fused_gate import check_gate_args, tf32_matmul
 
 SOURCE = "gate_train"
 
 launches = LaunchCounter()
+#: the task-axis call (``vmtl_fused_attention_gate_train_tasks``)
+tasks = EntryPoint(SOURCE)
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 13
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p]
 )
-_SCRATCH_SIGNATURE = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_SCRATCH_SIGNATURE = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
@@ -94,6 +108,22 @@ def fused_attention_gate_train_plain(
     return out, mean1, var1, mean2, var2
 
 
+def fused_attention_gate_train_tasks_plain(
+    x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps=1e-5
+) -> t.Tuple[torch.Tensor, ...]:
+    """The task-axis kernel's function: :func:`fused_attention_gate_train_plain`
+    for each task's x and weights on the one ``shared``, each result
+    stacked on a leading task axis."""
+    per_task = [
+        fused_attention_gate_train_plain(
+            x[i], shared, w1[i], b1[i], scale1[i], bias1[i], w2[i], b2[i], scale2[i],
+            bias2[i], eps,
+        )
+        for i in range(x.shape[0])
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*per_task))
+
+
 def fused_attention_gate_train_tf32(
     x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps=1e-5, split=True
 ):
@@ -115,48 +145,108 @@ def fused_attention_gate_train_tf32(
 
 
 def _launch(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
-    """The CUDA kernel's forward; raises unless every tensor fits it."""
+    """The CUDA kernel's forward, the task-axis kernel with T = 1; raises
+    unless every tensor fits it."""
     _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2)
-    b, h, w, cin = x.shape
-    hidden, c2ch = w2.shape
+    weights = (w1, b1, scale1, bias1, w2, b2, scale2, bias2)
+    results = _launch_on_tasks(
+        "fused_attention_gate_train", launches, x[None], shared, *(v[None] for v in weights),
+        eps=eps,
+    )
+    return tuple(r[0] for r in results)
+
+
+def _launch_tasks(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
+    """The task-axis CUDA kernel's forward; raises unless every tensor fits
+    it."""
+    _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2)
+    return _launch_on_tasks(
+        "fused_attention_gate_train_tasks", tasks.launches, x, shared, w1, b1, scale1, bias1,
+        w2, b2, scale2, bias2, eps=eps,
+    )
+
+
+def _launch_on_tasks(kernel: str, counter: LaunchCounter, x, shared, *weights, eps):
+    """One call of ``vmtl_fused_attention_gate_train_tasks`` on checked
+    tensors with a leading task axis (``weights``: w1, b1, scale1, bias1,
+    w2, b2, scale2, bias2); ``counter`` counts it."""
+    n_tasks, b, h, w, cin = x.shape
+    hidden, c2ch = weights[4].shape[1:]  # w2 (T, hidden, C2)
     n = b * h * w
-    out = torch.empty_like(shared)
-    stats = torch.empty(2 * (hidden + c2ch), dtype=torch.float32, device=x.device)
+    out = torch.empty((n_tasks, *shared.shape), dtype=shared.dtype, device=x.device)
+    stats = torch.empty((n_tasks, 2 * (hidden + c2ch)), dtype=torch.float32, device=x.device)
     nbytes = load(
-        SOURCE, "vmtl_fused_attention_gate_train_scratch_bytes", _SCRATCH_SIGNATURE,
+        SOURCE, "vmtl_fused_attention_gate_train_tasks_scratch_bytes", _SCRATCH_SIGNATURE,
         restype=ctypes.c_longlong,
-    )(n, cin, hidden, c2ch)
+    )(n, cin, hidden, c2ch, n_tasks)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    fn = load(SOURCE, "vmtl_fused_attention_gate_train", _SIGNATURE)
+    fn = load(SOURCE, "vmtl_fused_attention_gate_train_tasks", _SIGNATURE)
     with torch.cuda.device(x.device):
         rc = fn(
-            x.data_ptr(), shared.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            scale1.data_ptr(), bias1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            scale2.data_ptr(), bias2.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            scratch.data_ptr(), n, cin, hidden, c2ch, eps, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), shared.data_ptr(), *(v.data_ptr() for v in weights), out.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(), n_tasks, n, cin, hidden, c2ch, eps,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_attention_gate_train: kernel launch failed, CUDA error {rc}")
-    launches.add()
-    mean1, var1, mean2, var2 = stats.split([hidden, hidden, c2ch, c2ch])
+        raise RuntimeError(f"{kernel}: kernel launch failed, CUDA error {rc}")
+    counter.add()
+    mean1, var1, mean2, var2 = stats.split([hidden, hidden, c2ch, c2ch], dim=1)
     return out, mean1, var1, mean2, var2
 
 
 def _bn_backward(dy_hat: torch.Tensor, z_hat: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
     """Gradient through a batch-statistic normalisation z_hat = (z - mean) *
-    rstd, given the gradient with respect to z_hat."""
-    return rstd * (dy_hat - dy_hat.mean(0) - z_hat * (dy_hat * z_hat).mean(0))
+    rstd over the rows (dim -2), given the gradient with respect to z_hat."""
+    return rstd * (dy_hat - dy_hat.mean(-2, keepdim=True)
+                   - z_hat * (dy_hat * z_hat).mean(-2, keepdim=True))
+
+
+def _gate_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
+                   m1, v1, m2, v2) -> t.Tuple[torch.Tensor, ...]:
+    """The one-task gate's gradient in its ten tensors, in the compute dtype,
+    x's and shared's as rows: recomputes h and a from the inputs and the
+    saved statistics and applies the BatchNorm gradient with batch
+    statistics."""
+    cd = _compute_dtype(x)
+    cin, c2ch = x.shape[-1], shared.shape[-1]
+    xf = x.reshape(-1, cin).to(cd)
+    sf = shared.reshape(-1, c2ch).to(cd)
+    dout = dout.reshape(-1, c2ch).to(cd)
+    w1, w2, scale1, scale2 = w1.to(cd), w2.to(cd), scale1.to(cd), scale2.to(cd)
+    # recompute the forward
+    rstd1 = torch.rsqrt(v1.to(cd) + eps)
+    h_hat = (xf @ w1 + b1.to(cd) - m1.to(cd)) * rstd1
+    z1 = h_hat * scale1 + bias1.to(cd)
+    r = torch.relu(z1)
+    rstd2 = torch.rsqrt(v2.to(cd) + eps)
+    a_hat = (r @ w2 + b2.to(cd) - m2.to(cd)) * rstd2
+    attn = torch.sigmoid(a_hat * scale2 + bias2.to(cd))
+    # and back
+    dz2 = dout * sf * attn * (1.0 - attn)
+    da = _bn_backward(dz2 * scale2, a_hat, rstd2)
+    dr = (da @ w2.T) * (z1 > 0)
+    dh = _bn_backward(dr * scale1, h_hat, rstd1)
+    return (
+        dh @ w1.T, dout * attn, xf.T @ dh, dh.sum(0), (dr * h_hat).sum(0), dr.sum(0),
+        r.T @ da, da.sum(0), (dz2 * a_hat).sum(0), dz2.sum(0),
+    )
 
 
 class _FusedGateTrain(torch.autograd.Function):
+    """The gate of one task (x of 4 dims) or of T tasks (x of 5, the task
+    axis leading x, the weights and the statistics; shared is every
+    task's)."""
+
     @staticmethod
     def forward(ctx, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
         args = (x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps)
+        on_tasks = x.dim() == 5
         if x.device.type == "cpu":
-            out, *stats = fused_attention_gate_train_plain(*args)
+            plain = fused_attention_gate_train_tasks_plain if on_tasks else (
+                fused_attention_gate_train_plain)
+            out, *stats = plain(*args)
         else:
-            out, *stats = _launch(*args)
+            out, *stats = (_launch_tasks if on_tasks else _launch)(*args)
         ctx.eps = eps
         ctx.save_for_backward(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, *stats)
         ctx.mark_non_differentiable(*stats)
@@ -165,34 +255,23 @@ class _FusedGateTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, *_):
         saved = ctx.saved_tensors
-        x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, m1, v1, m2, v2 = saved
-        cd = _compute_dtype(x)
-        cin, c2ch = x.shape[-1], shared.shape[-1]
-        xf = x.reshape(-1, cin).to(cd)
-        sf = shared.reshape(-1, c2ch).to(cd)
-        dout = dout.reshape(-1, c2ch).to(cd)
-        w1, w2 = w1.to(cd), w2.to(cd)
-        scale1, scale2 = scale1.to(cd), scale2.to(cd)
-        # recompute the forward from the saved inputs and statistics
-        rstd1 = torch.rsqrt(v1.to(cd) + ctx.eps)
-        h_hat = (xf @ w1 + b1.to(cd) - m1.to(cd)) * rstd1
-        z1 = h_hat * scale1 + bias1.to(cd)
-        r = torch.relu(z1)
-        rstd2 = torch.rsqrt(v2.to(cd) + ctx.eps)
-        a_hat = (r @ w2 + b2.to(cd) - m2.to(cd)) * rstd2
-        attn = torch.sigmoid(a_hat * scale2 + bias2.to(cd))
-        # and back
-        dshared = dout * attn
-        dz2 = dout * sf * attn * (1.0 - attn)
-        da = _bn_backward(dz2 * scale2, a_hat, rstd2)
-        dr = (da @ w2.T) * (z1 > 0)
-        dh = _bn_backward(dr * scale1, h_hat, rstd1)
-        grads = (
-            (dh @ w1.T).reshape(x.shape), dshared.reshape(shared.shape),
-            xf.T @ dh, dh.sum(0), (dr * h_hat).sum(0), dr.sum(0),
-            r.T @ da, da.sum(0), (dz2 * a_hat).sum(0), dz2.sum(0),
-        )
-        return (*(g.to(i.dtype) for g, i in zip(grads, saved)), None)
+        x, shared = saved[:2]
+        if x.dim() == 4:
+            grads = _gate_backward(ctx.eps, dout, *saved)
+        else:
+            # task by task, so that one task's (N, hidden) and (N, C2)
+            # intermediates are live at a time; every task's gate scales
+            # the one shared map
+            dshared, by_task = 0.0, []
+            for i in range(x.shape[0]):
+                dx, ds, *dw = _gate_backward(
+                    ctx.eps, dout[i], x[i], shared, *(v[i] for v in saved[2:])
+                )
+                dshared = dshared + ds
+                by_task.append((dx.to(x.dtype), *dw))
+            dx, *dw = (torch.stack(parts) for parts in zip(*by_task))
+            grads = (dx, dshared, *dw)
+        return (*(g.reshape(i.shape).to(i.dtype) for g, i in zip(grads, saved)), None)
 
 
 def fused_attention_gate_train(
@@ -229,11 +308,42 @@ def fused_attention_gate_train(
     return _FusedGateTrain.apply(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps)
 
 
+def fused_attention_gate_train_tasks(
+    x: torch.Tensor,
+    shared: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    scale1: torch.Tensor,
+    bias1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    scale2: torch.Tensor,
+    bias2: torch.Tensor,
+    eps: float = 1e-5,
+) -> t.Tuple[torch.Tensor, ...]:
+    """The train-mode gates of T tasks on one shared map, each with its own
+    batch statistics; differentiable in all ten tensors.
+
+    Args:
+      x: (T, B, H, W, Cin); shared: (B, H, W, C2), every task's, same dtype.
+      w1: (T, Cin, hidden); b1, scale1, bias1: (T, hidden); w2: (T, hidden,
+        C2); b2, scale2, bias2: (T, C2).
+
+    Returns ``(out, mean1, var1, mean2, var2)``: out (T, B, H, W, C2) in
+    shared's dtype, the statistics (T, hidden) and (T, C2), raw, biased, f32
+    and not differentiable. CPU tensors take
+    :func:`fused_attention_gate_train_tasks_plain`; CUDA tensors make one
+    call of the kernel for all tasks, or raise.
+    """
+    return _FusedGateTrain.apply(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps)
+
+
 def _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2) -> None:
     check_gate_args(
-        "fused_attention_gate_train", x, shared, w1, w2,
+        "fused_attention_gate_train" + ("_tasks" if x.dim() == 5 else ""), x, shared, w1, w2,
         {"b1": b1, "scale1": scale1, "bias1": bias1},
         {"b2": b2, "scale2": scale2, "bias2": bias2},
+        n_tasks=x.shape[0] if x.dim() == 5 else None,
     )
-    if x.shape[:3].numel() == 0:
+    if x.shape[-4:-1].numel() == 0:
         raise ValueError("fused_attention_gate_train: batch statistics need at least one row")

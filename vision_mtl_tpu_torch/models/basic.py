@@ -10,6 +10,14 @@ concatenated kernels and biases, through kernel B3 when it takes the
 channels (33 -> 20 at the trained width); the parameters stay at the heads'
 own paths. At the trained width a forward launches B3 four times (three
 decoder convs and the merged head), a backward four more (their dx).
+
+Options (none changes a parameter): ``fold_tail`` runs the last decoder
+block and the heads in space-to-depth folded layout (``ops/fold.py``; only
+with more than 4 decoder layers, where the last block is skip-less), the
+heads unmerged, each unfolded by ``depth_to_space``; their convs are plain
+convolutions on 4C channels, so a forward launches B3 once (block 3's 67 ->
+67). ``remat_tail`` rematerialises the last N decoder blocks and
+``remat_encoder`` every encoder block in the backward pass.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from torch import nn
 from vision_mtl_tpu_torch.kernels.small_conv import fits as small_conv_fits
 from vision_mtl_tpu_torch.models.blocks import conv_nhwc, init_weights
 from vision_mtl_tpu_torch.models.mobilenetv3 import MobileNetV3Encoder
+from vision_mtl_tpu_torch.ops.fold import depth_to_space
 from vision_mtl_tpu_torch.models.unet_decoder import (
     SegmentationHead,
     UnetDecoder,
@@ -36,12 +45,17 @@ class Backbone(nn.Module):
         self,
         decoder_first_channel: int = 256,
         num_decoder_layers: int = 5,
+        fold_tail: bool = False,
+        remat_tail: int = 0,
+        remat_encoder: bool = False,
         dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
         self.decoder_channels = decoder_channels(decoder_first_channel, num_decoder_layers)
-        self.encoder = MobileNetV3Encoder(dtype=dtype)
-        self.decoder = UnetDecoder(self.decoder_channels, dtype=dtype)
+        self.encoder = MobileNetV3Encoder(dtype=dtype, remat=remat_encoder)
+        self.decoder = UnetDecoder(
+            self.decoder_channels, fold_tail=fold_tail, remat_tail=remat_tail, dtype=dtype
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x))
@@ -55,6 +69,9 @@ class BasicMTLModel(nn.Module):
         segm_classes: int,
         decoder_first_channel: int = 256,
         num_decoder_layers: int = 5,
+        fold_tail: bool = False,
+        remat_tail: int = 0,
+        remat_encoder: bool = False,
         merge_heads: bool = True,
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
@@ -62,17 +79,26 @@ class BasicMTLModel(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.segm_classes = segm_classes
-        self.merge_heads = merge_heads
-        self.backbone = Backbone(decoder_first_channel, num_decoder_layers, dtype=dtype)
+        # the decoder folds its last block only when it is skip-less (4
+        # encoder skips): the heads' layout follows the map they take
+        self.fold_tail = fold_tail and num_decoder_layers > 4
+        self.merge_heads = merge_heads and not self.fold_tail
+        self.backbone = Backbone(
+            decoder_first_channel, num_decoder_layers, fold_tail=self.fold_tail,
+            remat_tail=remat_tail, remat_encoder=remat_encoder, dtype=dtype,
+        )
         out_ch = self.backbone.decoder_channels[-1]
-        self.segm_head = SegmentationHead(out_ch, segm_classes, dtype=dtype)
-        self.depth_head = SegmentationHead(out_ch, 1, dtype=dtype)
+        self.segm_head = SegmentationHead(out_ch, segm_classes, dtype=dtype, folded=self.fold_tail)
+        self.depth_head = SegmentationHead(out_ch, 1, dtype=dtype, folded=self.fold_tail)
         #: the merged head's conv runs through kernel B3
         self.merged_head_small_conv = small_conv_fits(out_ch, segm_classes + 1)
         init_weights(self, seed)
         self.eval()
 
     def heads(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        if self.fold_tail:
+            return {"segm": depth_to_space(self.segm_head(x)),
+                    "depth": depth_to_space(self.depth_head(x))}
         if not self.merge_heads:
             return {"segm": self.segm_head(x), "depth": self.depth_head(x)}
         s, d = self.segm_head.Conv_0, self.depth_head.Conv_0

@@ -10,19 +10,28 @@ and returns its input's dtype, as in the JAX package.
 
 ``module.train()`` and ``module.eval()`` switch BatchNorm between batch and
 running statistics, as the JAX package's ``train`` argument does.
+
+``FoldedConv``, ``FoldedBatchNorm`` and ``FoldedConvBNAct`` are the same
+blocks on a space-to-depth folded tensor (``ops/fold.py``), with the same
+parameters at the same names. :func:`checkpointed` rematerialises a block
+in the backward pass, as flax's ``nn.remat`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 import typing as t
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from vision_mtl_tpu_torch.kernels import small_conv as small_conv_kernel
+from vision_mtl_tpu_torch.ops import fold as fold_ops
 from vision_mtl_tpu_torch.ops import small_conv as small_conv_op
 
 #: When True, the running-variance update of every train-mode BatchNorm
@@ -46,6 +55,40 @@ def torch_bn_running_var() -> bool:
     return _TORCH_BN_VAR
 
 
+# set while torch.utils.checkpoint recomputes a block for the backward pass
+# (on the thread that runs the recompute)
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing() -> t.Iterator[None]:
+    before = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = before
+
+
+def _remat_contexts() -> t.Tuple[t.ContextManager[None], t.ContextManager[None]]:
+    return contextlib.nullcontext(), _recomputing()
+
+
+def checkpointed(module: nn.Module, *args: t.Any) -> t.Any:
+    """``module(*args)``, rematerialised when the module is in train mode
+    and gradients are on: its activations are dropped after the forward and
+    recomputed in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant), as flax's ``nn.remat`` does. The recompute leaves every
+    running statistic as the first pass left it (:func:`update_running_stats`
+    does nothing during it), so the batch is counted once, as under flax.
+    Eval and no-grad forwards run the module as it is."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args)
+    return torch.utils.checkpoint.checkpoint(
+        module, *args, use_reentrant=False, context_fn=_remat_contexts
+    )
+
+
 def update_running_stats(
     running_mean: torch.Tensor,
     running_var: torch.Tensor,
@@ -55,7 +98,11 @@ def update_running_stats(
 ) -> None:
     """flax's running-statistics update in place, retaining ``MOMENTUM``.
     ``var`` is the biased batch variance over ``n`` rows; under the
-    torch-running-var switch it is scaled to the unbiased one first."""
+    torch-running-var switch it is scaled to the unbiased one first. Does
+    nothing while :func:`checkpointed` recomputes a block: the first pass
+    updated the statistics already."""
+    if getattr(_recompute, "active", False):
+        return
     with torch.no_grad():
         if _TORCH_BN_VAR:
             var = var * (n / max(n - 1, 1))
@@ -190,22 +237,36 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            y = F.batch_norm(
-                _to_nchw(x), self.running_mean, self.running_var,
-                self.weight, self.bias, False, 0.0, self.eps,
-            )
-            return _to_nhwc(y)
-        # native_batch_norm returns the batch mean and 1/sqrt(var + eps)
-        # it normalised with; its backward differentiates through both
-        y, mean, invstd = torch.native_batch_norm(
-            _to_nchw(x), self.weight, self.bias, None, None, True, 0.0, self.eps
+        return batch_norm_nhwc(
+            x, self.weight, self.bias, self.running_mean, self.running_var, self.eps,
+            self.training,
         )
-        var = invstd.detach().double().pow(-2).sub(self.eps).clamp(min=0.0)
-        update_running_stats(
-            self.running_mean, self.running_var, mean.detach(), var, x.numel() // x.shape[-1]
+
+
+def batch_norm_nhwc(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    eps: float,
+    training: bool,
+) -> torch.Tensor:
+    """:class:`BatchNorm`'s function on NHWC ``x`` with these (C,) tensors
+    (views of larger ones are updated in place)."""
+    if not training:
+        y = F.batch_norm(
+            _to_nchw(x), running_mean, running_var, weight, bias, False, 0.0, eps
         )
         return _to_nhwc(y)
+    # native_batch_norm returns the batch mean and 1/sqrt(var + eps) it
+    # normalised with; its backward differentiates through both
+    y, mean, invstd = torch.native_batch_norm(
+        _to_nchw(x), weight, bias, None, None, True, 0.0, eps
+    )
+    var = invstd.detach().double().pow(-2).sub(eps).clamp(min=0.0)
+    update_running_stats(running_mean, running_var, mean.detach(), var, x.numel() // x.shape[-1])
+    return _to_nhwc(y)
 
 
 class RawBatchNorm(BatchNorm):
@@ -244,6 +305,74 @@ class ConvBNAct(nn.Module):
             in_ch, features, kernel_size, use_bias=False, dtype=dtype, small_conv=small_conv
         )
         self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class FoldedConv(Conv):
+    """A stride-1 conv on a space-to-depth FOLDED input (B, Hf, Wf, 4C) ->
+    (B, Hf, Wf, 4O) (``ops.fold.folded_conv``): a plain conv in ``dtype`` on
+    the folded kernel built at each call. The weight keeps ``Conv``'s
+    unfolded (O, C, kh, kw) shape and name, so fold on or off is
+    checkpoint-identical. ``in_splits``: the input is separately folded
+    groups of these channel counts, concatenated."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        features: int,
+        kernel_size: t.Tuple[int, int] = (3, 3),
+        in_splits: t.Optional[t.Tuple[int, ...]] = None,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__(in_ch, features, kernel_size, use_bias=use_bias, dtype=dtype)
+        self.in_splits = in_splits
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fold_ops.folded_conv(
+            x, self.weight.permute(2, 3, 1, 0), self.bias, in_splits=self.in_splits,
+            dtype=self.dtype,
+        )
+
+
+class FoldedBatchNorm(BatchNorm):
+    """BatchNorm on a FOLDED tensor, its statistics tied across the 4 phases:
+    the unfolded BatchNorm's function. Parameters and running statistics
+    keep their unfolded (C,) shapes and names. The train-mode running
+    variance counts all four phases' rows (``n = y.numel() // C``)."""
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return fold_ops.folded_batch_norm(
+                y, self.running_mean, self.running_var, self.weight, self.bias, self.eps
+            )
+        mean, var = fold_ops.folded_batch_stats(y)
+        c = y.shape[-1] // 4
+        update_running_stats(
+            self.running_mean, self.running_var, mean.detach(), var.detach(), y.numel() // c
+        )
+        return fold_ops.folded_batch_norm(y, mean, var, self.weight, self.bias, self.eps)
+
+
+class FoldedConvBNAct(nn.Module):
+    """conv (no bias) -> BN -> ReLU on a folded tensor, with ``ConvBNAct``'s
+    children (``Conv_0``, ``BatchNorm_0``) and parameters."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        features: int,
+        kernel_size: t.Tuple[int, int] = (3, 3),
+        in_splits: t.Optional[t.Tuple[int, ...]] = None,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.Conv_0 = FoldedConv(
+            in_ch, features, kernel_size, in_splits=in_splits, use_bias=False, dtype=dtype
+        )
+        self.BatchNorm_0 = FoldedBatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.BatchNorm_0(self.Conv_0(x)))

@@ -1,5 +1,5 @@
 """Cross-Stitch network, CSNet (counterpart of
-``vision_mtl_tpu/models/cross_stitch.py``, without remat).
+``vision_mtl_tpu/models/cross_stitch.py``).
 
 One MobileNetV3-Large encoder and one Unet decoder per task, joined by
 stitch units at fixed points of the forward:
@@ -24,6 +24,10 @@ blocks 3 and 4 (80 -> 32, 32 -> 32, 32 -> 16, 16 -> 16) and the head
 (16 -> 1 or 16 -> classes): 12 launches per forward, 12 more for their dx
 in a backward.
 
+``remat_encoder`` rematerialises every block of both encoders in the
+backward pass, ``remat_tail`` the last N decoder blocks of each task's
+decoder (``blocks.checkpointed``); neither changes a parameter.
+
 Submodule names are the flax names (``encoders_{t}``, ``decoders_{t}_{d}``,
 ``heads_{t}``, ``enc_stitches_{i}``, ``dec_stitches_{i}``), so
 ``weights.load_jax_variables`` walks both trees side by side.
@@ -36,7 +40,7 @@ import typing as t
 import torch
 from torch import nn
 
-from vision_mtl_tpu_torch.models.blocks import init_weights
+from vision_mtl_tpu_torch.models.blocks import checkpointed, init_weights
 from vision_mtl_tpu_torch.models.mobilenetv3 import (
     CONV_HEAD_CH,
     FEATURE_TAP_AFTER_STAGE,
@@ -112,12 +116,15 @@ class CSNet(nn.Module):
         channel_wise_stitching: bool = True,
         full_mix: bool = False,
         upsample_skips: bool = False,
+        remat_encoder: bool = False,
+        remat_tail: int = 0,
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
     ):
         super().__init__()
         self.task_names = list(task_channels)
         self.num_decoder_layers = num_decoder_layers
+        self.remat_tail = remat_tail
         self.upsample_skips = upsample_skips
         n = len(self.task_names)
         dch = decoder_channels(decoder_first_channel, num_decoder_layers)
@@ -129,7 +136,9 @@ class CSNet(nn.Module):
         ]
 
         for ti in range(n):
-            self.add_module(f"encoders_{ti}", MobileNetV3Encoder(dtype=dtype))
+            self.add_module(
+                f"encoders_{ti}", MobileNetV3Encoder(dtype=dtype, remat=remat_encoder)
+            )
         for ti in range(n):
             for d, out_ch in enumerate(dch):
                 self.add_module(
@@ -180,7 +189,9 @@ class CSNet(nn.Module):
                 for ti, h in enumerate(feats)
             ]
             merged = getattr(self, f"dec_stitches_{d}")(merged)
-            feats = [getattr(self, f"decoders_{ti}_{d}")(m) for ti, m in enumerate(merged)]
+            remat = d >= self.num_decoder_layers - self.remat_tail
+            blocks = [getattr(self, f"decoders_{ti}_{d}") for ti in range(n)]
+            feats = [checkpointed(b, m) if remat else b(m) for b, m in zip(blocks, merged)]
 
         return {
             name: getattr(self, f"heads_{ti}")(feats[ti])

@@ -12,6 +12,10 @@ Submodule names are the flax names (``conv_stem``, ``_stem_bn``,
 ``stages_{i}_{j}``, ``conv_head``, ``_head_bn``; inside a block ``Conv_k``,
 ``BatchNorm_k``, ``SqueezeExcite_0`` numbered by type in creation order), so
 ``weights.load_jax_variables`` walks both trees side by side.
+
+``remat=True`` rematerialises each inverted-residual block in the backward
+pass (``blocks.checkpointed``): only the blocks' boundaries stay live for
+the gradient. The parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from vision_mtl_tpu_torch.models.blocks import (
     Conv,
     RawBatchNorm,
     SqueezeExcite,
+    checkpointed,
     make_divisible,
 )
 
@@ -127,10 +132,12 @@ class InvertedResidual(nn.Module):
 
 
 class MobileNetV3Encoder(nn.Module):
-    """Encoder with 5-scale pyramid taps (plus the raw input as scale 0)."""
+    """Encoder with 5-scale pyramid taps (plus the raw input as scale 0);
+    ``remat``: each inverted-residual block rematerialised."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv_stem = Conv(
             ENCODER_OUT_CHANNELS[0], STEM_CH, (3, 3), use_bias=False, dtype=dtype,
             strides=(2, 2),
@@ -149,7 +156,8 @@ class MobileNetV3Encoder(nn.Module):
 
     def run_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
         for j in range(len(MOBILENETV3_LARGE_SPECS[i])):
-            x = getattr(self, f"stages_{i}_{j}")(x)
+            block = getattr(self, f"stages_{i}_{j}")
+            x = checkpointed(block, x) if self.remat else block(x)
         return x
 
     def run_head(self, x: torch.Tensor) -> torch.Tensor:

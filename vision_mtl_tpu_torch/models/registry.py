@@ -30,6 +30,12 @@ def build_model(
     seed: int = 0,
     merge_heads: bool = True,
     channel_wise_stitching: bool = True,
+    fold_tail: bool = False,
+    remat_tail: int = 0,
+    remat_encoder: bool = False,
+    remat_attention: bool = False,
+    remat_shared: bool = False,
+    fold_tasks: bool = False,
 ) -> nn.Module:
     """The named model in eval mode on ``device``, with fresh weights drawn
     from ``seed``; raises if ``device`` is CUDA and no card is present.
@@ -38,7 +44,11 @@ def build_model(
     ``merge_heads`` (basic) and ``channel_wise_stitching`` (csnet) default
     to the registry's configs; the training CLI passes its flags, as the JAX
     registry reads them from its args (``--channel_wise_stitching`` is off
-    unless given, so the CLI trains layer-wise stitching by default)."""
+    unless given, so the CLI trains layer-wise stitching by default). The
+    model options go where the JAX registry sends them: ``fold_tail``,
+    ``remat_tail`` and ``remat_encoder`` to basic, ``remat_attention``,
+    ``remat_shared`` and ``fold_tasks`` to mtan, ``remat_encoder`` and
+    ``remat_tail`` to csnet; a model ignores the others."""
     dev = resolve_device(device)
     if model_name == "mtan":
         from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
@@ -48,6 +58,9 @@ def build_model(
             task_subnets_hidden_channels=128,
             encoder_first_channel=32,
             encoder_num_channels=4,
+            remat_attention=remat_attention,
+            remat_shared=remat_shared,
+            fold_tasks=fold_tasks,
             dtype=dtype,
             seed=seed,
         )
@@ -59,6 +72,9 @@ def build_model(
             segm_classes=data_cfg.num_classes,
             decoder_first_channel=540,
             num_decoder_layers=5,
+            fold_tail=fold_tail,
+            remat_tail=remat_tail,
+            remat_encoder=remat_encoder,
             merge_heads=merge_heads,
             dtype=dtype,
             seed=seed,
@@ -72,6 +88,8 @@ def build_model(
             decoder_first_channel=256,
             num_decoder_layers=5,
             channel_wise_stitching=channel_wise_stitching,
+            remat_encoder=remat_encoder,
+            remat_tail=remat_tail,
             dtype=dtype,
             seed=seed,
         )

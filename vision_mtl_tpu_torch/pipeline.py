@@ -26,6 +26,17 @@ from vision_mtl_tpu_torch.train.checkpoint import (
 from vision_mtl_tpu_torch.train.state import TrainState, create_train_state
 
 
+#: the training flags that shape the model, and their defaults
+MODEL_OPTIONS: t.Dict[str, t.Any] = {
+    "fold_tail": False,
+    "remat_tail": 0,
+    "remat_encoder": False,
+    "remat_attention": False,
+    "remat_shared": False,
+    "fold_tasks": False,
+}
+
+
 def compute_dtype(args: argparse.Namespace) -> torch.dtype:
     return torch.bfloat16 if getattr(args, "precision", "bf16") == "bf16" else torch.float32
 
@@ -35,8 +46,10 @@ def model_from_args(
 ) -> torch.nn.Module:
     """The model a run's args name, as the JAX registry builds it from them:
     the precision, the seed, ``merge_heads`` and ``channel_wise_stitching``
-    (False unless the flag was given), and the BatchNorm running-variance
-    switch (``--torch_bn_var``), set for every build."""
+    (False unless the flag was given), the model options (``fold_tail``,
+    ``remat_tail``, ``remat_encoder``, ``remat_attention``, ``remat_shared``,
+    ``fold_tasks``; off where the args lack them), and the BatchNorm
+    running-variance switch (``--torch_bn_var``), set for every build."""
     set_torch_bn_running_var(bool(getattr(args, "torch_bn_var", False)))
     return build_model(
         args.model_name,
@@ -46,6 +59,7 @@ def model_from_args(
         seed=getattr(args, "seed", cfg.seed),
         merge_heads=getattr(args, "merge_heads", True),
         channel_wise_stitching=getattr(args, "channel_wise_stitching", True),
+        **{name: getattr(args, name, default) for name, default in MODEL_OPTIONS.items()},
     )
 
 

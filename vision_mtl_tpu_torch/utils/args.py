@@ -120,12 +120,6 @@ NOT_PORTED: t.Dict[str, t.Tuple[t.Any, str]] = {
     "do_optimize": (False, "A9 (tuning.py)"),
     "do_plot_preds": (False, "A9 (vis.py)"),
     "do_show_preds": (False, "A9 (vis.py)"),
-    "fold_tail": (False, "A9 (ops/fold.py)"),
-    "fold_tasks": (False, "A9 (fold_tasks)"),
-    "remat_tail": (0, "A9 (the remat flags)"),
-    "remat_encoder": (False, "A9 (the remat flags)"),
-    "remat_attention": (False, "A9 (the remat flags)"),
-    "remat_shared": (False, "A9 (the remat flags)"),
     "mesh_shape": ("data:-1", "A10 (parallel)"),
     "log_param_histograms_every": (0, "A9 (tracking)"),
 }

@@ -21,6 +21,12 @@ the leaves that block's flax counterpart owns:
   are;
 * ``CrossStitchLayer``: ``<path>/weights`` as it is.
 
+The task-axis blocks of MTAN's ``fold_tasks`` (``TaskConv``,
+``TaskBatchNorm``, ``TaskGateChain`` under ``*_folded``, flax's ``nn.vmap``
+over the tasks) have their one-task block's leaves, each with a leading
+task axis T, and each layout change above is applied task by task along
+it.
+
 It is strict: it raises on a missing leaf, a shape that does not fit, a
 leaf it did not consume, and a port parameter or buffer it did not fill.
 
@@ -38,7 +44,7 @@ from torch import nn
 
 from vision_mtl_tpu_torch.models.blocks import BatchNorm, Conv, ConvTranspose, RawBatchNorm
 from vision_mtl_tpu_torch.models.cross_stitch import CrossStitchLayer
-from vision_mtl_tpu_torch.models.mtan import GateChain
+from vision_mtl_tpu_torch.models.mtan import GateChain, TaskBatchNorm, TaskConv, TaskGateChain
 
 # layout of a leaf: (JAX -> port, port -> JAX)
 _LAYOUTS: t.Dict[str, t.Tuple[t.Callable[[np.ndarray], np.ndarray], ...]] = {
@@ -53,41 +59,58 @@ _LAYOUTS: t.Dict[str, t.Tuple[t.Callable[[np.ndarray], np.ndarray], ...]] = {
 }
 
 
+# the task-axis blocks of MTAN's fold_tasks: each has the leaves of its
+# one-task block, every leaf on a leading task axis
+_TASK_BLOCKS: t.Dict[type, type] = {
+    TaskConv: Conv, TaskBatchNorm: BatchNorm, TaskGateChain: GateChain,
+}
+
+
+def _layout(name: str, direction: int) -> t.Callable[[np.ndarray], np.ndarray]:
+    """The change of layout ``name`` (``task:<name>``: the same, task by task
+    along a leading axis); direction 0 is JAX -> port, 1 port -> JAX."""
+    if name.startswith("task:"):
+        per_task = _LAYOUTS[name[len("task:"):]][direction]
+        return lambda a: np.stack([per_task(part) for part in a])
+    return _LAYOUTS[name][direction]
+
+
 def _block_leaves(module: nn.Module, path: str) -> t.Optional[t.List[t.Tuple[str, str, str]]]:
     """(torch name, flax key, layout) for each tensor of a leaf block; None
     for a container, whose children carry the flax names."""
     path = f"{path}/" if path else ""
-    if isinstance(module, Conv):
+    kind = _TASK_BLOCKS.get(type(module), type(module))
+    if issubclass(kind, Conv):
         leaves = [("weight", f"params/{path}Conv_0/kernel", "conv")]
         if module.bias is not None:
             leaves.append(("bias", f"params/{path}Conv_0/bias", "same"))
         return leaves
-    if isinstance(module, RawBatchNorm):
+    if issubclass(kind, RawBatchNorm):
         return [
             ("weight", f"params/{path}scale", "same"),
             ("bias", f"params/{path}bias", "same"),
             ("running_mean", f"batch_stats/{path}mean", "same"),
             ("running_var", f"batch_stats/{path}var", "same"),
         ]
-    if isinstance(module, BatchNorm):
+    if issubclass(kind, BatchNorm):
         return [
             ("weight", f"params/{path}BatchNorm_0/scale", "same"),
             ("bias", f"params/{path}BatchNorm_0/bias", "same"),
             ("running_mean", f"batch_stats/{path}BatchNorm_0/mean", "same"),
             ("running_var", f"batch_stats/{path}BatchNorm_0/var", "same"),
         ]
-    if isinstance(module, ConvTranspose):
+    if issubclass(kind, ConvTranspose):
         return [
             ("weight", f"params/{path}kernel", "convt"),
             ("bias", f"params/{path}bias", "same"),
         ]
-    if isinstance(module, GateChain):
+    if issubclass(kind, GateChain):
         names = ("w1", "b1", "w2", "b2", "scale1", "bias1", "scale2", "bias2")
         stats = ("mean1", "var1", "mean2", "var2")
         return [(n, f"params/{path}{n}", "same") for n in names] + [
             (n, f"batch_stats/{path}{n}", "same") for n in stats
         ]
-    if isinstance(module, CrossStitchLayer):
+    if issubclass(kind, CrossStitchLayer):
         return [("weights", f"params/{path}weights", "same")]
     return None
 
@@ -103,7 +126,11 @@ def _leaves(model: nn.Module) -> t.List[t.Tuple[str, str, str]]:
             for name, child in module.named_children():
                 walk(child, f"{path}/{name}" if path else name, f"{torch_prefix}{name}.")
             return
-        out.extend((torch_prefix + name, key, layout) for name, key, layout in leaves)
+        tasked = type(module) in _TASK_BLOCKS
+        out.extend(
+            (torch_prefix + name, key, f"task:{layout}" if tasked else layout)
+            for name, key, layout in leaves
+        )
 
     walk(model, "", "")
     return out
@@ -134,7 +161,7 @@ def port_tensors(model: nn.Module, variables: t.Mapping[str, t.Any]) -> t.Dict[s
         if key not in flat:
             missing.append(key)
             continue
-        value = _LAYOUTS[layout][0](flat[key])
+        value = _layout(layout, 0)(flat[key])
         if tuple(value.shape) != tuple(state[torch_key].shape):
             raise ValueError(
                 f"{key}: shape {value.shape} (after layout change) does not "
@@ -181,7 +208,7 @@ def jax_variables_from_model(
     out: t.Dict[str, t.Any] = {}
     for torch_key, key, layout in leaves:
         value = (tensors or {}).get(torch_key, state[torch_key])
-        array = _LAYOUTS[layout][1](value.detach().cpu().numpy())
+        array = _layout(layout, 1)(value.detach().cpu().numpy())
         node = out
         *parents, leaf = key.split("/")
         for k in parents:
