@@ -30,6 +30,27 @@ train step; for a CLI run, what the loaders' lengths predict). Any
 mismatch or error ends the run with a non-zero exit; without a CUDA card
 it exits 2 and prints no result.
 
+The ``surface`` phase runs next, in process, at MTAN's full width on the
+``cli`` tree, its launch counters set to 0 at its start and read at its
+end (each of B1, B2, B3 and B4 must launch in it): ``training
+--do_optimize --n_trials 3 --num_epochs 1 --log_param_histograms_every 2
+--do_plot_preds`` (it must say that its trials run one after another on
+the card; each trial trains 3 epochs in a run dir of its own unless it is
+pruned; the tuned run carries the best trial's weights and is registered
+as ``mtan_tuned``; its launches are what the trials' epochs and the
+loaders' lengths predict); ``eval_harness --from_registry`` over the
+registry, which holds the ``cli`` phase's MTAN, basic and CSNet runs and
+the tuned one (the table equal to each run's own predict metrics, as for
+``--runs``); a ``Predictor(8)`` of the tuned model whose answer stays bit
+for bit the same across two bf16 train steps of that model, which stays
+in train mode, while a new ``Predictor`` answers otherwise;
+``utils.profiling.trace`` around two more train steps, whose Chrome trace
+must hold B4's and B2's kernels (run once more if it came back empty),
+timed by ``StepTimer``; ``get_segm_preds`` on the card against the CPU on
+the model's logits (probabilities to 1e-6, ids exact). matplotlib and
+tensorboard are optional: the phase prints which are installed, and where
+one is absent its sink is the JAX package's best-effort no-op.
+
 The ``nyuv2`` phase writes a NYUv2-layout tree under
 ``build/chip_smoke/nyuv2/`` (40 train and 16 test seeded triples at the
 dataset's 480x640: 8-bit RGB, 8-bit ids 0-13 and 16-bit depth in metres x
@@ -185,8 +206,9 @@ bare step's img/s of the training phase, the loader's img/s alone and with
 the copies to the card, and the card's idle share over one more epoch of
 the loop, from torch.profiler), the per-shape and per-call kernel lines at
 the NYUv2 shapes and the ``nyuv2`` line, the ``task_gate_shapes`` line,
-the ``interop`` and ``options`` lines, the ``kernels`` JSON line (each entry with its ``nyuv2`` numbers beside), the
-card's name and power limit. The last line is
+the ``interop`` and ``options`` lines, the ``timing`` line (the kernels'
+build and the whole run, in seconds), the ``kernels`` JSON line (each entry
+with its ``nyuv2`` numbers beside), the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -457,6 +479,11 @@ def expected(kernels, per: dict, n: int, **extra: int) -> dict:
     for name, k in extra.items():
         want[name] += k
     return want
+
+
+def counts_since(kernels, mark: dict) -> dict:
+    """Launches by kernel since ``mark`` (a ``launch_counts()``)."""
+    return {name: n - mark[name] for name, n in kernels.launch_counts().items()}
 
 
 def tf32_flops(n: int, cin: int, c2: int, x_bf16: bool, first_products: int = 1) -> float:
@@ -1509,6 +1536,261 @@ def cli_phase(cfg, kernels, dev, bare_steps: dict) -> tuple:
     return lines, launches, run_dirs
 
 
+class _Tee(io.StringIO):
+    """Keeps what is printed while passing it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self._out = out
+
+    def write(self, s: str) -> int:
+        self._out.write(s)
+        return super().write(s)
+
+
+SWEEP_TRIALS = 3
+
+
+def chrome_kernel_events(trace_dir: str) -> dict:
+    """Kernel launches by name in the Chrome traces under ``trace_dir``."""
+    names: dict = {}
+    for path in glob.glob(os.path.join(trace_dir, "*.json")):
+        with open(path) as f:
+            for e in json.load(f).get("traceEvents", []):
+                if e.get("cat") == "kernel":
+                    names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
+    """The rest of the training surface at full MTAN width on the ``cli``
+    phase's tree, in process, the launch counters set to 0 at its start and
+    read at its end: ``training --do_optimize`` (3 trials of 3 epochs, run
+    one after another on the card, then the tuned run for one epoch with
+    ``--log_param_histograms_every 2 --do_plot_preds``, registered as
+    ``mtan_tuned``); ``eval_harness --from_registry`` over the registry,
+    which holds the ``cli`` phase's three runs and the tuned one; a
+    ``Predictor`` of the tuned model held bit for bit across two train steps
+    of that model (it serves a snapshot); ``utils.profiling.trace`` around
+    two more train steps, whose Chrome trace must hold B4's and B2's
+    kernels, timed by ``StepTimer``; ``get_segm_preds`` on the card against
+    the CPU on the model's own logits. matplotlib and tensorboard are
+    optional: where one is absent the plot or histogram sink is a no-op, as
+    in JAX, and the line says so. Returns the ``surface`` line and its
+    launches."""
+    import importlib.util
+
+    from vision_mtl_tpu_torch import training, tuning
+    from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
+    from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.pipeline import load_run_model
+    from vision_mtl_tpu_torch.serving import Predictor
+    from vision_mtl_tpu_torch.tracking.artifacts import registered_runs, registry_path
+    from vision_mtl_tpu_torch.train.checkpoint import load_args
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+    from vision_mtl_tpu_torch.utils.inference import get_segm_preds
+    from vision_mtl_tpu_torch.utils.profiling import StepTimer, trace
+
+    present = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "tensorboard")}
+    sinks = {
+        "plots": "rendered" if present["matplotlib"] else
+                 "no matplotlib: each plot prints JAX's 'plot failed' and the run goes on",
+        "histograms": "written" if present["tensorboard"] else
+                      "no tensorboard: the logger has no TensorBoard writer, histograms are a no-op",
+    }
+    print(f"chip_smoke: surface: optional packages {present}", flush=True)
+    pipeline_cfg.log_root_dir = CLI_LOGS
+    registry = registry_path()
+    before = registered_runs("cityscapes", path=registry)
+    if {k: e["run_dir"] for k, e in before.items()} != cli_run_dirs:
+        fail(f"surface: the registry holds {before}, want the cli phase's runs {cli_run_dirs}")
+
+    trials, trial_dirs = [], []
+    real_run_trial, real_create_tools = tuning._run_trial, tuning.create_tools
+
+    def run_trial(args, data_cfg, weights, tag, epoch_callback=None):
+        rec = {"tag": tag, "weights": dict(weights), "epochs": 0}
+
+        def cb(epoch, val_metrics):
+            rec["epochs"] += 1
+            epoch_callback(epoch, val_metrics)
+
+        t0 = time.perf_counter()
+        try:
+            rec["score"] = real_run_trial(args, data_cfg, weights, tag, epoch_callback=cb)
+            return rec["score"]
+        except Exception as e:
+            rec["score"] = "pruned" if "Pruned" in type(e).__name__ else repr(e)
+            raise
+        finally:
+            rec["s"] = time.perf_counter() - t0
+            trials.append(rec)
+
+    def create_tools(args):
+        tools = real_create_tools(args)
+        trial_dirs.append(tools["logger"].log_dir)
+        return tools
+
+    argv = ["--dataset_name", "cityscapes", "--data_dir", CLI_DATA, "--batch_size", str(BATCH),
+            "--num_workers", "4", "--lr", str(LR), "--model_name", "mtan", "--do_optimize",
+            "--n_trials", str(SWEEP_TRIALS), "--num_epochs", "1",
+            "--log_param_histograms_every", "2", "--do_plot_preds"]
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    tuning._run_trial, tuning.create_tools = run_trial, create_tools
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout)) as printed:
+            run_dir = training.main(argv)
+    finally:
+        tuning._run_trial, tuning.create_tools = real_run_trial, real_create_tools
+    sweep_s = time.perf_counter() - t_phase
+    sweep_counts = kernels.launch_counts()
+    out = printed.getvalue()
+    if "n_jobs=2 ignored on cuda: trials share one device queue; running serially" not in out:
+        fail("surface: the sweep did not say that its trials run one after another")
+    if len(trials) != SWEEP_TRIALS or len(set(trial_dirs)) != SWEEP_TRIALS \
+            or run_dir in trial_dirs:
+        fail(f"surface: trials {trials} in run dirs {trial_dirs}, tuned run {run_dir}")
+    completed = [t for t in trials if t["score"] != "pruned"]
+    if len(completed) < 2 or any(t["epochs"] != 3 for t in completed) \
+            or any(not isinstance(t["score"], float) or not np.isfinite(t["score"])
+                   for t in completed):
+        fail(f"surface: trials {trials}")
+    best = max(completed, key=lambda t: t["score"])
+    run_args = {k: v for k, v in vars(load_args(os.path.join(run_dir, "train_args.yaml"))).items()
+                if k in ("loss_segm_weight", "loss_depth_weight", "exp_tags")}
+    if run_args != {**best["weights"], "exp_tags": ["best_trial"]}:
+        fail(f"surface: the tuned run's args {run_args}, the best trial {best}")
+    registered = registered_runs("cityscapes", path=registry)
+    if registered.get("mtan_tuned", {}).get("run_dir") != run_dir:
+        fail(f"surface: mtan_tuned is not registered as {run_dir}: {registered}")
+    dm = MTLDataModule("cityscapes", batch_size=BATCH, train_transform=cfg.train_transform,
+                       test_transform=cfg.test_transform)
+    dm.setup()
+    n_train, n_val, n_pred = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.predict_dataloader()))
+    # every epoch of a trial and of the tuned run: its train steps, its val
+    # forwards and, where the tree has a benchmark batch, its plot forward
+    epochs = sum(t["epochs"] for t in trials) + 1
+    bench = 0 if dm.benchmark_batch is None else epochs
+    want = expected(kernels, PER_TRAIN_STEP["mtan"], epochs * n_train,
+                    confusion_matrix=epochs * n_val + n_pred)
+    for k, v in PER_FORWARD["mtan"].items():
+        want[k] += v * (epochs * n_val + n_pred + bench)
+    if sweep_counts != want:
+        fail(f"surface sweep: launches {sweep_counts}, want {want} ({epochs} epochs of {n_train} "
+             f"train and {n_val} val steps, {bench} benchmark forwards, {n_pred} predict steps)")
+    plot_failures = out.count("plot failed:")
+    if present["matplotlib"] and plot_failures:
+        fail(f"surface: matplotlib is present but {plot_failures} plots failed")
+
+    # the harness over the registry: the cli phase's three runs and the tuned one
+    harness_runs = {**cli_run_dirs, "mtan_tuned": run_dir}
+    harness = harness_check("cityscapes", harness_runs, CLI_DATA, CLI_SAMPLES["val"], BATCH,
+                            kernels, dev, kinds={"mtan_tuned": "mtan"}, registry=registry)
+
+    # C3: a Predictor serves a snapshot; two bf16 train steps on its module
+    # leave its answers bit for bit
+    mark = kernels.launch_counts()
+    model, _, _ = load_run_model(run_dir, dev)
+    imgs = np.random.default_rng(4).integers(0, 256, size=(BATCH, cfg.height, cfg.width, 3),
+                                             dtype=np.uint8)
+    pred = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)
+    answer = pred(imgs)
+    state = create_train_state(model, LR, device=dev)
+    step = make_train_step(device=dev)
+    mstate = init_metrics(cfg.num_classes, dev)
+    batches = train_batches(cfg, 4, BATCH, seed=21)
+    for batch in batches[:2]:
+        state, mstate, losses = step(state, batch, mstate)
+    again = pred(imgs)
+    same = all(np.array_equal(again[k], answer[k]) for k in answer)
+    if not same or not model.training or pred.model.training:
+        fail(f"surface C3: the predictor's answer changed ({not same}) or a mode moved (module "
+             f"training {model.training}, snapshot training {pred.model.training})")
+    fresh = Predictor(model.eval(), BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)(imgs)
+    model.train()
+    if np.array_equal(fresh["depth"], answer["depth"]):
+        fail("surface C3: a new Predictor on the trained module answers as the snapshot")
+    c3_counts = counts_since(kernels, mark)
+    want = expected(kernels, PER_TRAIN_STEP["mtan"], 2)
+    for k, v in PER_FORWARD["mtan"].items():
+        want[k] += 3 * v
+    if c3_counts != want:
+        fail(f"surface C3: launches {c3_counts}, want {want}")
+
+    # two train steps under utils.profiling.trace, timed by StepTimer
+    trace_dir = os.path.join(CLI_LOGS, "surface_trace")
+    trace_runs = []
+    mark = kernels.launch_counts()
+    for attempt in range(2):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        timer = StepTimer()
+        with trace(trace_dir):
+            torch.cuda.synchronize()
+            timer.tick(0)
+            for batch in batches[2:]:
+                state, mstate, losses = step(state, batch, mstate)
+                torch.cuda.synchronize()
+                timer.tick(BATCH)
+        events = chrome_kernel_events(trace_dir)
+        trace_runs.append({"kernel_events": sum(events.values()),
+                           "img_per_s": timer.images_per_sec})
+        if events:
+            break
+    b4 = sum(n for name, n in events.items() if "gate_train_kernel" in name)
+    b2 = sum(n for name, n in events.items() if "confmat_kernel" in name)
+    if not b4 or not b2:
+        fail(f"surface: the Chrome trace holds {b4} B4 and {b2} B2 kernels; saw {sorted(events)}")
+    trace_counts = counts_since(kernels, mark)
+    if trace_counts != expected(kernels, PER_TRAIN_STEP["mtan"], 2 * len(trace_runs)):
+        fail(f"surface trace: launches {trace_counts} for {2 * len(trace_runs)} train steps")
+
+    # get_segm_preds on the card against the CPU, on the model's logits
+    mark = kernels.launch_counts()
+    with torch.inference_mode():
+        logits = model.eval()(torch.from_numpy(imgs).to(dev).float() / 255.0)["segm"]
+    valid = torch.from_numpy(np.random.default_rng(5).uniform(size=logits.shape[:3]) > 0.2)
+    probs, preds = get_segm_preds(valid.to(dev), logits)
+    want_probs, want_preds = get_segm_preds(valid, logits.cpu())
+    probs_err = (probs.cpu() - want_probs).abs().max().item()
+    if probs.device != logits.device or probs_err > 1e-6 or not torch.equal(preds.cpu(), want_preds):
+        fail(f"surface get_segm_preds: probs off the CPU by {probs_err}, ids equal "
+             f"{torch.equal(preds.cpu(), want_preds)}")
+    if counts_since(kernels, mark) != expected(kernels, PER_FORWARD["mtan"], 1):
+        fail("surface get_segm_preds: the forward's launches")
+    counts = kernels.launch_counts()
+    phase_s = time.perf_counter() - t_phase
+    for name in ("fused_attention_gate", "fused_attention_gate_train", "confusion_matrix",
+                 "conv3x3_small"):
+        if counts[name] == 0:
+            fail(f"surface: {name} was never launched in the phase")
+    del model, pred, state, step
+    line = {
+        "config": "cityscapes 128x256, 19 classes, bf16, batch 8, MTAN", "s": phase_s,
+        "optional_packages": present, "sinks": sinks, "plot_failures_printed": plot_failures,
+        "launches": counts,
+        "sweep": {"argv": argv, "s": sweep_s, "serial_trials": True, "launches": sweep_counts,
+                  "trials": [{k: t[k] for k in ("tag", "weights", "score", "epochs", "s")}
+                             for t in trials],
+                  "trial_run_dirs": trial_dirs, "tuned_run_dir": run_dir,
+                  "tuned_args": run_args, "registered": {k: e["run_dir"]
+                                                         for k, e in registered.items()}},
+        "harness": {k: harness[k] for k in ("table", "cells_equal", "cells", "wall_s",
+                                            "launches")},
+        "c3": {"answer_equal_after_2_train_steps": True, "module_training": True,
+               "new_predictor_differs": True, "launches": c3_counts},
+        "trace": {"attempts": trace_runs, "gate_train_kernel_events": b4,
+                  "confmat_kernel_events": b2, "launches": trace_counts},
+        "get_segm_preds": {"shape": list(logits.shape), "probs_max_abs_err_vs_cpu": probs_err,
+                           "preds_equal": True},
+    }
+    return line, counts
+
+
 def write_png(path: str, arr: np.ndarray, level: int = 6) -> None:
     """A PNG of a uint8 (H, W) or (H, W, 3) array, or a uint16 (H, W) one
     (16-bit big-endian gray), with the standard library alone (the port
@@ -1776,24 +2058,28 @@ def preemption_drill(kernels, n_train: int, n_val: int, n_pred: int) -> dict:
 
 
 def harness_check(dataset: str, runs: dict, data_dir: str, n_holdout: int, batch: int, kernels,
-                  dev) -> dict:
+                  dev, kinds: dict = None, registry: str = None) -> dict:
     """``python -m vision_mtl_tpu_torch.eval_harness --runs`` (in process) on
-    run dirs the phases wrote: its table must equal the table of each run's
-    own predict metrics (metrics.jsonl), rounded as the table rounds, up to
-    one unit of the third decimal where the two sums round to either side
-    (the harness rebuilds the model from its checkpoint, in another process
-    than the drill's runs); the launches are the predict sweeps'."""
+    run dirs the phases wrote (``runs``, tag to run dir; a tag names its
+    model's launches per forward, or ``kinds`` does), or with ``registry``
+    ``--from_registry`` on that registry, which must hold ``runs``: its
+    table must equal the table of each run's own predict metrics
+    (metrics.jsonl), rounded as the table rounds, up to one unit of the
+    third decimal where the two sums round to either side (the harness
+    rebuilds the model from its checkpoint, in another process than the
+    drill's runs); the launches are the predict sweeps'."""
     from vision_mtl_tpu_torch import eval_harness
 
     out_csv = os.path.join(os.path.dirname(NYU_DATA), f"harness_{dataset}.csv")
-    kernels.reset_launch_counts()
+    selection = (["--from_registry", "--registry", registry] if registry else
+                 ["--runs", *(f"{m}={d}" for m, d in runs.items())])
+    mark = kernels.launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         eval_harness.main(["--dataset_name", dataset, "--data_dir", data_dir, "--batch_size",
-                           str(batch), "--out", out_csv, "--device", str(dev),
-                           "--runs", *(f"{m}={d}" for m, d in runs.items())])
+                           str(batch), "--out", out_csv, "--device", str(dev), *selection])
     wall_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = counts_since(kernels, mark)
     loop_metrics = {}
     for model, run_dir in runs.items():
         records = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
@@ -1808,8 +2094,8 @@ def harness_check(dataset: str, runs: dict, data_dir: str, n_holdout: int, batch
         fail(f"eval_harness {dataset}: table {got}, the loops' predict metrics {want}")
     n_pred = -(-n_holdout // batch)
     want_counts = expected(kernels, {}, 0, confusion_matrix=n_pred * len(runs))
-    for model in runs:
-        for k, v in PER_FORWARD[model].items():
+    for tag in runs:
+        for k, v in PER_FORWARD[(kinds or {}).get(tag, tag)].items():
             want_counts[k] += v * n_pred
     if counts != want_counts:
         fail(f"eval_harness {dataset}: launches {counts}, want {want_counts}")
@@ -2885,12 +3171,14 @@ def main(argv: list) -> int:
         "mtan": mtan_training["img_per_s"], "basic": basic_training["img_per_s"],
         "csnet": csnet_training["img_per_s"],
     })
+    surface_line, surface_launches = surface_phase(cfg, kernels, dev, cli_run_dirs)
+    print(json.dumps({"surface": surface_line}), flush=True)
     nyu_line, nyu_launches, nyu_ids = nyuv2_phase(
         kernels, dev, build_model, {k: cli_run_dirs[k] for k in ("mtan", "basic")})
     interop_line, interop_launches = interop_phase(cfg, kernels, dev, build_model, fused_gate)
     options_line, task_gates, options_launches = options_phase(
         cfg, kernels, dev, build_model, fused_gate, fused_gate_train)
-    phases = cli_launches + nyu_launches + interop_launches + options_launches + [
+    phases = cli_launches + [surface_launches] + nyu_launches + interop_launches + options_launches + [
         # every main-path run's launches
         serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
         mtan_training["launches"], mtan_training["eval_step"]["launches"],
@@ -3058,6 +3346,9 @@ def main(argv: list) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], k["nyuv2"]["max_abs_err"])
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on the main path")
+    # the whole run's seconds, the kernels' build included
+    print(json.dumps({"timing": {"build_s": build_s, "total_s": time.perf_counter() - t_start}}),
+          flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

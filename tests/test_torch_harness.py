@@ -1,6 +1,7 @@
 """The port's evaluation harness on the CPU: its table, CSV and baseline
-deltas equal the JAX package's (pandas) on the same results, and
-``evaluate_run`` on a port run dir gives the predict sweep's metrics."""
+deltas equal the JAX package's (pandas) on the same results,
+``evaluate_run`` on a port run dir gives the predict sweep's metrics, and
+``--from_registry`` refuses an empty registry and a JAX checkpoint."""
 
 import math
 import sys
@@ -111,8 +112,32 @@ def test_evaluate_run_equals_predict(tmp_path, monkeypatch, capsys):
     table = eval_harness.build_table({"seeded": got})
     assert out_csv.read_text().splitlines()[0] == ",seeded"
     assert eval_harness.format_table(table) in out
-    with pytest.raises(SystemExit, match=r"ROADMAP\.md A9"):
-        eval_harness.main(["--from_registry", "--device", "cpu"])
+    empty = str(tmp_path / "run_registry.json")
+    with pytest.raises(SystemExit) as e:
+        eval_harness.main(["--from_registry", "--registry", empty, "--dataset_name", "synthetic",
+                           "--device", "cpu"])
+    assert e.value.code == (
+        "no registered runs for dataset 'synthetic' — train something first (training.main "
+        "registers runs on completion) or pass --runs explicitly.")
     with pytest.raises(SystemExit, match="duplicate tag"):
         eval_harness.main(["--device", "cpu", "--dataset_name", "synthetic",
                            "--runs", f"basic={run_dir}", f"basic={run_dir}"])
+
+
+def test_from_registry_refuses_a_jax_checkpoint(tmp_path, capsys):
+    """A registered run dir (registered by the JAX package) whose
+    ``model_{e}/`` directories are Orbax checkpoints, with no ``model.pt``,
+    stops the harness before any run loads, naming the directory."""
+    from vision_mtl_tpu.tracking import artifacts as jax_artifacts
+
+    run = tmp_path / "jax_run"
+    (run / "model_3" / "d").mkdir(parents=True)
+    (run / "model_3" / "manifest.ocdbt").write_bytes(b"")
+    (run / "session_3").mkdir()
+    registry = str(tmp_path / "run_registry.json")
+    jax_artifacts.register_run("mtan", "synthetic", str(run), path=registry)
+    with pytest.raises(SystemExit) as e:
+        eval_harness.main(["--from_registry", "--registry", registry, "--dataset_name",
+                           "synthetic", "--device", "cpu"])
+    assert str(e.value.code).startswith(f"{run}: a JAX (Orbax) checkpoint")
+    assert "Evaluating" not in capsys.readouterr().out

@@ -46,7 +46,9 @@ def test_port_imports_nothing_of_jax():
                  "train.loop", "train.checkpoint", "train.plateau", "tracking.logger",
                  "utils.args", "pipeline", "training", "data.native", "data.nyuv2",
                  "data.nyu_cache", "train.preempt", "utils.io", "eval_harness",
-                 "utils.ckpt_import", "utils.torch_port", "export_torch_ckpt"):
+                 "utils.ckpt_import", "utils.torch_port", "export_torch_ckpt", "tuning", "vis",
+                 "tracking.comet", "tracking.artifacts", "utils.inference", "utils.profiling",
+                 "utils.debug"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""

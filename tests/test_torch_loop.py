@@ -1,9 +1,10 @@
 """The port's training loop, checkpoints and CLI on the CPU: ``run_pipe``
 against the JAX package's on a tiny f32 MTAN, exact resume, the
 ``train_args.yaml`` format, ``training.main`` and ``serve --run_dir`` at the
-full MTAN width on a tiny synthetic set, the refusal of unported flags, and
-the model options the CLI passes to the registry, the six model option
-flags among them."""
+full MTAN width on a tiny synthetic set, the refusal of unported flags, the
+sweep, plotting and histogram flags reaching their features, and the model
+options the CLI passes to the registry, the six model option flags among
+them."""
 
 import argparse
 import io
@@ -307,6 +308,93 @@ def test_unported_flags_exit_naming_their_roadmap_item(flag, monkeypatch):
     monkeypatch.setattr(training, "create_tools", None)  # nothing may be set up
     with pytest.raises(SystemExit, match=r"ROADMAP\.md A\d+"):
         training.main(argv + ["--dataset_name", "synthetic"])
+
+
+# the flags ported with the tuning, tracking and plotting modules: their
+# argv beside the tiny CLI run's
+SURFACE_FLAGS = {
+    "do_optimize": ["--do_optimize"],
+    "do_plot_preds": ["--do_plot_preds"],
+    "do_show_preds": ["--do_show_preds", "--do_plot_preds"],
+    "log_param_histograms_every": ["--log_param_histograms_every", "1"],
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SURFACE_FLAGS))
+def test_surface_flags_reach_their_feature(flag, tiny_synthetic, tmp_path, monkeypatch, capsys):
+    """Each flag that was refused until its module was ported is accepted
+    by ``training.main`` and reaches its feature in a one-epoch tiny run:
+    the sweep's best weights train the run registered as ``mtan_tuned``
+    (the sweep itself is stubbed here; tests/test_torch_tuning.py runs a
+    real one); the benchmark batch and every predict batch are plotted;
+    the plots are shown; every step logs one histogram per parameter under
+    its JAX path."""
+    from vision_mtl_tpu_torch import tuning, vis
+
+    monkeypatch.setattr(cfg, "log_root_dir", tmp_path)
+    seen = {"plots": 0, "shown": 0, "histograms": [], "study": []}
+    real_plot = vis.plot_preds
+
+    def plot(*args, **kwargs):
+        seen["plots"] += 1
+        return real_plot(*args, **kwargs)
+
+    def study(args, data_cfg):
+        seen["study"].append(args.num_epochs)
+        return {"loss_segm_weight": 0.25, "loss_depth_weight": 0.75}
+
+    class Writer:
+        def __init__(self, log_dir):
+            pass
+
+        def add_scalar(self, *a):
+            pass
+
+        def add_histogram(self, tag, values, step):
+            seen["histograms"].append((tag, step))
+
+        def close(self):
+            pass
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard",
+                        argparse.Namespace(SummaryWriter=Writer))
+    monkeypatch.setattr(vis, "plot_preds", plot)
+    monkeypatch.setattr(tuning, "run_study", study)
+    import matplotlib.pyplot as plt
+
+    monkeypatch.setattr(plt, "show", lambda: seen.__setitem__("shown", seen["shown"] + 1))
+    run_dir = training.main(["--device", "cpu", "--dataset_name", "synthetic", "--model_name",
+                             "mtan", "--batch_size", "4", "--num_epochs", "1"]
+                            + SURFACE_FLAGS[flag])
+    out = capsys.readouterr().out
+    assert "plot failed" not in out and os.path.exists(os.path.join(run_dir, "model_0"))
+    plotted = flag in ("do_plot_preds", "do_show_preds")
+    # the benchmark batch after the epoch, then the predict sweep's one batch
+    assert seen["plots"] == (2 if plotted else 0)
+    assert seen["shown"] == (2 if flag == "do_show_preds" else 0)
+    assert seen["study"] == ([1] if flag == "do_optimize" else [])
+    key = "mtan_tuned" if flag == "do_optimize" else "mtan"
+    assert f"Registered run {key!r}" in out
+    run_args = checkpoint.load_args(os.path.join(run_dir, "train_args.yaml"))
+    if flag == "do_optimize":
+        assert (run_args.loss_segm_weight, run_args.loss_depth_weight) == (0.25, 0.75)
+        assert run_args.exp_tags == ["best_trial"]
+    tags = sorted({tag for tag, _ in seen["histograms"]})
+    if flag == "log_param_histograms_every":
+        model = model_from_args(run_args, fetch_data_cfg("synthetic"), "cpu")
+        params = jax_variables_from_model(model)["params"]
+        want = sorted("/".join(path) for path in _paths(params))
+        assert tags == want and len(seen["histograms"]) == 2 * len(want)
+    else:
+        assert tags == []
+
+
+def _paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
 
 
 def test_cli_model_options_reach_the_registry():

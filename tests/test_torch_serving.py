@@ -26,7 +26,11 @@ from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
 from vision_mtl_tpu_torch.predict import predict
 from vision_mtl_tpu_torch.serving import BatchingServer, Predictor, latency_bench
 from vision_mtl_tpu_torch.train.state import create_train_state as torch_create_train_state
-from vision_mtl_tpu_torch.train.step import make_predict_eval_step, make_predict_step
+from vision_mtl_tpu_torch.train.step import (
+    make_predict_eval_step,
+    make_predict_step,
+    make_train_step,
+)
 from vision_mtl_tpu_torch.weights import load_jax_variables
 
 TASKS = {"depth": 1, "segm": 5}
@@ -265,3 +269,32 @@ def test_serve_cli_run_dir_not_ported():
         serve.main(["--run_dir", "some/run"])
     with pytest.raises(SystemExit):
         serve.main([])  # neither --run_dir nor --demo
+
+
+def test_predictor_serves_a_snapshot(models, rng):
+    """A ``Predictor`` answers from the weights its module had at
+    construction: two train steps on that module later leave its answers
+    bit for bit as they were, its calls leave the module's mode alone, and
+    a new ``Predictor`` on the trained module answers otherwise; a
+    ``BatchingServer``'s buckets share one snapshot."""
+    _, _, model = models
+    module = copy.deepcopy(model).eval()
+    imgs = _eval_batch(rng, n=2)["img"]
+    pred = Predictor(module, 2, H, W, dtype=np.uint8, device="cpu")
+    before = pred(imgs)
+    state = torch_create_train_state(module, 1e-2, device="cpu")
+    step = make_train_step(device="cpu")
+    mstate = metrics.init_metrics(TASKS["segm"], device="cpu")
+    for _ in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in _eval_batch(rng).items()}
+        state, mstate, _ = step(state, batch, mstate)
+    assert module.training
+    after = pred(imgs)
+    assert module.training and pred.model is not module and not pred.model.training
+    for k in ("segm", "depth"):
+        np.testing.assert_array_equal(after[k], before[k])
+    fresh = Predictor(module.eval(), 2, H, W, dtype=np.uint8, device="cpu")(imgs)
+    assert not np.array_equal(fresh["depth"], before["depth"])
+    with BatchingServer(module, H, W, buckets=(1, 2), device="cpu") as server:
+        snapshots = {id(p.model) for p in server._predictors.values()}
+        assert len(snapshots) == 1 and id(module) not in snapshots

@@ -4,7 +4,8 @@ The dataset configs carry the fields the data pipeline, the models and the
 CLI read, with the JAX package's names and defaults. They are mutable
 singletons: the CLI points ``data_dir`` at another tree, and the datasets
 read their config when they are built, not when they are imported.
-``cfg`` is the pipeline singleton (seed, run-dir root).
+``cfg`` is the pipeline singleton (seed, run-dir root, the comet
+credentials and the masks' palette).
 """
 
 from __future__ import annotations
@@ -15,7 +16,63 @@ import os
 import typing as t
 from pathlib import Path
 
+import numpy as np
+
 root_dir = Path(__file__).parent
+
+
+def _load_dotenv(path: Path) -> None:
+    """``KEY=value`` lines of an optional ``.env`` file (the comet
+    credentials) into the environment, without overriding it; matching
+    quotes around a value are stripped."""
+    if not path.exists():
+        return
+    for line in path.read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        k, v = line.split("=", 1)
+        v = v.strip()
+        if len(v) >= 2 and v[0] == v[-1] and v[0] in "\"'":
+            v = v[1:-1]
+        os.environ.setdefault(k.strip(), v)
+
+
+_load_dotenv(root_dir / ".env")
+
+
+@dataclasses.dataclass
+class LoggerConfig:
+    """Comet credentials from the environment; tracking is disabled
+    without them."""
+
+    api_key: t.Optional[str] = dataclasses.field(
+        default_factory=lambda: os.environ.get("comet_api_key")
+    )
+    username: t.Optional[str] = dataclasses.field(
+        default_factory=lambda: os.environ.get("comet_username")
+    )
+    project_name: str = "vision-mtl"
+    disabled: bool = dataclasses.field(init=False)
+
+    def __post_init__(self) -> None:
+        self.disabled = self.api_key is None or self.username is None
+
+
+@dataclasses.dataclass
+class VisConfig:
+    # the 20-colour RGB palette of the mask overlays
+    rgb_palette: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array(
+            [
+                [63, 171, 212], [109, 137, 117], [24, 83, 42], [148, 77, 185],
+                [122, 139, 58], [32, 126, 85], [17, 164, 215], [124, 39, 146],
+                [161, 239, 20], [40, 81, 119], [149, 34, 38], [166, 224, 205],
+                [134, 100, 230], [123, 157, 137], [11, 5, 225], [60, 84, 80],
+                [173, 186, 12], [199, 91, 22], [170, 124, 184], [119, 102, 69],
+            ]
+        )
+    )
 
 
 @dataclasses.dataclass
@@ -116,6 +173,9 @@ class NYUv2Config(DataConfig):
 
 @dataclasses.dataclass
 class PipelineConfig:
+    logger: LoggerConfig = dataclasses.field(default_factory=LoggerConfig)
+    vis: VisConfig = dataclasses.field(default_factory=VisConfig)
+
     seed: int = 11
 
     # run-dir root; VMTL_LOG_ROOT redirects it
@@ -126,8 +186,11 @@ class PipelineConfig:
     )
 
     def update_fields_with_args(self, args: argparse.Namespace) -> None:
-        """Copy the parsed CLI args that name a field of this config."""
+        """Copy the parsed CLI args that name a field of this config (not
+        its sections)."""
         for k, v in vars(args).items():
+            if k in ("logger", "vis"):
+                continue
             if hasattr(self, k):
                 setattr(self, k, v)
 

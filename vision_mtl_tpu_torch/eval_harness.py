@@ -6,13 +6,17 @@ write as CSV, a table of the metrics rounded to 3 decimals.
     python -m vision_mtl_tpu_torch.eval_harness --dataset_name nyuv2 \\
         --runs basic=/path/to/run_dir mtan:tuned=/path/to/run_dir2 \\
         [--data_dir DIR] [--out metrics.csv] [--compare_baseline]
+    python -m vision_mtl_tpu_torch.eval_harness --dataset_name cityscapes \
+        --from_registry [--registry PATH]
 
 Each ``--runs`` entry is ``{model_name}[:tag]={run_dir}``: the run
 directory holding ``model_{epoch}`` checkpoints (the newest is taken) and
 ``train_args.yaml``, from which the architecture is rebuilt. The table is
 a dict of dicts, ``table[metric][tag]``, its rows in ``METRIC_ORDER``.
-The registry of finished runs (``--from_registry``) waits for ROADMAP.md
-A9. It runs on the card; ``--device cpu`` runs it on the CPU.
+``--from_registry`` evaluates every run of the dataset in the run registry
+(``tracking/artifacts.py``), which the training CLI fills, each under its
+key. A run dir of the JAX package (Orbax checkpoints) is refused by name.
+It runs on the card; ``--device cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import argparse
 import csv
 import math
 import os
+import re
 import typing as t
 
 import numpy as np
@@ -112,6 +117,26 @@ def evaluate_run(
     finally:
         data_cfg.data_dir = saved_dir
     return {k.replace("predict/", ""): v for k, v in metrics.items()}
+
+
+def _refuse_jax_checkpoint(run_dir: str) -> None:
+    """SystemExit when ``run_dir``'s checkpoints are all the JAX package's:
+    ``model_{e}/`` directories without the port's ``model.pt`` (Orbax),
+    and no reference ``model_{e}.pt``."""
+    if not os.path.isdir(run_dir):
+        return
+    from vision_mtl_tpu_torch.train.checkpoint import MODEL_FILE, _epochs
+
+    dirs = [os.path.join(run_dir, f"model_{e}") for e in _epochs(run_dir, "model")]
+    dirs = [d for d in dirs if os.path.isdir(d)]
+    reference = [f for f in os.listdir(run_dir) if re.fullmatch(r"model_\d+\.pt", f)]
+    if dirs and not reference and not any(
+            os.path.exists(os.path.join(d, MODEL_FILE)) for d in dirs):
+        raise SystemExit(
+            f"{run_dir}: a JAX (Orbax) checkpoint — its model_{{epoch}}/ directories hold no "
+            f"{MODEL_FILE}; the port reads its own run dirs and the reference's model_{{epoch}}.pt"
+            ", not Orbax. Evaluate it with vision_mtl_tpu.eval_harness."
+        )
 
 
 def _round3(v: float) -> float:
@@ -235,7 +260,10 @@ def main(argv: t.Optional[t.Sequence[str]] = None) -> None:
     p.add_argument("--runs", nargs="+", default=None,
                    help="entries like model_name[:tag]=run_dir")
     p.add_argument("--from_registry", action="store_true",
-                   help="every registered run of --dataset_name (not ported yet)")
+                   help="evaluate every registered run for --dataset_name (the local registry "
+                   "training runs publish to; tracking/artifacts.py)")
+    p.add_argument("--registry", default=None,
+                   help="registry file override (default: {log_root}/run_registry.json)")
     p.add_argument("--data_dir", default=None,
                    help="the dataset's directory (default: its config's)")
     p.add_argument("--out", default=None, help="CSV output path")
@@ -243,21 +271,30 @@ def main(argv: t.Optional[t.Sequence[str]] = None) -> None:
                    help="also print deltas against the reference README's validation "
                    "tables; meaningful only on the real Cityscapes or NYUv2 data")
     args = p.parse_args(argv)
-    if args.from_registry:
-        raise SystemExit(
-            "--from_registry: the registry of finished runs (tracking/artifacts.py) is not "
-            "ported to vision_mtl_tpu_torch yet, see ROADMAP.md A9; pass --runs"
-        )
-    if not args.runs:
+    if bool(args.runs) == bool(args.from_registry):
         raise SystemExit("pass exactly one of --runs / --from_registry")
     device = resolve_device(args.device)
     fetch_data_cfg(args.dataset_name)  # an unknown dataset fails before any run loads
 
     todo: t.List[t.Tuple[str, str, str]] = []  # (tag, model_name, run_dir)
-    for entry in args.runs:
-        spec, _, ckpt_dir = entry.partition("=")
-        model_name, _, tag = spec.partition(":")
-        todo.append((tag or model_name, model_name, ckpt_dir))
+    if args.from_registry:
+        from vision_mtl_tpu_torch.tracking.artifacts import registered_runs
+
+        entries = registered_runs(args.dataset_name, path=args.registry)
+        if not entries:
+            raise SystemExit(
+                f"no registered runs for dataset {args.dataset_name!r} — "
+                f"train something first (training.main registers runs on "
+                f"completion) or pass --runs explicitly."
+            )
+        todo = [(tag, e["model_name"], e["run_dir"]) for tag, e in entries.items()]
+    else:
+        for entry in args.runs:
+            spec, _, ckpt_dir = entry.partition("=")
+            model_name, _, tag = spec.partition(":")
+            todo.append((tag or model_name, model_name, ckpt_dir))
+    for _, _, ckpt_dir in todo:  # before any run loads
+        _refuse_jax_checkpoint(ckpt_dir)
 
     results: t.Dict[str, t.Dict[str, float]] = {}
     for tag, model_name, ckpt_dir in todo:

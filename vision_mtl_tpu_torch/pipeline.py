@@ -1,7 +1,7 @@
 """Pipeline factories (counterpart of ``vision_mtl_tpu/pipeline.py``): the
 model and train state from the CLI args, the datamodule, and the run's
-metrics logger and ``train_args.yaml``. Experiment tracking waits for a
-later slice (ROADMAP.md A9), so ``exp`` is always None."""
+tools: its comet experiment (a falsy ``NullExperiment`` when tracking is
+off), its metrics logger and ``train_args.yaml``."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
 from vision_mtl_tpu_torch.models.blocks import set_torch_bn_running_var
 from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.tracking import MetricsLogger
+from vision_mtl_tpu_torch.tracking.comet import create_tracking_exp, log_params_to_exp
 from vision_mtl_tpu_torch.train.checkpoint import (
     _maybe_reference_torch_ckpt,
     load_args,
@@ -100,15 +101,23 @@ def create_main_components(
 
 
 def create_tools(args: argparse.Namespace) -> t.Dict[str, t.Any]:
-    """The metrics logger, whose run dir ``{log_root}/training-{model}[/
-    {run_name}]/version_N`` also receives ``train_args.yaml`` and the
-    checkpoints."""
+    """The comet experiment and the metrics logger, whose run dir
+    ``{log_root}/training-{model}[/{run_name}]/version_N`` also receives
+    ``train_args.yaml`` and the checkpoints. A live experiment names the
+    run (``args.run_name``) and gets the args and the tags (model, dataset,
+    ``--exp_tags``)."""
+    exp = create_tracking_exp(args)
+    if not args.exp_disabled and exp:
+        args.run_name = exp.name
+    log_params_to_exp(exp, vars(args), "args")
+    if exp:
+        exp.add_tags([args.model_name, args.dataset_name] + args.exp_tags)
     log_subdir_name = f"training-{args.model_name}"
     if args.run_name:
         log_subdir_name += f"/{args.run_name}"
     logger = MetricsLogger(str(cfg.log_root_dir), log_subdir_name)
-    log_args(args, f"{logger.log_dir}/train_args.yaml")
-    return {"exp": None, "logger": logger}
+    log_args(args, f"{logger.log_dir}/train_args.yaml", exp=exp)
+    return {"exp": exp, "logger": logger}
 
 
 def load_run_model(

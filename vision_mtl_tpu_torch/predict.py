@@ -1,7 +1,9 @@
 """Inference/eval sweep (counterpart of ``vision_mtl_tpu/predict.py``):
 run the predict-eval step over batches, collect per-batch
-``{"segm","depth"}`` predictions, and accumulate predict-stage metrics when
-the batches carry ground truth; ``save_preds`` writes the predictions."""
+``{"segm","depth"}`` predictions, accumulate predict-stage metrics when
+the batches carry ground truth, and optionally plot each batch's
+predictions (``vis.plot_preds``) to the experiment; ``save_preds`` writes
+the predictions."""
 
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ def predict(
     batches: t.Iterable[t.Mapping[str, np.ndarray]],
     model: nn.Module,
     num_classes: int,
+    do_plot_preds: bool = False,
+    exp: t.Any = None,
+    do_show_preds: bool = False,
     loss_segm_weight: float = 1.0,
     loss_depth_weight: float = 1.0,
     device: t.Union[str, torch.device] = "cuda",
@@ -32,7 +37,9 @@ def predict(
     uint16, "valid" (B,) 0/1 weights of a padded final batch. Predictions of
     padded rows are dropped. Without ground truth the metrics are ``{}``.
     Batches reach the device through ``prefetch_to_device`` (two in
-    flight).
+    flight). With ``do_plot_preds`` each batch's plot goes to ``exp`` (and
+    to the screen with ``do_show_preds``); a failed plot is printed and the
+    sweep goes on.
     """
     dev = resolve_device(device)
     step = make_predict_eval_step(
@@ -47,6 +54,24 @@ def predict(
             n_valid = int(batch["valid"].sum())
             host_preds = {k: v[:n_valid] for k, v in host_preds.items()}
         preds.append(host_preds)
+        if do_plot_preds:
+            try:
+                from vision_mtl_tpu_torch.vis import plot_preds
+
+                import matplotlib.pyplot as plt
+
+                fig = plot_preds(
+                    batch_size=host_preds["segm"].shape[0],
+                    inputs_batch={k: v.cpu().numpy() for k, v in batch.items()},
+                    preds_batch=host_preds,
+                )
+                if exp:
+                    exp.log_figure("preds", fig)
+                if do_show_preds:
+                    plt.show()
+                plt.close(fig)
+            except Exception as e:
+                print("plot failed:", e)
     if float(mstate.num_steps) == 0.0:
         return preds, {}
     predict_metrics = {f"predict/{k}": float(v) for k, v in compute_metrics(mstate).items()}

@@ -13,7 +13,10 @@
 
 PyTorch runs eagerly, so there is no ahead-of-time compile: a ``Predictor``
 is ready at construction and ``warmup`` pays the first launches (and the
-CUDA kernels' first-use build). An exported program reaches kernels B1 and
+CUDA kernels' first-use build). A ``Predictor`` serves a snapshot of the
+model taken at construction, as the JAX one serves the weights it was
+given: later training of the caller's module changes neither its answers
+nor is it touched by them. An exported program reaches kernels B1 and
 B3 through their operators (``torch.ops.vmtl.*``), which the kernels
 package registers when it is imported.
 """
@@ -21,6 +24,7 @@ package registers when it is imported.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import queue
 import threading
 import time
@@ -36,6 +40,11 @@ from vision_mtl_tpu_torch.train.step import make_predict_step, predict_outputs
 
 class Predictor:
     """Fixed-shape predictor on one device.
+
+    It serves a private eval-mode copy of ``model`` taken at construction
+    (one model's parameters and buffers of device memory): the caller's
+    module, its weights and its mode are never touched, and training it
+    later does not change the answers.
 
     ``dtype`` is the wire type of the images: float32 (normalised) or uint8
     (raw; normalised on the device, /255 in f32). ``compact_out`` returns
@@ -63,13 +72,22 @@ class Predictor:
             )
         if model.training:
             raise ValueError("Predictor needs a model in eval mode (model.eval())")
-        self._step = make_predict_step(model)
+        self.model = copy.deepcopy(model).requires_grad_(False)
+        self._step = make_predict_step(self.model)
         self.batch_size = batch_size
         self.shape = (batch_size, height, width, channels)
         self.dtype = np.dtype(dtype)
         if self.dtype not in (np.float32, np.uint8):
             raise ValueError(f"wire dtype must be float32 or uint8, got {self.dtype}")
         self.compact_out = compact_out
+
+    def _with_batch_size(self, batch_size: int) -> "Predictor":
+        """This predictor, serving the same snapshot, at another batch
+        size."""
+        other = copy.copy(self)
+        other.batch_size = batch_size
+        other.shape = (batch_size,) + self.shape[1:]
+        return other
 
     def _run(self, img: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         out = self._step(img)
@@ -146,13 +164,10 @@ class BatchingServer:
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive ints, got {buckets!r}")
         self._buckets = sorted(set(int(b) for b in buckets))
-        self._predictors = {
-            b: Predictor(
-                model, b, height, width, channels=channels, dtype=dtype,
-                compact_out=compact_out, device=device,
-            )
-            for b in self._buckets
-        }
+        # one snapshot of the model serves every bucket
+        first = Predictor(model, self._buckets[0], height, width, channels=channels,
+                          dtype=dtype, compact_out=compact_out, device=device)
+        self._predictors = {b: first._with_batch_size(b) for b in self._buckets}
         self._sample_shape = (height, width, channels)
         self._wire_dtype = np.dtype(dtype)
         self._max_wait_s = max_wait_ms / 1000.0

@@ -1,5 +1,6 @@
-"""Metric sinks of the port. Experiment tracking (comet) waits for a later
-slice (ROADMAP.md A9)."""
+"""Metric sinks (``logger``), comet experiment tracking (``comet``) and
+trained runs: the comet download and the local run registry
+(``artifacts``)."""
 
 from vision_mtl_tpu_torch.tracking.logger import MetricsLogger
 

@@ -2,7 +2,8 @@
 (counterpart of ``vision_mtl_tpu/tracking/tb.py``, one process).
 
 Run dirs are ``{root}/{name}/version_{n}``. The metric names are the JAX
-package's: ``step/{stage}/{k}``, ``epoch/{stage}/{k}``.
+package's: ``step/{stage}/{k}``, ``epoch/{stage}/{k}``. Figures and
+parameter histograms go to TensorBoard only, best-effort, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ class MetricsLogger:
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, float(v), step)
+
+    def log_figure(self, tag: str, figure: t.Any, step: int = 0) -> None:
+        if self._tb is not None:
+            try:
+                self._tb.add_figure(tag, figure, step)
+            except Exception:
+                pass
 
     def close(self) -> None:
         self._jsonl.close()

@@ -74,10 +74,12 @@ def _save_dir_atomic(obj: t.Any, path: str, filename: str) -> None:
 
 
 def save_ckpt(
-    state: TrainState, scheduler: ReduceLROnPlateau, epoch: int, save_dir: str
+    state: TrainState, scheduler: ReduceLROnPlateau, epoch: int, save_dir: str,
+    exp: t.Any = None,
 ) -> t.Tuple[str, str]:
-    """Write ``model_{epoch}`` and ``session_{epoch}``; returns their paths.
-    Blocks until both are on disk."""
+    """Write ``model_{epoch}`` and ``session_{epoch}``, and log both to
+    ``exp`` if it is a live experiment; returns their paths. Blocks until
+    both are on disk."""
     os.makedirs(save_dir, exist_ok=True)
     model_path = os.path.abspath(os.path.join(save_dir, f"model_{epoch}"))
     session_path = os.path.abspath(os.path.join(save_dir, f"session_{epoch}"))
@@ -90,6 +92,11 @@ def save_ckpt(
         "step": int(state.step),
     }
     _save_dir_atomic(session, session_path, SESSION_FILE)
+    if exp:
+        from vision_mtl_tpu_torch.tracking.comet import log_ckpt_to_exp
+
+        log_ckpt_to_exp(exp, model_path)
+        log_ckpt_to_exp(exp, session_path)
     print(f"Saved model to {model_path}")
     return model_path, session_path
 
@@ -525,14 +532,19 @@ def _split_items(text: str) -> t.List[str]:
     return items
 
 
-def log_args(args: t.Union[argparse.Namespace, t.Mapping[str, t.Any]], save_path: str) -> None:
+def log_args(
+    args: t.Union[argparse.Namespace, t.Mapping[str, t.Any]], save_path: str, exp: t.Any = None
+) -> None:
     """Write the CLI args to ``save_path`` as ``args:`` and one indented
-    ``key: value`` line per arg, keys sorted. ``yaml.load(...,
-    Loader=yaml.FullLoader)["args"]`` reads back the same dict."""
+    ``key: value`` line per arg, keys sorted, and log the file to ``exp``
+    if it is a live experiment. ``yaml.load(..., Loader=yaml.FullLoader)
+    ["args"]`` reads back the same dict."""
     args_map = vars(args) if isinstance(args, argparse.Namespace) else dict(args)
     lines = ["args:"] + [f"  {k}: {_yaml_value(args_map[k])}" for k in sorted(args_map)]
     with open(save_path, "w") as f:
         f.write("\n".join(lines) + "\n")
+    if exp:
+        exp.log_asset(save_path)
 
 
 def load_args(load_path: str) -> argparse.Namespace:

@@ -10,7 +10,11 @@ the last one. Metric names are the JAX package's: ``step/{stage}/{k}``,
 
 Nothing in the step loop reads the device: a step's losses are fetched
 after the next step has been queued (``_LaggedLossLog``), and the epoch's
-metrics are the one read that waits for the epoch's work.
+metrics are the one read that waits for the epoch's work. The metrics also
+go to a live comet experiment (``exp``); ``log_param_histograms_every``
+logs the parameters' histograms to TensorBoard under their JAX paths; a
+validation epoch with ``--do_plot_preds`` or a live experiment predicts the
+datamodule's benchmark batch and logs the plot (``vis.plot_preds``).
 
 A ``PreemptionGuard`` (``train/preempt.py``) is polled after every train
 and validation step and once after each epoch's checkpoint; a request
@@ -33,7 +37,7 @@ from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metr
 from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt, save_preempt_ckpt
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
-from vision_mtl_tpu_torch.train.step import make_eval_step, make_train_step
+from vision_mtl_tpu_torch.train.step import make_eval_step, make_predict_step, make_train_step
 
 METRIC_KEYS = ("loss", "accuracy", "jaccard_index", "fbeta_score", "mae")
 
@@ -55,8 +59,8 @@ class _LaggedLossLog:
     instead of draining it; one copy per logged step. Call ``flush()`` after
     the loop for the last pending step."""
 
-    def __init__(self, prefix: str, logger: t.Any):
-        self._prefix, self._logger = prefix, logger
+    def __init__(self, prefix: str, logger: t.Any, exp: t.Any = None):
+        self._prefix, self._logger, self._exp = prefix, logger, exp
         self._pending: t.Optional[t.Tuple[int, t.Mapping[str, torch.Tensor]]] = None
 
     def offer(self, step_no: int, step_losses: t.Mapping[str, torch.Tensor], want: bool) -> None:
@@ -71,6 +75,60 @@ class _LaggedLossLog:
         self._pending = None
         stats = {f"{self._prefix}/{k}": v for k, v in _host_floats(step_losses).items()}
         self._logger.log_metrics(stats, step=step_no)
+        if self._exp:
+            for k, v in stats.items():
+                self._exp.log_metric(k, v, step=step_no)
+
+
+def _log_param_histograms(logger: t.Any, model: torch.nn.Module, step: int) -> None:
+    """One TensorBoard histogram per parameter, tagged with its flax path
+    (``a/b/kernel``) in the JAX layout, as the JAX loop logs
+    ``state.params``; the buffers (``batch_stats``) are not logged. A no-op
+    without a TensorBoard writer; the first failing write ends the call."""
+    tb = getattr(logger, "_tb", None)
+    if tb is None:
+        return
+    from vision_mtl_tpu_torch.weights import jax_variables_from_model
+
+    def leaves(tree: t.Mapping[str, t.Any], prefix: str) -> t.Iterator[t.Tuple[str, t.Any]]:
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}/")
+            else:
+                yield prefix + k, tree[k]
+
+    for name, value in leaves(jax_variables_from_model(model)["params"], ""):
+        try:
+            tb.add_histogram(name, value, step)
+        except Exception:
+            return
+
+
+def _plot_benchmark(args: argparse.Namespace, benchmark_batch: t.Mapping[str, t.Any],
+                    preds: t.Mapping[str, torch.Tensor], exp: t.Any, logger: t.Any,
+                    epoch: int) -> None:
+    """Plot the benchmark batch's predictions (``vis.plot_preds``) to
+    ``exp`` and the logger's TensorBoard; best-effort: a failure is
+    printed."""
+    try:
+        from vision_mtl_tpu_torch.vis import plot_preds
+
+        fig = plot_preds(
+            batch_size=benchmark_batch["img"].shape[0],
+            inputs_batch=benchmark_batch,
+            preds_batch={k: v.cpu().numpy() for k, v in preds.items()},
+        )
+        if exp:
+            exp.log_figure("preds", fig)
+        if logger is not None:
+            logger.log_figure("preds", fig, step=epoch)
+        import matplotlib.pyplot as plt
+
+        if getattr(args, "do_show_preds", False):
+            plt.show()
+        plt.close(fig)
+    except Exception as e:
+        print("benchmark plot failed:", e)
 
 
 def run_pipe(
@@ -79,8 +137,10 @@ def run_pipe(
     datamodule: MTLDataModule,
     num_epochs: int,
     num_classes: int,
+    exp: t.Any = None,
     logger: t.Any = None,
     log_every_n_steps: int = 1,
+    log_param_histograms_every: int = 0,
     scheduler: t.Optional[ReduceLROnPlateau] = None,
     start_epoch: int = 0,
     epoch_callback: t.Optional[t.Callable[[int, t.Dict[str, float]], None]] = None,
@@ -93,7 +153,11 @@ def run_pipe(
     """Train ``state`` from ``start_epoch`` to ``num_epochs``; returns the
     state and the epoch metrics. Checkpoints go to ``logger.log_dir``.
     ``epoch_callback(epoch, val_metrics)`` runs after each validation; its
-    exceptions propagate.
+    exceptions propagate (a tuning trial's pruning callback raises
+    ``TrialPruned``). ``exp`` receives the step and epoch metrics and the
+    checkpoints when it is a live experiment; every
+    ``log_param_histograms_every`` steps (0: never) the parameters'
+    histograms go to the logger's TensorBoard.
 
     ``preempt_guard`` is polled at every step boundary; when it fires, a
     preemption checkpoint is written and the process exits 143.
@@ -113,9 +177,11 @@ def run_pipe(
         loss_depth_weight=args.loss_depth_weight,
         device=dev,
     )
+    predict_step = make_predict_step(state.model)
     if scheduler is None:
         scheduler = ReduceLROnPlateau(patience=2, factor=0.9)
-    if datamodule.benchmark_batch is None:
+    benchmark_batch = datamodule.benchmark_batch
+    if benchmark_batch is None:
         print("A batch for benchmarking is not found.")
 
     # a resumed run continues the step axis (restore_session set state.step)
@@ -168,11 +234,14 @@ def run_pipe(
         batch_in_epoch = start_batch if epoch == start_epoch else 0
         epoch_start_batch = batch_in_epoch
 
-        step_log = _LaggedLossLog("step/train", logger)
+        step_log = _LaggedLossLog("step/train", logger, exp)
         batches = prefetch_to_device(train_loader, dev, size=2)
         for batch in batches:
             state, mstate, losses = train_step(state, batch, mstate)
             step_log.offer(global_step, losses, global_step % log_every_n_steps == 0)
+            if log_param_histograms_every and global_step % log_param_histograms_every == 0:
+                # opt-in: every parameter is copied to the host
+                _log_param_histograms(logger, state.model, global_step)
             global_step += 1
             batch_in_epoch += 1
             if preempt_guard is not None and preempt_guard.requested(global_step):
@@ -198,10 +267,18 @@ def run_pipe(
         print("epoch/train: " + " ".join(f"{k}: {train_metrics[k]:.3f}" for k in METRIC_KEYS))
         if logger is not None:
             logger.log_metrics({f"epoch/train/{k}": v for k, v in train_metrics.items()}, step=epoch)
+        if exp:
+            exp.log_metrics({f"epoch/train/{k}": v for k, v in train_metrics.items()}, step=epoch)
 
         if (epoch + 1) % args.val_epoch_freq == 0:
+            want_benchmark = bool(exp) or getattr(args, "do_plot_preds", False)
+            if benchmark_batch is not None and want_benchmark:
+                # the eval-mode forward; only the plotting is best-effort
+                preds = predict_step(torch.from_numpy(benchmark_batch["img"]).to(dev))
+                _plot_benchmark(args, benchmark_batch, preds, exp, logger, epoch)
+
             val_mstate = init_metrics(num_classes, dev)
-            val_log = _LaggedLossLog("step/val", logger)
+            val_log = _LaggedLossLog("step/val", logger, exp)
             val_step0 = val_step  # a preempted sweep is run again from here
             batches = prefetch_to_device(datamodule.val_dataloader(), dev, size=2)
             for batch in batches:
@@ -223,6 +300,8 @@ def run_pipe(
             print("epoch/val: " + " ".join(f"{k}: {val_metrics[k]:.3f}" for k in METRIC_KEYS))
             if logger is not None:
                 logger.log_metrics({f"epoch/val/{k}": v for k, v in val_metrics.items()}, step=epoch)
+            if exp:
+                exp.log_metrics({f"epoch/val/{k}": v for k, v in val_metrics.items()}, step=epoch)
 
             new_lr = scheduler.step(val_loss_sum, get_lr(state))
             if new_lr != get_lr(state):
@@ -234,7 +313,7 @@ def run_pipe(
 
         epoch_saved = (epoch + 1) % args.save_epoch_freq == 0 or epoch == num_epochs - 1
         if epoch_saved and logger is not None:
-            save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir)
+            save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir, exp=exp)
             prune_old_ckpts(logger.log_dir, getattr(args, "keep_ckpt_last_k", 0))
 
         # a request after the epoch's last poll: the epoch, its scheduler
@@ -242,7 +321,7 @@ def run_pipe(
         # exactly at the next epoch
         if preempt_guard is not None and preempt_guard.requested(global_step):
             if logger is not None and not epoch_saved:
-                save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir)
+                save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir, exp=exp)
             print(f"Preempted after epoch {epoch + 1}; resume with --resume_dir.")
             raise SystemExit(143)
 

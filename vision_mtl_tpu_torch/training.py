@@ -1,7 +1,10 @@
 """Training CLI (counterpart of ``vision_mtl_tpu/training.py``): parse the
-args, set up the configs and the device, build the datamodule, model and
-logger, optionally resume, train (``run_pipe``), run the predict sweep and
-write ``preds.npz`` beside the run's metrics and checkpoints.
+args, set up the configs and the device, optionally sweep the loss weights
+(``--do_optimize``, ``tuning.run_study``) and train with the best, build the
+datamodule, model, experiment and logger, optionally resume, train
+(``run_pipe``), run the predict sweep, write ``preds.npz`` beside the run's
+metrics and checkpoints, and register the run in the run registry
+(``tracking/artifacts.py``) when it wrote a checkpoint.
 
     python -m vision_mtl_tpu_torch.training --dataset_name cityscapes \
         --model_name mtan --num_epochs 20 --batch_size 8 --lr 5e-4
@@ -11,9 +14,8 @@ It runs on the card; ``--device cpu`` runs it on the CPU. Run dirs are
 sets the root). ``--preempt_save`` turns a SIGTERM (or
 ``VMTL_PREEMPT_AT_STEP``) into a mid-epoch checkpoint and exit 143;
 ``--resume_dir`` (or ``--auto_resume``) continues from the newest
-checkpoint of a run, a preemption one included. The hyperparameter
-search, the mesh and the registry of finished runs wait for later slices
-(ROADMAP.md A9, A10).
+checkpoint of a run, a preemption one included. The mesh waits for a later
+slice (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ from vision_mtl_tpu_torch.cfg import cfg, fetch_data_cfg
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.pipeline import create_main_components, create_tools
 from vision_mtl_tpu_torch.predict import predict, save_preds
+from vision_mtl_tpu_torch.tracking.artifacts import register_run, run_registry_key
+from vision_mtl_tpu_torch.train.checkpoint import _epochs
 from vision_mtl_tpu_torch.train.loop import run_pipe
-from vision_mtl_tpu_torch.utils.args import check_ported, parse_args, torch_device
+from vision_mtl_tpu_torch.utils.args import check_ported, parse_args, torch_device, update_args
 
 
 def main(argv: t.Optional[t.Sequence[str]] = None) -> str:
@@ -60,8 +64,19 @@ def _main(args: argparse.Namespace) -> str:
         else:
             print("--auto_resume: no resumable run found; starting fresh")
 
+    if args.do_optimize:
+        from vision_mtl_tpu_torch.tuning import run_study
+
+        optimal_params = run_study(args, data_cfg)
+        update_args(args, optimal_params)
+        args.exp_tags = list(args.exp_tags) + ["best_trial"]
+
+    # the registry key from the user's args: create_tools may set run_name
+    # to the comet experiment's name
+    registry_key = run_registry_key(args)
+
     tools = create_tools(args)
-    logger = tools["logger"]
+    exp, logger = tools["exp"], tools["logger"]
     try:
         components = create_main_components(args, data_cfg, device)
         datamodule = components["datamodule"]
@@ -103,7 +118,9 @@ def _main(args: argparse.Namespace) -> str:
             datamodule,
             num_epochs=args.num_epochs,
             num_classes=data_cfg.num_classes,
+            exp=exp,
             logger=logger,
+            log_param_histograms_every=args.log_param_histograms_every,
             scheduler=scheduler,
             start_epoch=start_epoch,
             preempt_guard=preempt_guard,
@@ -117,6 +134,9 @@ def _main(args: argparse.Namespace) -> str:
             datamodule.predict_dataloader(),
             state.model,
             num_classes=data_cfg.num_classes,
+            do_plot_preds=args.do_plot_preds,
+            exp=exp,
+            do_show_preds=args.do_show_preds,
             loss_segm_weight=args.loss_segm_weight,
             loss_depth_weight=args.loss_depth_weight,
             device=device,
@@ -124,6 +144,19 @@ def _main(args: argparse.Namespace) -> str:
         save_preds(preds, os.path.join(logger.log_dir, "preds.npz"))
         print("predict: " + " ".join(f"{k}: {v:.3f}" for k, v in predict_metrics.items()))
         logger.log_metrics(predict_metrics, step=args.num_epochs)
+        # only a run dir that holds a checkpoint of this launch: a relaunch
+        # of a finished run trains no epoch and must not replace its entry
+        if _epochs(logger.log_dir, "model"):
+            reg = register_run(args.model_name, args.dataset_name, logger.log_dir,
+                               key=registry_key)
+            print(f"Registered run {registry_key!r} in {reg}")
+        else:
+            print(f"Not registering {logger.log_dir}: no model checkpoints "
+                  f"written by this launch (already-completed run?)")
+        if exp:
+            exp.log_metrics({f"epoch/{k}": v for k, v in predict_metrics.items()},
+                            step=args.num_epochs)
+            exp.end()
     finally:
         logger.close()
     return logger.log_dir

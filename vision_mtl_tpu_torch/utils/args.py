@@ -117,12 +117,17 @@ def parse_args(argv: t.Optional[t.Sequence[str]] = None) -> argparse.Namespace:
 
 # flag: (its default, the ROADMAP.md item that ports its feature)
 NOT_PORTED: t.Dict[str, t.Tuple[t.Any, str]] = {
-    "do_optimize": (False, "A9 (tuning.py)"),
-    "do_plot_preds": (False, "A9 (vis.py)"),
-    "do_show_preds": (False, "A9 (vis.py)"),
     "mesh_shape": ("data:-1", "A10 (parallel)"),
-    "log_param_histograms_every": (0, "A9 (tracking)"),
 }
+
+
+def update_args(args: argparse.Namespace, kv_map: t.Mapping[str, t.Any]) -> argparse.Namespace:
+    """Set existing keys of ``args`` to new values (an unknown key is an
+    AssertionError)."""
+    for k, v in kv_map.items():
+        assert hasattr(args, k), k
+        setattr(args, k, v)
+    return args
 
 
 def check_ported(args: argparse.Namespace) -> None:
