@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels
+    python3 chip_smoke.py --parallel
 
 Builds the hand-written CUDA kernels from ``vision_mtl_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
@@ -111,6 +112,36 @@ flag alone and all together; then ``training --model_name mtan
 ``serve --run_dir`` on its run. Launches are counted exactly on each path
 (the task-axis gates have their own counters and ``kernels`` entries).
 
+The ``parallel`` phase (data parallelism, the mesh's ``data`` axis) runs
+last, after every profiled phase. B4's staged call across ranks is first
+held to its fused call at MTAN's 8 gate shapes in both dtypes (with the
+other kernel checks): with one rank bit for bit, and with the rows cut in
+two halves run by two threads of this process as two ranks, within the
+gate's tolerances (:func:`check_gate_split`). The parent then computes
+its one-process references (MTAN's f32 step on a seeded batch 8, a
+``Predictor(8)`` of the f32 model) and starts the rank processes with
+torchrun's environment: on a machine with one card, two that share
+it over gloo (NCCL refuses two ranks on one device), whose times are not
+a scaling figure; with several cards, one rank a card over NCCL. Each
+rank takes its rows of the global batch 8 at full width:
+one f32 MTAN step, whose all-reduced gradients are held to the
+one-process step within the f32 check's own limits (whole and per-leaf
+relative L2, ``ZERO_GRAD`` left out) and are the same bits on every rank;
+1 + 3 bf16 steps, after which every rank holds the same parameters and
+Adam moments bit for bit, their p50 printed beside the one-process step's;
+B4's staged call timed at the 8 gate shapes against its plain split;
+``Predictor(8, mesh=)`` against the one-process answer (depth within
+1e-4, ids differing on at most 1e-4 of the pixels); and the training CLI
+in process with ``--mesh_shape data:<ranks>`` for one MTAN epoch on the ``cli``
+tree (one run dir, one checkpoint, the same weights on every rank). Each
+path's launches are counted exactly per rank (B4's staged calls under
+``fused_attention_gate_train_ranks``).
+
+``--parallel`` builds the kernels and runs the MTAN f32 check against the
+CPU (for its limits), MTAN's bf16 steps (for the one-process p50) and the
+``parallel`` phase alone, then prints the card's name and power limit and
+no ``ok`` line: a development run, and the phase over several cards.
+
 ``--kernels`` times the eval gate and the confusion matrix only (the
 ``gate_shapes`` and ``confmat_mixes`` lines, then the card's name and power
 limit) and prints no ``ok`` line. Its wrappers' API is that of earlier
@@ -206,7 +237,7 @@ bare step's img/s of the training phase, the loader's img/s alone and with
 the copies to the card, and the card's idle share over one more epoch of
 the loop, from torch.profiler), the per-shape and per-call kernel lines at
 the NYUv2 shapes and the ``nyuv2`` line, the ``task_gate_shapes`` line,
-the ``interop`` and ``options`` lines, the ``timing`` line (the kernels'
+the ``interop``, ``options`` and ``parallel`` lines, the ``timing`` line (the kernels'
 build and the whole run, in seconds), the ``kernels`` JSON line (each entry
 with its ``nyuv2`` numbers beside), the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -563,10 +594,63 @@ def check_gate(dev, fused_gate, shapes: list = GATE_SHAPES) -> tuple:
     return rows, totals
 
 
-def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES) -> tuple:
+def check_gate_split(fused_gate_train, args: tuple, fused: tuple) -> dict:
+    """B4's staged call across ranks (``comm``) against its fused call on the
+    same inputs: with one rank, bit for bit; with two ranks, the rows cut in
+    two halves run by two threads of this process (``ThreadComm``), whose
+    statistics the wrapper combines between the passes. The halves' output
+    within :func:`output_ok`'s tolerance of the fused output (the same as
+    against the plain version: only the order of the f64 sums differs), their
+    statistics within 1e-5 relative, and the same on both ranks, bit for
+    bit."""
+    from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup
+
+    dev = args[0].device
+    with torch.no_grad():
+        # below the wrapper, which runs one rank as the fused call
+        one = fused_gate_train._launch(*args, 1e-5, comm=ThreadComm(ThreadGroup(1), 0, dev))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, fused)):
+        fail("fused_attention_gate_train: the staged call with one rank differs from the fused "
+             "call")
+    threads, halves = ThreadGroup(2, timeout=60.0), [None, None]
+
+    def rank(r: int) -> None:
+        x, shared = (a.chunk(2)[r] for a in args[:2])
+        with torch.no_grad():
+            halves[r] = fused_gate_train.fused_attention_gate_train(
+                x, shared, *args[2:], comm=ThreadComm(threads, r, dev))
+
+    pool = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    torch.cuda.synchronize()
+    if any(h is None for h in halves):
+        fail("fused_attention_gate_train: a rank of the two-halves call raised")
+    err, ok = output_ok(torch.cat([halves[0][0], halves[1][0]]), fused[0])
+    if not ok:
+        fail(f"fused_attention_gate_train: two halves' output max |diff| {err} from the fused call")
+    stat_err = 0.0
+    for i in range(1, 5):
+        if not torch.equal(halves[0][i], halves[1][i]):
+            fail("fused_attention_gate_train: the two ranks' statistics differ")
+        d = (halves[0][i] - fused[i]).abs()
+        stat_err = max(stat_err, float(d.max()))
+        if not bool((d <= 1e-5 * fused[i].abs() + 1e-6).all()):
+            fail(f"fused_attention_gate_train: two halves' statistic {i} max |diff| "
+                 f"{float(d.max())} from the fused call")
+    return {"one_rank_bit_for_bit": True, "halves_max_abs_err": err,
+            "halves_stats_max_abs_err": stat_err}
+
+
+def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES,
+                     split: bool = False) -> tuple:
     """The train-mode gate against its plain version at the MTAN gate
     shapes: output, the four statistics, and the same bits from a second
-    launch; and the time of its backward (PyTorch ops)."""
+    launch; and the time of its backward (PyTorch ops). ``split``: also its
+    staged call across ranks (:func:`check_gate_split`)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = []
     totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -603,6 +687,10 @@ def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES) -> tuple
                          f"{float(d.max())}")
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"fused_attention_gate_train {level} {dtype}: a second launch differs")
+            split_row = check_gate_split(fused_gate_train, args, got) if split else None
+            if split_row is not None:
+                totals["split_err"] = max(totals.get("split_err", 0.0),
+                                          split_row["halves_max_abs_err"])
             n = BATCH * h * w
             # x and shared read, out written; weights read, statistics written
             nbytes = args[0].element_size() * n * (cin + 2 * c2) + 4 * (
@@ -646,6 +734,8 @@ def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES) -> tuple
                     "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms,
                     "bound_design_ms": design_ms,
                 }
+                if split_row is not None:
+                    row["staged_across_ranks"] = split_row
             if row["ms"] > row["plain_ms"]:
                 slower_than_plain.append(f"{level} {row['dtype']}")
             # the Function's backward (PyTorch ops), timed as forward +
@@ -1031,8 +1121,8 @@ def bf16_kernel_inputs(name: str):
         attr = "fused_attention_gate_train"
         real = module.fused_attention_gate_train
 
-        def patched(x, shared, w1, b1, scale1, bias1, w2, *rest):
-            return real(_bf16(x), shared, _bf16(w1), b1, scale1, bias1, _bf16(w2), *rest)
+        def patched(x, shared, w1, b1, scale1, bias1, w2, *rest, **kw):
+            return real(_bf16(x), shared, _bf16(w1), b1, scale1, bias1, _bf16(w2), *rest, **kw)
     else:
         from vision_mtl_tpu_torch.ops import small_conv as module
 
@@ -1610,7 +1700,7 @@ def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
     trials, trial_dirs = [], []
     real_run_trial, real_create_tools = tuning._run_trial, tuning.create_tools
 
-    def run_trial(args, data_cfg, weights, tag, epoch_callback=None):
+    def run_trial(args, data_cfg, weights, tag, epoch_callback=None, **kw):
         rec = {"tag": tag, "weights": dict(weights), "epochs": 0}
 
         def cb(epoch, val_metrics):
@@ -1619,7 +1709,7 @@ def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
 
         t0 = time.perf_counter()
         try:
-            rec["score"] = real_run_trial(args, data_cfg, weights, tag, epoch_callback=cb)
+            rec["score"] = real_run_trial(args, data_cfg, weights, tag, epoch_callback=cb, **kw)
             return rec["score"]
         except Exception as e:
             rec["score"] = "pruned" if "Pruned" in type(e).__name__ else repr(e)
@@ -1628,8 +1718,8 @@ def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
             rec["s"] = time.perf_counter() - t0
             trials.append(rec)
 
-    def create_tools(args):
-        tools = real_create_tools(args)
+    def create_tools(args, **kw):
+        tools = real_create_tools(args, **kw)
         trial_dirs.append(tools["logger"].log_dir)
         return tools
 
@@ -3074,10 +3164,380 @@ def options_phase(cfg, kernels, dev, build_model, fused_gate, fused_gate_train) 
             launches + fold_tail_launches + remat_launches + [run["launches"], served["launches"]])
 
 
+PARALLEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                            "parallel")
+
+PARALLEL_BF16_STEPS = 3  # timed two-rank bf16 steps, after one untimed
+PARALLEL_BATCH_SEED = 31
+PARALLEL_PREDICT_SEED = 41
+PARALLEL_TIMEOUT_S = 420
+# a train step of MTAN under ranks: its 16 gates take B4's staged call
+PER_RANK_TRAIN_STEP = {"fused_attention_gate_train_ranks": 16, "confusion_matrix": 1}
+# Predictor(8, mesh=) against the one-process Predictor(8), f32 weights: the
+# ranks' convolutions see 4 images, not 8, and cuDNN may sum in another order
+PARALLEL_DEPTH_TOL = 1e-4
+PARALLEL_SEGM_MISMATCH_TOL = 1e-4  # share of pixels whose argmax may differ
+
+PARALLEL_CODE = r"""
+import sys
+import chip_smoke
+sys.exit(chip_smoke.parallel_rank(sys.argv[1]))
+"""
+
+
+def parallel_world() -> int:
+    """Ranks of the ``parallel`` phase: one per card (NCCL) on a machine
+    with several, else two sharing the one card (gloo)."""
+    return max(2, torch.cuda.device_count())
+
+
+def flat_bits(tensors) -> torch.Tensor:
+    """f32 tensors as one int32 vector of their bits (NaN-proof equality)."""
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors]).view(torch.int32)
+
+
+def same_on_every_rank(comm, tensors) -> bool:
+    """True when ``tensors`` hold the same bits on every rank (an exact
+    all-gather of their bits)."""
+    from vision_mtl_tpu_torch.parallel.multihost import all_gather_exact
+
+    gathered = all_gather_exact(flat_bits(tensors), comm)
+    return all(torch.equal(gathered[0], g) for g in gathered[1:])
+
+
+def train_tensors(state) -> list:
+    """Parameters and Adam moments of a train state, in parameter order."""
+    params = list(state.model.parameters())
+    moments = [state.optimizer.state[p][k] for p in params for k in ("exp_avg", "exp_avg_sq")
+               if p in state.optimizer.state]
+    return params + moments
+
+
+def rank_gate_times(fused_gate_train, comm, dev) -> tuple:
+    """B4's staged call at MTAN's 8 gate shapes on this rank's rows of the
+    batch (bf16, as the main path): against the plain version's split,
+    timed with CUDA events around 10 calls (the gathers between the passes
+    included). Per train step: two tasks a level."""
+    gen = torch.Generator(device=dev).manual_seed(10 + comm.rank)
+    per = BATCH // comm.world
+    rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    by_flops = by_bytes = 0.0
+    for level, cin, c2, h, w in GATE_SHAPES:
+        def uniform(*shape, bound=1.0):
+            return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+        args = (
+            torch.randn(per, h, w, cin, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(per, h, w, c2, generator=gen, device=dev).to(torch.bfloat16),
+            uniform(cin, HIDDEN, bound=cin**-0.5), uniform(HIDDEN, bound=cin**-0.5),
+            uniform(HIDDEN) * 0.5 + 1.0, uniform(HIDDEN, bound=0.3),
+            uniform(HIDDEN, c2, bound=HIDDEN**-0.5), uniform(c2, bound=HIDDEN**-0.5),
+            uniform(c2) * 0.5 + 1.0, uniform(c2, bound=0.3),
+        )
+        with torch.no_grad():
+            def kernel():
+                return fused_gate_train.fused_attention_gate_train(*args, comm=comm)
+
+            def plain():
+                return fused_gate_train.fused_attention_gate_train_plain(*args, comm=comm)
+
+            got, want = kernel(), plain()
+            err, ok = output_ok(got[0], want[0])
+            if not ok:
+                fail(f"staged fused_attention_gate_train {level} rank {comm.rank}: output max "
+                     f"|diff| {err} from the plain split")
+            for g, r in zip(got[1:], want[1:]):
+                if not bool(((g - r).abs() <= 1e-5 * r.abs() + 1e-6).all()):
+                    fail(f"staged fused_attention_gate_train {level}: a statistic is off the "
+                         f"plain split's by {float((g - r).abs().max())}")
+            comm.barrier()
+            ms = time_ms(kernel, iters=10, warmup=2)
+            comm.barrier()
+            plain_ms = time_ms(plain, iters=5, warmup=1)
+        n = per * h * w
+        nbytes = 2 * n * (cin + 2 * c2) + 4 * (
+            cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2 + 3 * c2 + 2 * (HIDDEN + c2))
+        tc_flops = tf32_flops(n, cin, c2, True)
+        b_ms, _ = bound(nbytes, tc_flops, TF32_TC_FLOPS_PER_S)
+        rows.append({"level": level, "N_per_rank": n, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "max_abs_err": err})
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms)):
+            totals[k] += 2 * v
+        totals["err"] = max(totals["err"], err)
+        by_flops += 2 * tc_flops / TF32_TC_FLOPS_PER_S
+        by_bytes += 2 * nbytes / HBM_BYTES_PER_S
+    totals["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
+    return rows, totals
+
+
+def parallel_rank(out_dir: str) -> int:
+    """One rank of the ``parallel`` phase (started by :func:`parallel_phase`
+    with torchrun's environment): joins the process group
+    (``maybe_initialize_distributed``: gloo when the ranks share the one
+    card, NCCL with a card each) and drives MTAN at full width on its rows
+    of each global batch;
+    writes ``rank_{r}.json`` into ``out_dir`` and, on rank 0, the f32
+    step's gradients."""
+    import torch.distributed as dist
+    from vision_mtl_tpu_torch import kernels, training
+    from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
+    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+    from vision_mtl_tpu_torch.kernels import fused_gate_train
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.models.registry import build_model
+    from vision_mtl_tpu_torch.parallel import multihost
+    from vision_mtl_tpu_torch.parallel.mesh import create_mesh
+    from vision_mtl_tpu_torch.serving import Predictor
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    multihost.maybe_initialize_distributed("cuda")
+    comm = multihost.current()
+    mesh = create_mesh("data:-1", comm)
+    dev, rank = mesh.device, comm.rank
+    rec = {"rank": rank, "world": comm.world, "device": str(dev), "backend": dist.get_backend(),
+           "init_s": time.perf_counter() - t_start}
+    cfg = fetch_data_cfg("cityscapes")
+    per = BATCH // comm.world
+
+    def mine(batch: dict) -> dict:
+        return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+
+    # one f32 step on this rank's rows of the reference batch
+    (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
+    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0)
+    state = create_train_state(model, LR, device=dev)
+    step = make_train_step(device=dev, mesh=mesh)
+    kernels.reset_launch_counts()
+    _, _, losses = step(state, mine(batch), init_metrics(cfg.num_classes, dev))
+    torch.cuda.synchronize()
+    f32_counts = kernels.launch_counts()
+    if f32_counts != expected(kernels, PER_RANK_TRAIN_STEP, 1):
+        fail(f"parallel f32 step rank {rank}: launches {f32_counts}")
+    if not same_on_every_rank(comm, [p.grad for p in model.parameters()]):
+        fail("parallel f32 step: the all-reduced gradients differ between the ranks")
+    if rank == 0:
+        torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                    "loss": float(losses["loss"])}, os.path.join(out_dir, "f32_grads.pt"))
+    rec["f32"] = {"loss": float(losses["loss"]), "launches": f32_counts,
+                  "grads_equal_across_ranks": True}
+    del model, state
+
+    # bf16 steps: every rank's parameters and Adam moments stay the same bits
+    batches = [mine(b) for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+    model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    state = create_train_state(model, LR, device=dev)
+    n_steps = 1 + PARALLEL_BF16_STEPS
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    kernels.reset_launch_counts()
+    losses = []
+    events[0].record()
+    for i in range(n_steps):
+        state, _, step_losses = step(state, batches[i % TRAIN_BATCHES],
+                                     init_metrics(cfg.num_classes, dev))
+        events[i + 1].record()
+        losses.append(step_losses["loss"])
+    torch.cuda.synchronize()
+    bf16_counts = kernels.launch_counts()
+    if bf16_counts != expected(kernels, PER_RANK_TRAIN_STEP, n_steps):
+        fail(f"parallel bf16 steps rank {rank}: launches {bf16_counts}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"parallel bf16 steps: losses {losses}")
+    if not same_on_every_rank(comm, train_tensors(state)):
+        fail(f"parallel bf16 steps: parameters or Adam moments differ between the ranks after "
+             f"{n_steps} steps")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
+    rec["bf16"] = {"steps": n_steps, "losses": losses, "step_ms": step_ms,
+                   "step_ms_p50": float(np.median(step_ms)), "launches": bf16_counts,
+                   "params_and_moments_equal_across_ranks": True}
+    del model, state, batches
+
+    gate_rows, gate_totals = rank_gate_times(fused_gate_train, comm, dev)
+    rec["gate_train_staged"] = {"rows": gate_rows, **gate_totals}
+
+    # Predictor(8) over the ranks against the one-process Predictor(8)
+    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
+    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval()
+    kernels.reset_launch_counts()
+    out = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
+    torch.cuda.synchronize()
+    pred_counts = kernels.launch_counts()
+    if pred_counts != expected(kernels, PER_FORWARD["mtan"], 1):
+        fail(f"parallel Predictor rank {rank}: launches {pred_counts}")
+    ref = np.load(os.path.join(out_dir, "predictor_ref.npz"))
+    depth_err = float(np.abs(out["depth"] - ref["depth"]).max())
+    mismatch = float((out["segm"] != ref["segm"]).mean())
+    if out["segm"].shape != ref["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
+            or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
+        fail(f"parallel Predictor rank {rank}: depth max |diff| {depth_err}, segm ids differ on "
+             f"{mismatch} of the pixels, from the one-process Predictor")
+    if not same_on_every_rank(comm, [torch.from_numpy(out["depth"]).to(dev),
+                                     torch.from_numpy(out["segm"]).to(dev).float()]):
+        fail("parallel Predictor: the ranks' answers differ")
+    rec["predictor"] = {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
+                        "launches": pred_counts, "answers_equal_across_ranks": True}
+    del model
+
+    # the training CLI, in process, over the ranks
+    pipeline_cfg.log_root_dir = os.path.join(out_dir, "logs")
+    argv = ["--dataset_name", "cityscapes", "--data_dir", CLI_DATA, "--batch_size", str(BATCH),
+            "--num_workers", "4", "--lr", str(LR), "--save_epoch_freq", "1",
+            "--model_name", "mtan", "--num_epochs", "1", "--mesh_shape", f"data:{comm.world}"]
+    seen: dict = {}
+    real_run_pipe = training.run_pipe
+
+    def run_pipe(args, state, datamodule, **kw):
+        state, metrics = real_run_pipe(args, state, datamodule, **kw)
+        seen.update(state=state, datamodule=datamodule)
+        return state, metrics
+
+    training.run_pipe = run_pipe
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_dir = training.main(argv)
+    finally:
+        training.run_pipe = real_run_pipe
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = kernels.launch_counts()
+    dm = seen["datamodule"]
+    n_train, n_val, n_pred = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.predict_dataloader()))
+    want = expected(kernels, PER_RANK_TRAIN_STEP, n_train, confusion_matrix=n_val + n_pred)
+    want["fused_attention_gate"] += PER_FORWARD["mtan"]["fused_attention_gate"] * (n_val + n_pred)
+    if cli_counts != want:
+        fail(f"parallel cli rank {rank}: launches {cli_counts}, want {want}")
+    if not same_on_every_rank(comm, train_tensors(seen["state"])):
+        fail("parallel cli: the ranks' weights or Adam moments differ after the epoch")
+    if comm.broadcast_object(run_dir) != run_dir:
+        fail(f"parallel cli: rank {rank} trained into {run_dir}, rank 0 elsewhere")
+    if rank == 0:
+        versions = glob.glob(os.path.join(out_dir, "logs", "training-mtan", "version_*"))
+        entries = sorted(os.listdir(run_dir))
+        if versions != [run_dir] or [e for e in entries if e.startswith(("model_", "session_"))] \
+                != ["model_0", "session_0"] or "preds.npz" not in entries:
+            fail(f"parallel cli: run dirs {versions}, entries {entries}")
+    rec["cli"] = {"argv": argv, "wall_s": cli_s, "run_dir": run_dir, "launches": cli_counts,
+                  "loader_lengths": {"train": n_train, "val": n_val, "predict": n_pred},
+                  "weights_equal_across_ranks": True}
+    rec["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    multihost.shutdown_distributed()
+    return 0
+
+
+def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
+                   one_process_p50: float) -> tuple:
+    """Data parallelism over :func:`parallel_world` ranks: the one-process
+    references first (MTAN's f32 step on the global batch, a
+    ``Predictor(8)`` of the f32 model), then the rank processes
+    (:func:`parallel_rank`) with torchrun's environment. The ranks' f32
+    step is held to the one-process step with the limits of the f32 check
+    against the CPU (``f32_limits``: per-leaf and whole relative L2,
+    ``ZERO_GRAD`` left out). Returns the ``parallel`` line and the ranks'
+    main-path launches summed."""
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.parallel.multihost import free_port
+    from vision_mtl_tpu_torch.serving import Predictor
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
+    t_start = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    if not os.path.isdir(os.path.join(CLI_DATA, "train")):
+        write_cityscapes_tree(CLI_DATA, cfg)
+    (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
+    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0)
+    state = create_train_state(model, LR, device=dev)
+    _, _, losses = make_train_step(device=dev)(state, batch, init_metrics(cfg.num_classes, dev))
+    ref_grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+    ref_loss = float(losses["loss"])
+    del model, state
+    # the seeded weights as built, as each rank builds them
+    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval()
+    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
+    ref_pred = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)(imgs)
+    np.savez(os.path.join(PARALLEL_DIR, "predictor_ref.npz"), **ref_pred)
+    del model
+    ref_s = time.perf_counter() - t_start
+
+    port, world = free_port(), parallel_world()
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
+               "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        log = open(os.path.join(PARALLEL_DIR, f"rank_{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", PARALLEL_CODE, PARALLEL_DIR], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__))), log))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _ in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p, _ in procs):
+                deadline = min(deadline, time.monotonic() + 30)  # the peer may be stuck
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    codes = [p.returncode for p, _ in procs]
+    if any(codes):
+        tails = [open(os.path.join(PARALLEL_DIR, f"rank_{r}.log")).read()[-2500:]
+                 for r in range(world)]
+        fail(f"parallel: ranks exited {codes}: {tails}")
+    recs = [json.load(open(os.path.join(PARALLEL_DIR, f"rank_{r}.json")))
+            for r in range(world)]
+    got = torch.load(os.path.join(PARALLEL_DIR, "f32_grads.pt"))
+    whole, per_leaf = grad_distance(got["grads"], ref_grads)
+    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+    if not whole <= f32_limits["rel_l2_limit"] or not worst[0][1] <= f32_limits["leaf_limit"]:
+        fail(f"parallel f32 step: gradients off the one-process step by {whole} (worst leaves "
+             f"{worst}), limits {f32_limits}")
+    if abs(got["loss"] - ref_loss) > 1e-4 * abs(ref_loss):
+        fail(f"parallel f32 step: loss {got['loss']} over the ranks, {ref_loss} in one process")
+    launches = {name: sum(rec[path]["launches"][name] for rec in recs
+                          for path in ("f32", "bf16", "predictor", "cli"))
+                for name in kernels.KERNELS}
+    gate = recs[0]["gate_train_staged"]
+    line = {
+        "ranks": world, "backend": recs[0]["backend"],
+        "arrangement": (f"{world} ranks, one a card" if world <= torch.cuda.device_count()
+                        else f"{world} ranks sharing one card (not a scaling figure)"),
+        "f32_step": {"loss_ranks": got["loss"], "loss_one_process": ref_loss,
+                     "grad_rel_l2": whole, "worst_leaves": worst, "limits": f32_limits,
+                     "launches_per_rank": recs[0]["f32"]["launches"]},
+        "bf16_steps": {"steps": recs[0]["bf16"]["steps"],
+                       "step_ms_p50_two_ranks": [r["bf16"]["step_ms_p50"] for r in recs],
+                       "step_ms_p50_one_process": one_process_p50,
+                       "losses": recs[0]["bf16"]["losses"],
+                       "params_and_moments_equal_across_ranks": True},
+        "gate_train_staged_per_step": {k: gate[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "err")},
+        "gate_train_staged_rows": gate["rows"],
+        "predictor": recs[0]["predictor"],
+        "cli": {k: recs[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
+        "rank_init_s": [r["init_s"] for r in recs], "rank_total_s": [r["total_s"] for r in recs],
+        "references_s": ref_s, "launches": launches,
+        "phase_s": time.perf_counter() - t_start,
+    }
+    return line, launches
+
+
 def main(argv: list) -> int:
-    kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or --kernels", file=sys.stderr)
+    kernels_only, parallel_only = argv == ["--kernels"], argv == ["--parallel"]
+    if argv and not (kernels_only or parallel_only):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, --kernels or --parallel",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -3107,9 +3567,18 @@ def main(argv: list) -> int:
         native_build.result()
     build_s = time.perf_counter() - t0
 
+    cfg = fetch_data_cfg("cityscapes")
+    if parallel_only:
+        mtan_f32 = check_train_step_against_cpu("mtan", cfg, build_model, dev)
+        one_process = train_model("mtan", cfg, build_model, dev, kernels)
+        parallel_line, _ = parallel_phase(
+            cfg, kernels, dev, build_model,
+            {k: mtan_f32[k] for k in ("rel_l2_limit", "leaf_limit")}, one_process["step_ms_p50"])
+        print(json.dumps({"parallel": parallel_line}), flush=True)
+        print(smi, flush=True)
+        return 0
     gate_rows, gate = check_gate(dev, fused_gate)
     print(json.dumps({"gate_shapes": gate_rows}), flush=True)
-    cfg = fetch_data_cfg("cityscapes")
     if kernels_only:
         model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
         main_ids = predict_eval("mtan", model, cfg, dev, kernels).pop("confmat_inputs")
@@ -3117,7 +3586,7 @@ def main(argv: list) -> int:
         print(json.dumps({"gate_per_forward": gate, "confmat_mixes": mixes}), flush=True)
         print(smi, flush=True)
         return 0
-    gate_train_rows, gate_train = check_gate_train(dev, fused_gate_train)
+    gate_train_rows, gate_train = check_gate_train(dev, fused_gate_train, split=True)
     print(json.dumps({"gate_train_shapes": gate_train_rows}), flush=True)
     conv_rows, conv = check_small_conv(dev, small_conv, SMALL_CONV_SHAPES["basic"])
     print(json.dumps({"small_conv_shapes": conv_rows}), flush=True)
@@ -3209,9 +3678,10 @@ def main(argv: list) -> int:
         "build_s": build_s,
     }
     print(json.dumps({"model": model_line}), flush=True)
+    mtan_f32 = check_train_step_against_cpu("mtan", cfg, build_model, dev)
     train_line = {
         "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
-        "reference_f32_step_vs_cpu": check_train_step_against_cpu("mtan", cfg, build_model, dev),
+        "reference_f32_step_vs_cpu": mtan_f32,
         **mtan_training,
         "gate_train_ms_per_step": gate_train["ms"],
         "gate_train_bound_ms_per_step": gate_train["bound_ms"],
@@ -3260,6 +3730,12 @@ def main(argv: list) -> int:
     print(json.dumps({"nyuv2": nyu_line}), flush=True)
     print(json.dumps({"interop": interop_line}), flush=True)
     print(json.dumps({"options": options_line}), flush=True)
+    # last: the rank processes use the card after every profiled phase
+    parallel_line, parallel_launches = parallel_phase(
+        cfg, kernels, dev, build_model,
+        {k: mtan_f32[k] for k in ("rel_l2_limit", "leaf_limit")}, mtan_training["step_ms_p50"])
+    print(json.dumps({"parallel": parallel_line}), flush=True)
+    phases.append(parallel_launches)
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     # B3's entry: one bf16 train step of the basic model and one of CSNet
@@ -3323,6 +3799,21 @@ def main(argv: list) -> int:
             "max_abs_err": task_gates["fused_attention_gate_train_tasks"]["err"],
             **{k: task_gates["fused_attention_gate_train_tasks"][k]
                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "per_task_calls_ms")},
+            "library_ms": None,
+        },
+        # B4's staged call across ranks (data parallelism): per MTAN bf16
+        # train step on one rank's half of batch 8, two ranks sharing one
+        # card over gloo; its error: the two-halves check against the fused
+        # call and the ranks' check against the plain split
+        {
+            "name": "fused_attention_gate_train_ranks", "route": "cuda",
+            "source": "vision_mtl_tpu_torch/csrc/gate_train.cu",
+            "replaces": "vision_mtl_tpu/ops/pallas/fused_gate.py:240,279",
+            "launches": launches["fused_attention_gate_train_ranks"],
+            "max_abs_err": max(gate_train["split_err"],
+                               parallel_line["gate_train_staged_per_step"]["err"]),
+            **{k: parallel_line["gate_train_staged_per_step"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
         },
         {

@@ -462,6 +462,68 @@ def test_train_gate_task_axis_backward_matches_cpu(cuda):
             assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
 
 
+def _staged(args, world):
+    """B4's staged call over ``world`` ranks, threads of this process (the
+    rows cut in ``world`` parts); per rank its output and statistics.
+    Forward only: a backward would run on autograd's one thread for the
+    card, where two ranks' collectives would wait on each other."""
+    import threading
+
+    from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup
+
+    group, out = ThreadGroup(world, timeout=60.0), [None] * world
+
+    def rank(r):
+        parts = [a.chunk(world)[r] for a in args[:2]]
+        with torch.no_grad():
+            out[r] = fused_gate_train.fused_attention_gate_train(
+                *parts, *args[2:], comm=ThreadComm(group, r, parts[0].device))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(world)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert all(o is not None for o in out)
+    return out
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (2, 5, 7, 3, 8, 4),
+        (2, 9, 13, 33, 128, 12),
+        (4, 16, 32, 640, 128, 256),
+        (2, 1, 8321, 64, 128, 32),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_staged_across_ranks(cuda, shape, dtype):
+    """The staged call of B4 (the statistics combined across ranks between
+    its passes): with one rank bit for bit the fused call; with two, the
+    rows cut in halves, against the plain version on all the rows, the same
+    statistics on both ranks; its launches counted by ``ranks``, not by the
+    fused call's counter. (Its backward is PyTorch ops, the plain split's:
+    the CPU tests and chip_smoke.py's two rank processes run it.)"""
+    from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup
+
+    args = _train_gate_args(cuda, dtype, *shape)
+    fused = fused_gate_train.fused_attention_gate_train(*args)
+    # the wrapper takes one rank as one process (the fused call): the staged
+    # launch with one rank is asked for below the wrapper
+    one = fused_gate_train._launch(*args, 1e-5, comm=ThreadComm(ThreadGroup(1), 0, cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, fused))
+    before = fused_gate_train.ranks.launches.value, fused_gate_train.launches.value
+    halves = _staged(args, 2)
+    assert fused_gate_train.ranks.launches.value == before[0] + 2
+    assert fused_gate_train.launches.value == before[1]
+    want = fused_gate_train.fused_attention_gate_train_plain(*args)
+    _assert_train_gate_close((torch.cat([halves[0][0], halves[1][0]]), *halves[0][1:]), want)
+    assert all(torch.equal(a, b) for a, b in zip(halves[0][1:], halves[1][1:]))
+
+
 def _assert_conv_close(got, want):
     diff = (got.float() - want.float()).abs()
     if got.dtype == torch.float32:  # sums of up to 891 products in another order

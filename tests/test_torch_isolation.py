@@ -18,6 +18,7 @@ from vision_mtl_tpu_torch.cfg import fetch_data_cfg
 from vision_mtl_tpu_torch.kernels import fused_gate_train, small_conv
 from vision_mtl_tpu_torch.metrics import init_metrics
 from vision_mtl_tpu_torch.models.registry import build_model
+from vision_mtl_tpu_torch.parallel import multihost
 from vision_mtl_tpu_torch.predict import predict
 from vision_mtl_tpu_torch.serving import BatchingServer, Predictor
 from vision_mtl_tpu_torch.train.state import create_train_state
@@ -48,7 +49,7 @@ def test_port_imports_nothing_of_jax():
                  "data.nyu_cache", "train.preempt", "utils.io", "eval_harness",
                  "utils.ckpt_import", "utils.torch_port", "export_torch_ckpt", "tuning", "vis",
                  "tracking.comet", "tracking.artifacts", "utils.inference", "utils.profiling",
-                 "utils.debug"):
+                 "utils.debug", "parallel.mesh", "parallel.multihost"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""
@@ -87,6 +88,14 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         init_metrics(cfg.num_classes)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predict([{"img": np.zeros((1, cfg.height, cfg.width, 3), np.float32)}], model, 7)
+    # a rank of a launch: refused before it joins a process group
+    for var, value in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "29500")):
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.distributed, "init_process_group", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.maybe_initialize_distributed()
+    assert multihost.current() is None
 
 
 def test_predictor_rejects_a_model_elsewhere():

@@ -298,14 +298,19 @@ def test_cli_trains_and_serves(tiny_synthetic, no_tensorboard, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize(
-    "flag", sorted(NOT_PORTED) + ["device"]
+    "flag", sorted(NOT_PORTED) + ["mesh_shape", "device"]
 )
 def test_unported_flags_exit_naming_their_roadmap_item(flag, monkeypatch):
-    """A flag whose feature is not ported exits before anything is built."""
-    values = {"backbone_weights": "imagenet", "remat_tail": "2", "mesh_shape": "data:2",
-              "log_param_histograms_every": "25", "device": "cpu:4"}
-    argv = [f"--{flag}"] + ([values[flag]] if flag in values else [])
+    """A flag whose feature is not ported exits before anything is built:
+    since the data axis is ported, ``--mesh_shape`` with a model axis, and
+    ``--device cpu:4`` with a spatial one (refused before any rank
+    starts), name ROADMAP A10b."""
+    values = {"backbone_weights": "imagenet", "remat_tail": "2", "mesh_shape": "data:2,model:2",
+              "log_param_histograms_every": "25",
+              "device": "cpu:4 --mesh_shape data:2,spatial:2"}
+    argv = [f"--{flag}"] + (values[flag].split() if flag in values else [])
     monkeypatch.setattr(training, "create_tools", None)  # nothing may be set up
+    monkeypatch.setattr(training.multihost, "launch_local_ranks", None)
     with pytest.raises(SystemExit, match=r"ROADMAP\.md A\d+"):
         training.main(argv + ["--dataset_name", "synthetic"])
 
@@ -339,7 +344,7 @@ def test_surface_flags_reach_their_feature(flag, tiny_synthetic, tmp_path, monke
         seen["plots"] += 1
         return real_plot(*args, **kwargs)
 
-    def study(args, data_cfg):
+    def study(args, data_cfg, mesh=None):
         seen["study"].append(args.num_epochs)
         return {"loss_segm_weight": 0.25, "loss_depth_weight": 0.75}
 

@@ -94,7 +94,7 @@ def _fake_trials(log):
     def jax_run_trial(args, data_cfg, weights, mesh, tag, epoch_callback=None):
         return trial(args, weights, tag, epoch_callback)
 
-    def port_run_trial(args, data_cfg, weights, tag, epoch_callback=None):
+    def port_run_trial(args, data_cfg, weights, tag, epoch_callback=None, mesh=None):
         return trial(args, weights, tag, epoch_callback)
 
     return jax_run_trial, port_run_trial
@@ -141,7 +141,7 @@ def test_trials_run_on_threads_on_the_cpu(with_optuna, monkeypatch):
     monkeypatch.setitem(sys.modules, "optuna", optuna_stub if with_optuna else None)
     barrier = threading.Barrier(2, timeout=30)
 
-    def trial(args, data_cfg, weights, tag, epoch_callback=None):
+    def trial(args, data_cfg, weights, tag, epoch_callback=None, mesh=None):
         barrier.wait()
         return weights["loss_segm_weight"]
 

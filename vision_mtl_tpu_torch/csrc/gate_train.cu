@@ -73,6 +73,16 @@
 // combines its partials alone; a task's blocks walk the tiles that a call
 // for that task alone walks, and each task's results are bit for bit
 // those of its own call.
+//
+// Ranks. Under data parallelism the batch statistics are those of every
+// rank's rows together, so a rank cannot fold them alone. The staged entry
+// (vmtl_fused_attention_gate_train_tasks_stage) stops at the two
+// statistics boundaries: a statistics pass's last block writes the
+// pass's (rows, mean, M2) per channel in f64, combined over its blocks as
+// in the fused call, and does not fold; the caller combines the ranks'
+// triples and hands them to a fold stage, which writes the statistics and
+// the folded BN with the same device code (fold_bn) as the fused call's
+// last block. With one rank, the staged call is bit for bit the fused one.
 
 #include "gate_tile.cuh"
 
@@ -129,10 +139,14 @@ struct Pass {
   float* var;               // (C,) biased batch variance, clamped at 0
   float* fold_s;            // (C,) folded BN for the next passes: scale
   float* fold_c;            // (C,) and constant
+  // staged calls: (3, C) f64 rows, mean and M2 of the pass, written by its
+  // last block in place of the fold (statistics stages) or read by the fold
+  // stage; null in the fused call
+  double* local;
   // task t's pointers are the fields above plus t times these (elements)
   struct Strides {
     long long x, out, w1, w2, s1, c1, s2, c2, h, partial, done, conv_bias, bn_scale, bn_bias,
-        stats, fold;
+        stats, fold, local;
   } ts;
 };
 
@@ -159,6 +173,7 @@ __device__ __forceinline__ Pass task_pass(Pass p, long long t) {
     p.fold_s += t * p.ts.fold;
     p.fold_c += t * p.ts.fold;
   }
+  if (p.local != nullptr) p.local += t * p.ts.local;
   return p;
 }
 
@@ -240,6 +255,20 @@ __device__ __forceinline__ long long block_rows(long long n, int rows, long long
   return count * rows - short_by;
 }
 
+// The statistics of column c from its f64 (rows, mean, M2), and the next
+// passes' folded BN: scale inv = gamma / sqrt(var + eps) and constant
+// (bias_conv - mean) * inv + beta. The fused call's last block and the fold
+// stage of a staged call both run this.
+__device__ __forceinline__ void fold_bn(const Pass& p, int c, double n, double mean, double m2) {
+  const float mean_f = (float)mean;
+  const float var_f = fmaxf((float)(m2 / n), 0.f);
+  p.mean[c] = mean_f;
+  p.var[c] = var_f;
+  const float inv = p.bn_scale[c] / sqrtf(var_f + p.eps);
+  p.fold_s[c] = inv;
+  p.fold_c[c] = (p.conv_bias[c] - mean_f) * inv + p.bn_bias[c];
+}
+
 // The last block of a statistics pass: the blocks' partials combined in f64
 // in block order, the statistics and the next passes' folded BN written out.
 // Each column's blocks are cut into `parts` contiguous ranges, one thread
@@ -291,13 +320,13 @@ __device__ void finalize_stats(const Pass& p, int ch, int rows_per_tile, double*
     if (live && q == 0) {
       double total = 0.0;
       for (int i = 0; i < parts; ++i) total += part[tid + i];
-      const float mean_f = (float)mean;
-      const float var_f = fmaxf((float)(total / n), 0.f);
-      p.mean[c] = mean_f;
-      p.var[c] = var_f;
-      const float inv = p.bn_scale[c] / sqrtf(var_f + p.eps);
-      p.fold_s[c] = inv;
-      p.fold_c[c] = (p.conv_bias[c] - mean_f) * inv + p.bn_bias[c];
+      if (p.local != nullptr) {  // a staged call: the caller combines and folds
+        p.local[c] = n;
+        p.local[ch + c] = mean;
+        p.local[2 * ch + c] = total;
+      } else {
+        fold_bn(p, c, n, mean, total);
+      }
     }
   }
 }
@@ -523,6 +552,14 @@ __global__ void __launch_bounds__(kThreads, 2) gate_train_kernel(const Pass task
   }
 }
 
+// The fold stage of a staged call: each column's folded BN from the (rows,
+// mean, M2) in p.local, one thread per column, the task on blockIdx.z.
+__global__ void fold_kernel(const Pass task0, int ch) {
+  const Pass p = task_pass<float>(task0, blockIdx.z);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < ch) fold_bn(p, c, p.local[c], p.local[ch + c], p.local[2 * ch + c]);
+}
+
 bool shapes_ok(long long n, int cin, int hidden, int c2ch) {
   return n > 0 && cin > 0 && hidden > 0 && hidden <= kMaxHidden && hidden % 4 == 0 && c2ch > 0 &&
          c2ch <= kMaxC2 && c2ch % 4 == 0;
@@ -589,24 +626,15 @@ extern "C" long long vmtl_fused_attention_gate_train_tasks_scratch_bytes(long lo
   return 4 * (tasks * task_scratch_floats(n, cin, hidden, c2ch) + 2LL * tasks);
 }
 
-// Train-mode gate of T tasks: one memset and three kernels on `stream`,
-// nothing allocated, no synchronisation. x (tasks, n, cin) rows, shared (n,
-// c2ch) rows (every task's), out (tasks, n, c2ch) rows, all float (is_bf16
-// = 0) or bf16 (is_bf16 = 1); w1 (tasks, cin, hidden), b1, scale1, bias1
-// (tasks, hidden); w2 (tasks, hidden, c2ch), b2, scale2, bias2 (tasks,
-// c2ch), all float, the weights 16-byte aligned. hidden and c2ch must be
-// multiples of 4, hidden <= 128, c2ch <= 512, 1 <= tasks <= 65535. Writes
-// out and stats = (tasks, [mean1, var1 (hidden each), mean2, var2 (c2ch
-// each)]) float, biased variances clamped at 0. scratch holds
-// vmtl_fused_attention_gate_train_tasks_scratch_bytes(n, cin, hidden, c2ch,
-// tasks) bytes, 16-byte aligned, with any contents. Task t's results are
-// bit for bit those of a call with tasks = 1 on its own x and weights.
-// Returns the first CUDA error of the launches, 0 when all were queued.
-extern "C" int vmtl_fused_attention_gate_train_tasks(
-    const void* x, const void* shared, const void* w1, const void* b1, const void* scale1,
-    const void* bias1, const void* w2, const void* b2, const void* scale2, const void* bias2,
-    void* out, void* stats, void* scratch, int tasks, long long n, int cin, int hidden, int c2ch,
-    float eps, int is_bf16, void* stream) {
+namespace {
+
+// The fused call (stage < 0) or one stage of a staged call (0-4, see
+// vmtl_fused_attention_gate_train_tasks_stage).
+int gate_train(const void* x, const void* shared, const void* w1, const void* b1,
+               const void* scale1, const void* bias1, const void* w2, const void* b2,
+               const void* scale2, const void* bias2, void* out, void* stats, void* scratch,
+               int tasks, long long n, int cin, int hidden, int c2ch, float eps, int is_bf16,
+               void* stream, int stage, double* local) {
   if (!shapes_ok(n, cin, hidden, c2ch) || tasks < 1 || tasks > 65535)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) & 15)
@@ -632,8 +660,11 @@ extern "C" int vmtl_fused_attention_gate_train_tasks(
   // the counters: two per task, after every task's scratch
   unsigned int* done =
       reinterpret_cast<unsigned int*>(static_cast<float*>(scratch) + tasks * per_task);
-  cudaError_t err = cudaMemsetAsync(done, 0, 2 * sizeof(unsigned int) * tasks, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  if (stage <= 0 && (err = cudaMemsetAsync(done, 0, 2 * sizeof(unsigned int) * tasks, s)) !=
+                        cudaSuccess)
+    return (int)err;
+  const bool staged = stage >= 0;
 
   Pass p = {};
   p.x = x;
@@ -679,8 +710,17 @@ extern "C" int vmtl_fused_attention_gate_train_tasks(
   p1.var = st + hidden;
   p1.fold_s = inv1;
   p1.fold_c = cst1;
-  if ((err = launch<kStatsH>(p1, dim3(g, split1, tasks), is_bf16, small, s)) != cudaSuccess)
-    return (int)err;
+  p1.local = staged ? local : nullptr;
+  p1.ts.local = 3 * hidden;
+  if (stage == 1) {
+    fold_kernel<<<dim3((hidden + 127) / 128, 1, tasks), 128, 0, s>>>(p1, hidden);
+    return (int)cudaGetLastError();
+  }
+  if (stage <= 0) {
+    if ((err = launch<kStatsH>(p1, dim3(g, split1, tasks), is_bf16, small, s)) != cudaSuccess)
+      return (int)err;
+    if (staged) return 0;
+  }
 
   // pass 2: statistics of a = relu(BN1(h)) @ w2 + b2
   Pass p2 = p;
@@ -699,8 +739,17 @@ extern "C" int vmtl_fused_attention_gate_train_tasks(
   p2.var = st + 2 * hidden + c2ch;
   p2.fold_s = inv2;
   p2.fold_c = cst2;
-  if ((err = launch<kStatsA>(p2, dim3(g, slices, tasks), is_bf16, small, s)) != cudaSuccess)
-    return (int)err;
+  p2.local = staged ? local : nullptr;
+  p2.ts.local = 3 * c2ch;
+  if (stage == 3) {
+    fold_kernel<<<dim3((c2ch + 127) / 128, 1, tasks), 128, 0, s>>>(p2, c2ch);
+    return (int)cudaGetLastError();
+  }
+  if (stage < 0 || stage == 2) {
+    if ((err = launch<kStatsA>(p2, dim3(g, slices, tasks), is_bf16, small, s)) != cudaSuccess)
+      return (int)err;
+    if (staged) return 0;
+  }
 
   // pass 3: out = shared * sigmoid(BN2(a))
   Pass p3 = p;
@@ -714,4 +763,54 @@ extern "C" int vmtl_fused_attention_gate_train_tasks(
   const long long tiles = num_tiles(n, tile_rows(n));
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return (int)launch<kGate>(p3, dim3((unsigned)tiles, slices, tasks), is_bf16, small, s);
+}
+
+}  // namespace
+
+// Train-mode gate of T tasks: one memset and three kernels on `stream`,
+// nothing allocated, no synchronisation. x (tasks, n, cin) rows, shared (n,
+// c2ch) rows (every task's), out (tasks, n, c2ch) rows, all float (is_bf16
+// = 0) or bf16 (is_bf16 = 1); w1 (tasks, cin, hidden), b1, scale1, bias1
+// (tasks, hidden); w2 (tasks, hidden, c2ch), b2, scale2, bias2 (tasks,
+// c2ch), all float, the weights 16-byte aligned. hidden and c2ch must be
+// multiples of 4, hidden <= 128, c2ch <= 512, 1 <= tasks <= 65535. Writes
+// out and stats = (tasks, [mean1, var1 (hidden each), mean2, var2 (c2ch
+// each)]) float, biased variances clamped at 0. scratch holds
+// vmtl_fused_attention_gate_train_tasks_scratch_bytes(n, cin, hidden, c2ch,
+// tasks) bytes, 16-byte aligned, with any contents. Task t's results are
+// bit for bit those of a call with tasks = 1 on its own x and weights.
+// Returns the first CUDA error of the launches, 0 when all were queued.
+extern "C" int vmtl_fused_attention_gate_train_tasks(
+    const void* x, const void* shared, const void* w1, const void* b1, const void* scale1,
+    const void* bias1, const void* w2, const void* b2, const void* scale2, const void* bias2,
+    void* out, void* stats, void* scratch, int tasks, long long n, int cin, int hidden, int c2ch,
+    float eps, int is_bf16, void* stream) {
+  return gate_train(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, out, stats, scratch,
+                    tasks, n, cin, hidden, c2ch, eps, is_bf16, stream, -1, nullptr);
+}
+
+// One stage of the train-mode gate, for a caller that combines the batch
+// statistics of several ranks between the passes. The arguments are those
+// of vmtl_fused_attention_gate_train_tasks, the same on every stage of a
+// call (scratch included: it carries x @ w1 and the folded BNs from stage to
+// stage), and `local`, f64 (tasks, 3, C) with C = hidden for stages 0 and
+// 1, c2ch for 2 and 3:
+//   0: statistics pass 1; writes local = this call's (rows, mean, M2) of h;
+//   1: folds BN1 from local, the ranks' combined (rows, mean, M2) of h:
+//      writes mean1 and var1 into stats;
+//   2: statistics pass 2 (BN1 folded); writes local for a;
+//   3: folds BN2 from the combined local: writes mean2 and var2;
+//   4: the gate pass; writes out (local unused).
+// Stages run in this order on one stream. With local passed from each
+// statistics stage to its fold unchanged, the results are bit for bit
+// those of the fused call.
+extern "C" int vmtl_fused_attention_gate_train_tasks_stage(
+    const void* x, const void* shared, const void* w1, const void* b1, const void* scale1,
+    const void* bias1, const void* w2, const void* b2, const void* scale2, const void* bias2,
+    void* out, void* stats, void* scratch, int tasks, long long n, int cin, int hidden, int c2ch,
+    float eps, int is_bf16, void* stream, int stage, void* local) {
+  if (stage < 0 || stage > 4 || (stage < 4 && local == nullptr)) return (int)cudaErrorInvalidValue;
+  return gate_train(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, out, stats, scratch,
+                    tasks, n, cin, hidden, c2ch, eps, is_bf16, stream, stage,
+                    static_cast<double*>(local));
 }

@@ -4,6 +4,8 @@ batch and the loaders (counterpart of ``vision_mtl_tpu/data/datamodule.py``).
 The split is a seeded permutation (``default_rng(seed)``, 0.8 train).
 ``do_overfit`` makes train = val = test = predict the first batch. Test
 and predict read the "val" stage for Cityscapes and "test" for the others.
+Under several ranks each loader decodes its rank's rows of every global
+batch (:func:`configure_host_sharded_loading`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,22 @@ def _make_dataset(dataset_name: str, stage: str, transforms: t.Any) -> MTLDatase
 
         return NYUv2(stage=stage, transforms=transforms)
     raise ValueError(f"Unknown dataset name {dataset_name}")
+
+
+def configure_host_sharded_loading(datamodule: t.Any, mesh: t.Any) -> None:
+    """Check that ``mesh`` suits the loaders' one mode under several ranks:
+    row-sliced, each rank decoding its rows of every global batch, which is
+    consistent only when ``data`` is the one axis that spans processes (the
+    JAX package's full-batch mode for the ``spatial`` and ``model`` axes
+    waits with them, ROADMAP.md A10b). A no-op without a mesh."""
+    from vision_mtl_tpu_torch.parallel.mesh import process_spanning_axes
+
+    spanning = set(process_spanning_axes(mesh)) - {"data"}
+    if spanning:
+        raise ValueError(
+            f"mesh axes {sorted(spanning)} span processes: row-sliced loading cannot express "
+            "their shards (ROADMAP.md A10b)"
+        )
 
 
 class MTLDataModule:

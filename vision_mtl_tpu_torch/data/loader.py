@@ -1,6 +1,5 @@
 """Host-side batch loader with threaded sample decode, and the copy to the
-card through pinned memory (counterpart of ``vision_mtl_tpu/data/loader.py``,
-one process).
+card through pinned memory (counterpart of ``vision_mtl_tpu/data/loader.py``).
 
   * static batch shapes: train drops the ragged last batch; eval pads it by
     repeating the last sample and adds a per-sample ``valid`` weight;
@@ -11,7 +10,12 @@ one process).
   * the batch order is the JAX loader's: a numpy ``default_rng(seed +
     epoch)`` permutation, the epoch counted by ``__iter__``;
   * ``prefetch_to_device`` keeps ``size`` batches in flight on a side
-    stream while the current one is consumed.
+    stream while the current one is consumed;
+  * under several ranks (``parallel/multihost.py``) every rank computes the
+    same seeded global order and decodes only its contiguous
+    ``batch_size / world`` rows of each global batch: train batches drop
+    the ragged last batch, eval batches pad the global batch and ``valid``
+    marks the rank's padded rows.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from vision_mtl_tpu_torch.data.native import DecodeError
+from vision_mtl_tpu_torch.parallel.multihost import process_info
 
 Batch = t.Dict[str, np.ndarray]
 
@@ -112,6 +117,11 @@ class DataLoader:
             batches.pop()
         return batches
 
+    @staticmethod
+    def _process_shard() -> t.Tuple[int, int]:
+        """(rank, world size); (0, 1) in one process."""
+        return process_info()
+
     def __iter__(self) -> t.Iterator[Batch]:
         batches = self._index_batches()
         if self.skip_batches:
@@ -119,10 +129,35 @@ class DataLoader:
             self.skip_batches = 0
         self.epoch += 1
 
+        rank, world = self._process_shard()
+        if world > 1:
+            if self.batch_size % world:
+                raise ValueError(
+                    f"global batch_size {self.batch_size} must divide by the {world} ranks "
+                    "for row-sharded loading"
+                )
+            if not (self.drop_last or self.pad_last):
+                raise ValueError(
+                    "row-sharded loading needs static global batches: construct the "
+                    "DataLoader with drop_last or pad_last"
+                )
+        per = self.batch_size // world
+
         pool = cf.ThreadPoolExecutor(self.num_workers) if self.num_workers > 0 else None
         load_batch = getattr(self.dataset, "load_batch", None)
         try:
             for idxs in batches:
+                valid_local: t.Optional[np.ndarray] = None
+                if world > 1:
+                    lo, hi = rank * per, (rank + 1) * per
+                    n_real = len(idxs)
+                    if self.pad_last:
+                        # pad the global batch with its last sample, then
+                        # take this rank's rows; valid marks the padding
+                        idxs = np.asarray([idxs[min(r, n_real - 1)] for r in range(lo, hi)])
+                        valid_local = (np.arange(lo, hi) < n_real).astype(np.float32)
+                    else:
+                        idxs = idxs[lo:hi]
                 batch = None
                 if load_batch is not None:
                     try:
@@ -138,7 +173,12 @@ class DataLoader:
                     else:
                         samples = [self.dataset[int(i)] for i in idxs]
                     batch = _collate(samples)
-                if self.pad_last:
+                if world > 1:
+                    if valid_local is not None:
+                        batch["valid"] = valid_local
+                    elif self.with_valid:
+                        batch["valid"] = np.ones((per,), np.float32)
+                elif self.pad_last:
                     batch = _pad_batch(batch, self.batch_size)
                 elif self.with_valid:
                     batch["valid"] = np.ones((len(idxs),), np.float32)

@@ -11,15 +11,28 @@ divided by 1e4, then by ``max_depth``; every stream is resized to the
 transform's size. ``load_batch`` serves prepared batches from the cache
 (``data/nyu_cache.py``) when a valid one exists.
 
-Fetching and extracting the published archives needs the network and
-``h5py``; it waits in ROADMAP.md A11, so ``download=True`` on an
-incomplete tree raises.
+``download`` builds the tree from the reference's four published archives
+(the RGB and 13-class label ``.tgz`` files, the surface-normal ``.zip``,
+the labelled depth ``.mat``), as the JAX package does: an archive already
+in the root is used as it is, without the network; a missing one is
+fetched with ``urllib`` and, where that fails, named in a RuntimeError
+that says where to put it. The ``.mat`` is read with ``h5py`` (imported by
+the one function that reads it), and each depth map is written as a
+16-bit gray PNG (metres x 1e4) with ``zlib``, since the port has no PIL:
+the same pixels PIL writes, read back the same by PIL and by the port's
+decoder.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import struct
+import tarfile
 import typing as t
+import urllib.request
+import zipfile
+import zlib
 
 import numpy as np
 
@@ -151,12 +164,155 @@ class NYUv2(MTLDataset):
         )
 
     def download(self) -> None:
-        """A complete tree needs nothing; an incomplete one cannot be
-        fetched by the port yet."""
+        """Build the missing folders from the archives (see the module
+        docstring); a complete tree needs nothing."""
         if self._check_exists():
             return
+        os.makedirs(self.data_base_dir, exist_ok=True)
+        download_rgb(self.data_base_dir)
+        download_seg(self.data_base_dir)
+        download_depth(self.data_base_dir)
+        if self.use_sn:
+            download_sn(self.data_base_dir)
+        print("Done!")
+
+
+def _fetch(url: str, root: str) -> str:
+    """The archive of ``url`` in ``root``: the file already there, or
+    downloaded; a failed download raises, naming where to put it."""
+    dst = os.path.join(root, url.split("/")[-1].split("?")[0])
+    if os.path.exists(dst):
+        return dst
+    try:
+        urllib.request.urlretrieve(url, dst)
+    except Exception as e:
         raise RuntimeError(
-            f"NYUv2 is incomplete under {self.data_base_dir}, and fetching and "
-            "extracting its archives is not ported to vision_mtl_tpu_torch yet: "
-            "ROADMAP.md A11"
-        )
+            f"Could not download {url} (no network egress?). Place the "
+            f"archive at {dst} manually and re-run."
+        ) from e
+    return dst
+
+
+def _unpack(file: str) -> None:
+    """Extract a ``.tgz`` or ``.zip`` beside it, into its name without the
+    extension."""
+    path = file.rsplit(".", 1)[0]
+    if file.endswith(".tgz"):
+        with tarfile.open(file, "r:gz") as tar:
+            tar.extractall(path, filter="data")
+    elif file.endswith(".zip"):
+        with zipfile.ZipFile(file, "r") as zf:
+            zf.extractall(path)
+
+
+def _rename_files(folder: str, rename_func: t.Callable[[str], str]) -> None:
+    for old in os.listdir(folder):
+        shutil.move(os.path.join(folder, old), os.path.join(folder, rename_func(old)))
+
+
+def _replace_folder(src: str, dst: str) -> None:
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    shutil.move(src, dst)
+
+
+def download_rgb(root: str) -> None:
+    train_url = "http://www.doc.ic.ac.uk/~ahanda/nyu_train_rgb.tgz"
+    test_url = "http://www.doc.ic.ac.uk/~ahanda/nyu_test_rgb.tgz"
+
+    def _proc(url: str, dst: str) -> None:
+        if os.path.exists(dst):
+            return
+        tar = _fetch(url, root)
+        _unpack(tar)
+        # str.rstrip strips characters, not the suffix: kept as the
+        # reference has it
+        _replace_folder(tar.rstrip(".tgz"), dst)
+        _rename_files(dst, lambda x: x.split("_")[2])
+
+    _proc(train_url, os.path.join(root, "train_rgb"))
+    _proc(test_url, os.path.join(root, "test_rgb"))
+
+
+def download_seg(root: str) -> None:
+    base = "https://github.com/ankurhanda/nyuv2-meta-data/raw/master"
+    train_url = f"{base}/train_labels_13/nyuv2_train_class13.tgz"
+    test_url = f"{base}/test_labels_13/nyuv2_test_class13.tgz"
+
+    def _proc(url: str, dst: str) -> None:
+        if os.path.exists(dst):
+            return
+        tar = _fetch(url, root)
+        _unpack(tar)
+        _replace_folder(tar.rstrip(".tgz"), dst)
+        _rename_files(dst, lambda x: x.split("_")[3])
+
+    _proc(train_url, os.path.join(root, "train_seg13"))
+    _proc(test_url, os.path.join(root, "test_seg13"))
+
+
+def download_sn(root: str) -> None:
+    url = "https://www.dropbox.com/s/dn5sxhlgml78l03/nyu_normals_gt.zip?dl=1"
+    train_dst = os.path.join(root, "train_sn")
+    test_dst = os.path.join(root, "test_sn")
+    if os.path.exists(train_dst) and os.path.exists(test_dst):
+        return
+    tar = _fetch(url, root)
+    _unpack(tar)
+    if not os.path.exists(train_dst):
+        _replace_folder(os.path.join(root, "nyu_normals_gt", "train"), train_dst)
+        _rename_files(train_dst, lambda x: x[1:])
+    if not os.path.exists(test_dst):
+        _replace_folder(os.path.join(root, "nyu_normals_gt", "test"), test_dst)
+        _rename_files(test_dst, lambda x: x[1:])
+    shutil.rmtree(os.path.join(root, "nyu_normals_gt"), ignore_errors=True)
+
+
+def download_depth(
+    root: str,
+    url: str = "http://horatio.cs.nyu.edu/mit/silberman/nyu_depth_v2/nyu_depth_v2_labeled.mat",
+) -> None:
+    """Per-image uint16 depth PNGs (metres x 1e4) from the labelled
+    dataset's ``.mat``; images whose id names a ``train_rgb`` file go to
+    ``train_depth``, the others to ``test_depth``."""
+    train_dst = os.path.join(root, "train_depth")
+    test_dst = os.path.join(root, "test_depth")
+    if os.path.exists(train_dst) and os.path.exists(test_dst):
+        return
+    mat = _fetch(url, root)
+    train_ids = {f.split(".")[0] for f in os.listdir(os.path.join(root, "train_rgb"))}
+    _create_depth_files(mat, root, train_ids)
+
+
+def _create_depth_files(mat_file: str, root: str, train_ids: t.Set[str]) -> None:
+    import h5py
+
+    os.makedirs(os.path.join(root, "train_depth"), exist_ok=True)
+    os.makedirs(os.path.join(root, "test_depth"), exist_ok=True)
+    with h5py.File(mat_file, "r") as f:
+        depths = f["depths"]
+        for i in range(len(depths)):
+            img = (depths[i] * 1e4).astype(np.uint16).T
+            id_ = str(i + 1).zfill(4)
+            folder = "train" if id_ in train_ids else "test"
+            write_png16(os.path.join(root, f"{folder}_depth", id_ + ".png"), img)
+
+
+def write_png16(path: str, img: np.ndarray) -> None:
+    """A (H, W) uint16 array as a 16-bit gray PNG (big-endian samples, no
+    filtering, one zlib stream), with the standard library alone."""
+    if img.dtype != np.uint16 or img.ndim != 2:
+        raise ValueError(f"write_png16 takes a 2-D uint16 array, got {img.dtype} {img.shape}")
+    h, w = img.shape
+    rows = np.ascontiguousarray(img.astype(">u2")).view(np.uint8).reshape(h, 2 * w)
+    body = np.hstack([np.zeros((h, 1), np.uint8), rows]).tobytes()  # filter 0 per row
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(body, 6)))
+        f.write(chunk(b"IEND", b""))

@@ -26,6 +26,18 @@ version task by task, and the backward is the one-task backward task by
 task. ``tasks`` counts the task-axis wrapper's calls, ``launches`` the
 one-task wrapper's.
 
+Ranks. Under data parallelism (``parallel/multihost.py``) the statistics
+are those of every rank's rows together, as a JAX BatchNorm over a batch
+sharded on the mesh's ``data`` axis takes them. Given a ``comm`` of
+several ranks, the wrapper launches the kernel in stages
+(``vmtl_fused_attention_gate_train_tasks_stage``): after each statistics
+pass it gathers the ranks' f64 (rows, mean, M2) exactly, combines them in
+rank order (Chan's formula, ``multihost.combine_moments``) and hands them
+to the kernel's fold stage, which folds them with the fused call's own
+code. The backward all-reduces the two per-channel sums of each BN's
+gradient. The plain version takes the same split. Without a ``comm`` (one
+process) the fused call runs as before.
+
 The kernel takes its products on the tensor cores as 3xTF32, as the eval
 gate's does (``fused_gate.tf32_matmul``).
 :func:`fused_attention_gate_train_tf32` emulates that arithmetic with
@@ -49,12 +61,16 @@ import torch
 
 from vision_mtl_tpu_torch.kernels._build import EntryPoint, LaunchCounter, load
 from vision_mtl_tpu_torch.kernels.fused_gate import check_gate_args, tf32_matmul
+from vision_mtl_tpu_torch.parallel.multihost import Comm, all_gather_exact, combine_moments
 
 SOURCE = "gate_train"
 
 launches = LaunchCounter()
 #: the task-axis call (``vmtl_fused_attention_gate_train_tasks``)
 tasks = EntryPoint(SOURCE)
+#: the staged call across ranks (``vmtl_fused_attention_gate_train_tasks_stage``),
+#: one-task or task-axis: it counts those calls, the two above the fused ones
+ranks = EntryPoint(SOURCE)
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 13
@@ -62,6 +78,7 @@ _SIGNATURE = (
        ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p]
 )
+_STAGE_SIGNATURE = _SIGNATURE + [ctypes.c_int, ctypes.c_void_p]
 _SCRATCH_SIGNATURE = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
@@ -70,12 +87,28 @@ def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _batch_stats(z: torch.Tensor) -> t.Tuple[torch.Tensor, torch.Tensor]:
-    """Mean and biased variance over rows, accumulated in f64."""
+def _batch_stats(
+    z: torch.Tensor, comm: t.Optional[Comm] = None
+) -> t.Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance over rows, accumulated in f64; with a
+    ``comm``, over every rank's rows (each rank's f64 (rows, mean, M2)
+    combined in rank order)."""
     zd = z.double()
     mean = zd.mean(0)
-    var = (zd - mean).square().mean(0)
-    return mean.to(z.dtype), var.to(z.dtype)
+    if comm is None:
+        var = (zd - mean).square().mean(0)
+        return mean.to(z.dtype), var.to(z.dtype)
+    local = torch.stack([torch.full_like(mean, zd.shape[0]), mean, (zd - mean).square().sum(0)])
+    n, mean, m2 = combine_stats(local, comm).unbind(0)
+    return mean.to(z.dtype), (m2 / n).clamp(min=0.0).to(z.dtype)
+
+
+def combine_stats(local: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """The wrapper's combine: this rank's f64 ``(..., 3, C)`` (rows, mean,
+    M2) gathered over the ranks and combined in rank order, same shape.
+    Every rank gets the same bits."""
+    parts = all_gather_exact(local, comm).movedim(-2, 1)  # (world, 3, ..., C)
+    return combine_moments(parts).movedim(0, -2).contiguous()
 
 
 def fused_attention_gate_train_plain(
@@ -90,18 +123,20 @@ def fused_attention_gate_train_plain(
     scale2: torch.Tensor,
     bias2: torch.Tensor,
     eps: float = 1e-5,
+    comm: t.Optional[Comm] = None,
 ) -> t.Tuple[torch.Tensor, ...]:
     """The kernel's function in PyTorch ops: f32 math (f64 for f64 inputs),
     statistics accumulated in f64, output in shared's dtype. Returns
-    ``(out, mean1, var1, mean2, var2)``."""
+    ``(out, mean1, var1, mean2, var2)``. With a ``comm`` the statistics are
+    every rank's rows' together, the kernel's staged call's function."""
     cd = _compute_dtype(x)
     cin, c2ch = x.shape[-1], shared.shape[-1]
     h = x.reshape(-1, cin).to(cd) @ w1.to(cd) + b1.to(cd)
-    mean1, var1 = _batch_stats(h)
+    mean1, var1 = _batch_stats(h, comm)
     inv1 = scale1.to(cd) / torch.sqrt(var1 + eps)
     h = torch.relu((h - mean1) * inv1 + bias1.to(cd))
     a = h @ w2.to(cd) + b2.to(cd)
-    mean2, var2 = _batch_stats(a)
+    mean2, var2 = _batch_stats(a, comm)
     inv2 = scale2.to(cd) / torch.sqrt(var2 + eps)
     attn = torch.sigmoid((a - mean2) * inv2 + bias2.to(cd))
     out = (shared.reshape(-1, c2ch).to(cd) * attn).to(shared.dtype).reshape(shared.shape)
@@ -109,7 +144,7 @@ def fused_attention_gate_train_plain(
 
 
 def fused_attention_gate_train_tasks_plain(
-    x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps=1e-5
+    x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps=1e-5, comm=None
 ) -> t.Tuple[torch.Tensor, ...]:
     """The task-axis kernel's function: :func:`fused_attention_gate_train_plain`
     for each task's x and weights on the one ``shared``, each result
@@ -117,7 +152,7 @@ def fused_attention_gate_train_tasks_plain(
     per_task = [
         fused_attention_gate_train_plain(
             x[i], shared, w1[i], b1[i], scale1[i], bias1[i], w2[i], b2[i], scale2[i],
-            bias2[i], eps,
+            bias2[i], eps, comm,
         )
         for i in range(x.shape[0])
     ]
@@ -144,32 +179,37 @@ def fused_attention_gate_train_tf32(
     return out, mean1, var1, mean2, var2
 
 
-def _launch(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
+def _launch(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps, comm=None):
     """The CUDA kernel's forward, the task-axis kernel with T = 1; raises
     unless every tensor fits it."""
     _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2)
     weights = (w1, b1, scale1, bias1, w2, b2, scale2, bias2)
     results = _launch_on_tasks(
         "fused_attention_gate_train", launches, x[None], shared, *(v[None] for v in weights),
-        eps=eps,
+        eps=eps, comm=comm,
     )
     return tuple(r[0] for r in results)
 
 
-def _launch_tasks(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
+def _launch_tasks(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps, comm=None):
     """The task-axis CUDA kernel's forward; raises unless every tensor fits
     it."""
     _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2)
     return _launch_on_tasks(
         "fused_attention_gate_train_tasks", tasks.launches, x, shared, w1, b1, scale1, bias1,
-        w2, b2, scale2, bias2, eps=eps,
+        w2, b2, scale2, bias2, eps=eps, comm=comm,
     )
 
 
-def _launch_on_tasks(kernel: str, counter: LaunchCounter, x, shared, *weights, eps):
-    """One call of ``vmtl_fused_attention_gate_train_tasks`` on checked
-    tensors with a leading task axis (``weights``: w1, b1, scale1, bias1,
-    w2, b2, scale2, bias2); ``counter`` counts it."""
+def _launch_on_tasks(kernel: str, counter: LaunchCounter, x, shared, *weights, eps,
+                     comm: t.Optional[Comm] = None):
+    """One call of the kernel on checked tensors with a leading task axis
+    (``weights``: w1, b1, scale1, bias1, w2, b2, scale2, bias2); ``counter``
+    counts a fused call. Without a ``comm``: the fused entry
+    ``vmtl_fused_attention_gate_train_tasks``. With one: the staged entry,
+    the ranks' statistics combined between the passes (:func:`combine_stats`
+    on the ``comm``; a ``comm`` of one rank gives the fused call's bits),
+    counted by ``ranks``."""
     n_tasks, b, h, w, cin = x.shape
     hidden, c2ch = weights[4].shape[1:]  # w2 (T, hidden, C2)
     n = b * h * w
@@ -180,33 +220,52 @@ def _launch_on_tasks(kernel: str, counter: LaunchCounter, x, shared, *weights, e
         restype=ctypes.c_longlong,
     )(n, cin, hidden, c2ch, n_tasks)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    fn = load(SOURCE, "vmtl_fused_attention_gate_train_tasks", _SIGNATURE)
     with torch.cuda.device(x.device):
-        rc = fn(
+        args = (
             x.data_ptr(), shared.data_ptr(), *(v.data_ptr() for v in weights), out.data_ptr(),
             stats.data_ptr(), scratch.data_ptr(), n_tasks, n, cin, hidden, c2ch, eps,
             int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
         )
+        if comm is None:
+            rc = load(SOURCE, "vmtl_fused_attention_gate_train_tasks", _SIGNATURE)(*args)
+        else:
+            stage = load(SOURCE, "vmtl_fused_attention_gate_train_tasks_stage", _STAGE_SIGNATURE)
+            rc = 0
+            for k, ch in ((0, hidden), (2, c2ch)):
+                local = torch.empty((n_tasks, 3, ch), dtype=torch.float64, device=x.device)
+                rc = rc or stage(*args, k, local.data_ptr())
+                if rc:
+                    break
+                combined = combine_stats(local, comm)
+                rc = stage(*args, k + 1, combined.data_ptr())
+            rc = rc or stage(*args, 4, None)
     if rc != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed, CUDA error {rc}")
-    counter.add()
+    (counter if comm is None else ranks.launches).add()
     mean1, var1, mean2, var2 = stats.split([hidden, hidden, c2ch, c2ch], dim=1)
     return out, mean1, var1, mean2, var2
 
 
-def _bn_backward(dy_hat: torch.Tensor, z_hat: torch.Tensor, rstd: torch.Tensor) -> torch.Tensor:
+def _bn_backward(dy_hat: torch.Tensor, z_hat: torch.Tensor, rstd: torch.Tensor,
+                 comm: t.Optional[Comm] = None) -> torch.Tensor:
     """Gradient through a batch-statistic normalisation z_hat = (z - mean) *
-    rstd over the rows (dim -2), given the gradient with respect to z_hat."""
-    return rstd * (dy_hat - dy_hat.mean(-2, keepdim=True)
-                   - z_hat * (dy_hat * z_hat).mean(-2, keepdim=True))
+    rstd over the rows (dim -2), given the gradient with respect to z_hat;
+    with a ``comm``, the statistics were every rank's rows' (as many on each)
+    and the two per-channel sums are all-reduced."""
+    if comm is None:
+        return rstd * (dy_hat - dy_hat.mean(-2, keepdim=True)
+                       - z_hat * (dy_hat * z_hat).mean(-2, keepdim=True))
+    sums = torch.stack([dy_hat.sum(-2), (dy_hat * z_hat).sum(-2)])
+    mean_dy, mean_dy_z = (comm.all_reduce_(sums) / (dy_hat.shape[-2] * comm.world)).unsqueeze(-2)
+    return rstd * (dy_hat - mean_dy - z_hat * mean_dy_z)
 
 
 def _gate_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
-                   m1, v1, m2, v2) -> t.Tuple[torch.Tensor, ...]:
+                   m1, v1, m2, v2, comm=None) -> t.Tuple[torch.Tensor, ...]:
     """The one-task gate's gradient in its ten tensors, in the compute dtype,
     x's and shared's as rows: recomputes h and a from the inputs and the
     saved statistics and applies the BatchNorm gradient with batch
-    statistics."""
+    statistics (every rank's, with a ``comm``)."""
     cd = _compute_dtype(x)
     cin, c2ch = x.shape[-1], shared.shape[-1]
     xf = x.reshape(-1, cin).to(cd)
@@ -223,9 +282,9 @@ def _gate_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, 
     attn = torch.sigmoid(a_hat * scale2 + bias2.to(cd))
     # and back
     dz2 = dout * sf * attn * (1.0 - attn)
-    da = _bn_backward(dz2 * scale2, a_hat, rstd2)
+    da = _bn_backward(dz2 * scale2, a_hat, rstd2, comm)
     dr = (da @ w2.T) * (z1 > 0)
-    dh = _bn_backward(dr * scale1, h_hat, rstd1)
+    dh = _bn_backward(dr * scale1, h_hat, rstd1, comm)
     return (
         dh @ w1.T, dout * attn, xf.T @ dh, dh.sum(0), (dr * h_hat).sum(0), dr.sum(0),
         r.T @ da, da.sum(0), (dz2 * a_hat).sum(0), dz2.sum(0),
@@ -238,8 +297,9 @@ class _FusedGateTrain(torch.autograd.Function):
     task's)."""
 
     @staticmethod
-    def forward(ctx, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps):
-        args = (x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps)
+    def forward(ctx, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps, comm):
+        comm = comm if comm is not None and comm.world > 1 else None
+        args = (x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps, comm)
         on_tasks = x.dim() == 5
         if x.device.type == "cpu":
             plain = fused_attention_gate_train_tasks_plain if on_tasks else (
@@ -247,7 +307,7 @@ class _FusedGateTrain(torch.autograd.Function):
             out, *stats = plain(*args)
         else:
             out, *stats = (_launch_tasks if on_tasks else _launch)(*args)
-        ctx.eps = eps
+        ctx.eps, ctx.comm = eps, comm
         ctx.save_for_backward(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, *stats)
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
@@ -257,7 +317,7 @@ class _FusedGateTrain(torch.autograd.Function):
         saved = ctx.saved_tensors
         x, shared = saved[:2]
         if x.dim() == 4:
-            grads = _gate_backward(ctx.eps, dout, *saved)
+            grads = _gate_backward(ctx.eps, dout, *saved, comm=ctx.comm)
         else:
             # task by task, so that one task's (N, hidden) and (N, C2)
             # intermediates are live at a time; every task's gate scales
@@ -265,13 +325,13 @@ class _FusedGateTrain(torch.autograd.Function):
             dshared, by_task = 0.0, []
             for i in range(x.shape[0]):
                 dx, ds, *dw = _gate_backward(
-                    ctx.eps, dout[i], x[i], shared, *(v[i] for v in saved[2:])
+                    ctx.eps, dout[i], x[i], shared, *(v[i] for v in saved[2:]), comm=ctx.comm
                 )
                 dshared = dshared + ds
                 by_task.append((dx.to(x.dtype), *dw))
             dx, *dw = (torch.stack(parts) for parts in zip(*by_task))
             grads = (dx, dshared, *dw)
-        return (*(g.reshape(i.shape).to(i.dtype) for g, i in zip(grads, saved)), None)
+        return (*(g.reshape(i.shape).to(i.dtype) for g, i in zip(grads, saved)), None, None)
 
 
 def fused_attention_gate_train(
@@ -286,9 +346,11 @@ def fused_attention_gate_train(
     scale2: torch.Tensor,
     bias2: torch.Tensor,
     eps: float = 1e-5,
+    comm: t.Optional[Comm] = None,
 ) -> t.Tuple[torch.Tensor, ...]:
     """Train-mode gate with batch-statistic BNs, NHWC; differentiable in all
-    ten tensors.
+    ten tensors. With a ``comm`` of several ranks the statistics are those
+    of every rank's rows together (each rank holding as many).
 
     Args:
       x: (B, H, W, Cin) gate input; shared: (B, H, W, C2) features to
@@ -305,7 +367,9 @@ def fused_attention_gate_train(
     launch the kernel (f32 weights, all contiguous, hidden and C2 multiples
     of 4 up to 128 and 512) or raise; there is no fallback.
     """
-    return _FusedGateTrain.apply(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps)
+    return _FusedGateTrain.apply(
+        x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps, comm
+    )
 
 
 def fused_attention_gate_train_tasks(
@@ -320,9 +384,11 @@ def fused_attention_gate_train_tasks(
     scale2: torch.Tensor,
     bias2: torch.Tensor,
     eps: float = 1e-5,
+    comm: t.Optional[Comm] = None,
 ) -> t.Tuple[torch.Tensor, ...]:
     """The train-mode gates of T tasks on one shared map, each with its own
-    batch statistics; differentiable in all ten tensors.
+    batch statistics (every rank's rows', with a ``comm``); differentiable
+    in all ten tensors.
 
     Args:
       x: (T, B, H, W, Cin); shared: (B, H, W, C2), every task's, same dtype.
@@ -335,7 +401,9 @@ def fused_attention_gate_train_tasks(
     :func:`fused_attention_gate_train_tasks_plain`; CUDA tensors make one
     call of the kernel for all tasks, or raise.
     """
-    return _FusedGateTrain.apply(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps)
+    return _FusedGateTrain.apply(
+        x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, eps, comm
+    )
 
 
 def _check(x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2) -> None:

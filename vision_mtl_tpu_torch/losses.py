@@ -7,6 +7,14 @@
   * Combined: w_segm * CE + w_depth * SILog.
 
 All math is f32 for bf16 and f32 inputs, and f64 for f64 inputs.
+
+Inside ``parallel.multihost.global_batch`` (a step under a mesh of several
+ranks) both losses are those of every rank's rows together, as the JAX
+losses over a batch sharded on the ``data`` axis: the cross-entropy's sum
+and count, and SILog's n, sum of g and then sum of (g - mean)^2, are summed
+over the ranks (``all_reduce_sum``, whose backward sums too). Every rank
+then holds the same loss; the train step back-propagates ``1 / world`` of
+it on each rank and sums the gradients (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ from __future__ import annotations
 import typing as t
 
 import torch
+
+from vision_mtl_tpu_torch.parallel.multihost import all_reduce_sum, batch_comm
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.dtype:
@@ -42,11 +52,17 @@ def cross_entropy_loss(
     in_range = (labels >= 0) & (labels < c)
     picked = torch.gather(logits, -1, labels.clamp(0, c - 1).unsqueeze(-1)).squeeze(-1)
     nll = lse - picked * in_range
+    comm = batch_comm()
     if valid is None:
-        return nll.mean()
-    w = valid.float()[:, None, None]
-    denom = torch.clamp(w.sum() * nll.shape[1] * nll.shape[2], min=1.0)
-    return (nll * w).sum() / denom
+        if comm is None:
+            return nll.mean()
+        num, count = nll.sum(), torch.tensor(float(nll.numel()), dtype=nll.dtype)
+    else:
+        w = valid.to(nll.dtype)[:, None, None]
+        num, count = (nll * w).sum(), w.sum() * nll.shape[1] * nll.shape[2]
+    if comm is not None:
+        num, count = all_reduce_sum(torch.stack([num, count.to(num.device)]), comm).unbind(0)
+    return num / torch.clamp(count, min=1.0)
 
 
 def silog_loss(
@@ -70,14 +86,21 @@ def silog_loss(
         mask = target > min_depth
     if valid is not None:
         mask = mask & (valid > 0).reshape((-1,) + (1,) * (mask.dim() - 1))
-    n = mask.float().sum()
+    comm = batch_comm()
+    n = mask.to(pred.dtype).sum()
     one = torch.ones((), device=pred.device)
     safe_target = torch.where(mask, target, one)
     safe_pred = torch.where(mask, torch.clamp(pred, min=1e-12), one)
     g = torch.where(mask, torch.log(safe_pred) - torch.log(safe_target), 0.0)
-    mean_g = g.sum() / torch.clamp(n, min=1.0)
+    sum_g = g.sum()
+    if comm is not None:
+        n, sum_g = all_reduce_sum(torch.stack([n, sum_g]), comm).unbind(0)
+    mean_g = sum_g / torch.clamp(n, min=1.0)
     # unbiased variance (torch.var default) with masked denominator n-1
-    var_g = torch.where(mask, (g - mean_g) ** 2, 0.0).sum() / torch.clamp(n - 1.0, min=1.0)
+    sq = torch.where(mask, (g - mean_g) ** 2, 0.0).sum()
+    if comm is not None:
+        sq = all_reduce_sum(sq, comm)
+    var_g = sq / torch.clamp(n - 1.0, min=1.0)
     dg = var_g + 0.15 * mean_g**2
     return 10.0 * torch.sqrt(torch.clamp(dg, min=0.0))
 

@@ -12,6 +12,12 @@ The confusion matrix of each update goes through the CUDA kernel
 pixels per cell in one update, beyond the 2^31 that the JAX package
 promises. The cross-batch accumulation is f32, as there: exact until a
 cell's total passes 2^24, then rounded with relative error <= 2^-24.
+
+Under several ranks each rank accumulates its own rows, and
+:func:`reduce_metrics` makes the state global: the ranks' confusion counts
+and pixel counts summed exactly, the absolute-error sums in f64. The loss
+sums and the step count stay as they are: every step's losses are already
+the global batch's (``losses.py``), the same on every rank.
 """
 
 from __future__ import annotations
@@ -151,4 +157,37 @@ def merge_metrics(a: MetricState, b: MetricState) -> MetricState:
     """Combine two accumulator states (e.g., across processes)."""
     return MetricState(
         **{f.name: getattr(a, f.name) + getattr(b, f.name) for f in dataclasses.fields(a)}
+    )
+
+
+def reduce_metrics(state: MetricState, comm: t.Any) -> MetricState:
+    """The state of every rank's rows together, the same on every rank
+    (``comm``: ``parallel.multihost.Comm``; None or one rank returns
+    ``state``). Collective: every rank calls it at the same point."""
+    if comm is None or comm.world <= 1:
+        return state
+    summed = torch.cat([state.confmat.reshape(-1), state.mae_sum.reshape(1),
+                        state.mae_count.reshape(1)]).double()
+    summed = comm.all_reduce_(summed).float()
+    c = state.num_classes
+    return dataclasses.replace(
+        state,
+        confmat=summed[: c * c].reshape(c, c),
+        mae_sum=summed[c * c],
+        mae_count=summed[c * c + 1],
+    )
+
+
+def rank_part(state: MetricState, comm: t.Any) -> MetricState:
+    """The part of a reduced ``state`` this rank carries so that
+    :func:`reduce_metrics` of the ranks' parts gives ``state`` back: rank 0
+    keeps it, the other ranks zero the summed fields (a resumed epoch's
+    accumulators restored on every rank)."""
+    if comm is None or comm.world <= 1 or comm.rank == 0:
+        return state
+    return dataclasses.replace(
+        state,
+        confmat=torch.zeros_like(state.confmat),
+        mae_sum=torch.zeros_like(state.mae_sum),
+        mae_count=torch.zeros_like(state.mae_count),
     )

@@ -15,6 +15,13 @@ running statistics, as the JAX package's ``train`` argument does.
 blocks on a space-to-depth folded tensor (``ops/fold.py``), with the same
 parameters at the same names. :func:`checkpointed` rematerialises a block
 in the backward pass, as flax's ``nn.remat`` does.
+
+Inside ``parallel.multihost.global_batch`` (the train step under a mesh of
+several ranks) a train-mode BatchNorm normalises with the statistics of the
+ranks' rows together, as a JAX BatchNorm over a batch sharded on the mesh's
+``data`` axis does: each rank's (rows, mean, M2) are gathered and combined
+in f64 in rank order, and the backward all-reduces the two per-channel sums
+it needs (:class:`GlobalBatchNorm`).
 """
 
 from __future__ import annotations
@@ -33,6 +40,13 @@ from torch import nn
 from vision_mtl_tpu_torch.kernels import small_conv as small_conv_kernel
 from vision_mtl_tpu_torch.ops import fold as fold_ops
 from vision_mtl_tpu_torch.ops import small_conv as small_conv_op
+from vision_mtl_tpu_torch.parallel.multihost import (
+    Comm,
+    all_gather_exact,
+    batch_comm,
+    combine_moments,
+    global_batch,
+)
 
 #: When True, the running-variance update of every train-mode BatchNorm
 #: (and of the attention gate's BNs) uses torch's UNBIASED n/(n-1) batch
@@ -61,17 +75,21 @@ _recompute = threading.local()
 
 
 @contextlib.contextmanager
-def _recomputing() -> t.Iterator[None]:
+def _recomputing(comm: t.Optional[Comm] = None) -> t.Iterator[None]:
     before = getattr(_recompute, "active", False)
     _recompute.active = True
     try:
-        yield
+        # the recompute runs in the backward pass, maybe on autograd's own
+        # thread: it takes the forward's ranks, so that it calls the same
+        # collectives in the same order on every rank
+        with global_batch(comm):
+            yield
     finally:
         _recompute.active = before
 
 
 def _remat_contexts() -> t.Tuple[t.ContextManager[None], t.ContextManager[None]]:
-    return contextlib.nullcontext(), _recomputing()
+    return contextlib.nullcontext(), _recomputing(batch_comm())
 
 
 def checkpointed(module: nn.Module, *args: t.Any) -> t.Any:
@@ -259,6 +277,12 @@ def batch_norm_nhwc(
             _to_nchw(x), running_mean, running_var, weight, bias, False, 0.0, eps
         )
         return _to_nhwc(y)
+    comm = batch_comm()
+    if comm is not None:
+        y, mean, var = GlobalBatchNorm.apply(_to_nchw(x), weight, bias, eps, comm)
+        n = x.numel() // x.shape[-1] * comm.world
+        update_running_stats(running_mean, running_var, mean, var, n)
+        return _to_nhwc(y)
     # native_batch_norm returns the batch mean and 1/sqrt(var + eps) it
     # normalised with; its backward differentiates through both
     y, mean, invstd = torch.native_batch_norm(
@@ -267,6 +291,51 @@ def batch_norm_nhwc(
     var = invstd.detach().double().pow(-2).sub(eps).clamp(min=0.0)
     update_running_stats(running_mean, running_var, mean.detach(), var, x.numel() // x.shape[-1])
     return _to_nhwc(y)
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of an NCHW ``x`` over the rows of every rank of
+    ``comm`` (each holds as many): ``(y, mean, var)`` with the global batch
+    mean and biased variance (f64, not differentiable).
+
+    Each rank's per-channel (rows, mean, M2) are taken in f32 (f64 for f64),
+    gathered exactly and combined in f64 in rank order (Chan's formula), so
+    every rank normalises with the same bits. The backward all-reduces
+    Σdy and Σdy·x̂ and returns this rank's rows' gradient; the weight's and
+    the bias's gradients are this rank's share, summed with the others'
+    by the step's gradient all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, comm):
+        cd = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(cd)
+        rows = x.numel() // x.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        mean_d = mean.double()
+        local = torch.stack([torch.full_like(mean_d, rows), mean_d, var.double() * rows])
+        n, gmean, m2 = combine_moments(all_gather_exact(local, comm)).unbind(0)
+        gvar = (m2 / n).clamp(min=0.0)
+        mean_c = gmean.to(cd)
+        invstd = torch.rsqrt(gvar + eps).to(cd)
+        x_hat = (xf - mean_c[:, None, None]) * invstd[:, None, None]
+        y = x_hat * weight.to(cd)[:, None, None] + bias.to(cd)[:, None, None]
+        ctx.save_for_backward(x, weight, mean_c, invstd)
+        ctx.comm, ctx.n = comm, rows * comm.world
+        ctx.mark_non_differentiable(gmean, gvar)
+        return y.to(x.dtype), gmean, gvar
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        x, weight, mean_c, invstd = ctx.saved_tensors
+        cd = mean_c.dtype
+        x_hat = (x.to(cd) - mean_c[:, None, None]) * invstd[:, None, None]
+        dyf = dy.to(cd)
+        local = torch.stack([dyf.sum((0, 2, 3)), (dyf * x_hat).sum((0, 2, 3))])
+        sum_dy, sum_dy_xhat = ctx.comm.all_reduce_(local.clone()) / ctx.n
+        dx = (weight.to(cd) * invstd)[:, None, None] * (
+            dyf - sum_dy[:, None, None] - x_hat * sum_dy_xhat[:, None, None]
+        )
+        return dx.to(x.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype), None, None
 
 
 class RawBatchNorm(BatchNorm):
@@ -348,8 +417,17 @@ class FoldedBatchNorm(BatchNorm):
             return fold_ops.folded_batch_norm(
                 y, self.running_mean, self.running_var, self.weight, self.bias, self.eps
             )
-        mean, var = fold_ops.folded_batch_stats(y)
         c = y.shape[-1] // 4
+        if batch_comm() is not None:
+            # the four phases are four more pixels of each channel: the
+            # unfolded BatchNorm over the ranks on a (B, Hf, Wf * 4, C) view
+            b, hf, wf, _ = y.shape
+            out = batch_norm_nhwc(
+                y.reshape(b, hf, wf * 4, c), self.weight, self.bias, self.running_mean,
+                self.running_var, self.eps, True,
+            )
+            return out.reshape(y.shape)
+        mean, var = fold_ops.folded_batch_stats(y)
         update_running_stats(
             self.running_mean, self.running_var, mean.detach(), var.detach(), y.numel() // c
         )

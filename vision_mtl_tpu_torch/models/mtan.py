@@ -59,6 +59,7 @@ from vision_mtl_tpu_torch.models.blocks import (
     update_running_stats,
 )
 from vision_mtl_tpu_torch.ops.interpolate import pad_concat, resize_bilinear_align_corners
+from vision_mtl_tpu_torch.parallel.multihost import batch_comm
 
 
 class GateChain(nn.Module):
@@ -68,7 +69,9 @@ class GateChain(nn.Module):
     runs the fused gate kernel. Train mode runs the three-pass kernel, which
     normalises with the batch statistics, and then updates the running
     statistics from them as the JAX GateChain does (retain 0.9, and the
-    n/(n-1) correction under the torch-running-var switch).
+    n/(n-1) correction under the torch-running-var switch). Inside
+    ``parallel.multihost.global_batch`` the statistics, their n included,
+    are those of every rank's rows (the kernel's staged call).
     """
 
     def __init__(self, in_ch: int, hidden: int, gate_features: int, eps: float = 1e-5):
@@ -98,11 +101,12 @@ class GateChain(nn.Module):
         x = x.to(shared.dtype).contiguous()
         shared = shared.contiguous()
         if self.training:
+            comm = batch_comm()
             out, mean1, var1, mean2, var2 = fused_attention_gate_train(
                 x, shared, self.w1, self.b1, self.scale1, self.bias1,
-                self.w2, self.b2, self.scale2, self.bias2, self.eps,
+                self.w2, self.b2, self.scale2, self.bias2, self.eps, comm=comm,
             )
-            n = x.numel() // x.shape[-1]
+            n = x.numel() // x.shape[-1] * (comm.world if comm is not None else 1)
             update_running_stats(self.mean1, self.var1, mean1, var1, n)
             update_running_stats(self.mean2, self.var2, mean2, var2, n)
             return out
@@ -147,11 +151,12 @@ class TaskGateChain(nn.Module):
         x = x.to(shared.dtype).contiguous()
         shared = shared.contiguous()
         if self.training:
+            comm = batch_comm()
             out, mean1, var1, mean2, var2 = fused_attention_gate_train_tasks(
                 x, shared, self.w1, self.b1, self.scale1, self.bias1,
-                self.w2, self.b2, self.scale2, self.bias2, self.eps,
+                self.w2, self.b2, self.scale2, self.bias2, self.eps, comm=comm,
             )
-            n = x[0].numel() // x.shape[-1]
+            n = x[0].numel() // x.shape[-1] * (comm.world if comm is not None else 1)
             update_running_stats(self.mean1, self.var1, mean1, var1, n)
             update_running_stats(self.mean2, self.var2, mean2, var2, n)
             return out

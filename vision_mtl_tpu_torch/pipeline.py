@@ -16,7 +16,9 @@ from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
 from vision_mtl_tpu_torch.models.blocks import set_torch_bn_running_var
 from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.tracking import MetricsLogger
-from vision_mtl_tpu_torch.tracking.comet import create_tracking_exp, log_params_to_exp
+from vision_mtl_tpu_torch.parallel.multihost import process_info
+from vision_mtl_tpu_torch.tracking.comet import NullExperiment, create_tracking_exp, log_params_to_exp
+from vision_mtl_tpu_torch.tracking.logger import publish_logger_failure
 from vision_mtl_tpu_torch.train.checkpoint import (
     _maybe_reference_torch_ckpt,
     load_args,
@@ -84,7 +86,9 @@ def init_model(
 def create_main_components(
     args: argparse.Namespace, data_cfg: DataConfig, device: t.Union[str, torch.device]
 ) -> t.Dict[str, t.Any]:
-    """Datamodule (set up), model and train state."""
+    """Datamodule (set up), model and train state. Under several ranks each
+    rank builds the whole model from the same seed (or restores the same
+    checkpoint) on its own device."""
     datamodule = MTLDataModule(
         dataset_name=args.dataset_name,
         batch_size=args.batch_size,
@@ -100,23 +104,37 @@ def create_main_components(
     return {"datamodule": datamodule, "model": model, "state": state}
 
 
-def create_tools(args: argparse.Namespace) -> t.Dict[str, t.Any]:
+def create_tools(args: argparse.Namespace, rendezvous_tag: str = "main") -> t.Dict[str, t.Any]:
     """The comet experiment and the metrics logger, whose run dir
     ``{log_root}/training-{model}[/{run_name}]/version_N`` also receives
     ``train_args.yaml`` and the checkpoints. A live experiment names the
     run (``args.run_name``) and gets the args and the tags (model, dataset,
-    ``--exp_tags``)."""
-    exp = create_tracking_exp(args)
-    if not args.exp_disabled and exp:
-        args.run_name = exp.name
-    log_params_to_exp(exp, vars(args), "args")
-    if exp:
-        exp.add_tags([args.model_name, args.dataset_name] + args.exp_tags)
+    ``--exp_tags``).
+
+    Under several ranks only rank 0 has an experiment (the others a falsy
+    ``NullExperiment``) and writes ``train_args.yaml``; every rank gets the
+    one run dir (the logger's rendezvous, keyed by ``rendezvous_tag``). A
+    failure of rank 0 before its logger reaches the other ranks."""
+    rank0 = process_info()[0] == 0
+    try:
+        exp = create_tracking_exp(args) if rank0 else NullExperiment()
+        if not args.exp_disabled and exp:
+            args.run_name = exp.name
+        log_params_to_exp(exp, vars(args), "args")
+        if exp:
+            exp.add_tags([args.model_name, args.dataset_name] + args.exp_tags)
+    except Exception as e:
+        publish_logger_failure(
+            f"tracking setup raised on rank 0 before the logger rendezvous "
+            f"({rendezvous_tag}): {type(e).__name__}: {e}"
+        )
+        raise
     log_subdir_name = f"training-{args.model_name}"
     if args.run_name:
         log_subdir_name += f"/{args.run_name}"
-    logger = MetricsLogger(str(cfg.log_root_dir), log_subdir_name)
-    log_args(args, f"{logger.log_dir}/train_args.yaml", exp=exp)
+    logger = MetricsLogger(str(cfg.log_root_dir), log_subdir_name, rendezvous_tag=rendezvous_tag)
+    if rank0:
+        log_args(args, f"{logger.log_dir}/train_args.yaml", exp=exp)
     return {"exp": exp, "logger": logger}
 
 

@@ -3,7 +3,12 @@ run the predict-eval step over batches, collect per-batch
 ``{"segm","depth"}`` predictions, accumulate predict-stage metrics when
 the batches carry ground truth, and optionally plot each batch's
 predictions (``vis.plot_preds``) to the experiment; ``save_preds`` writes
-the predictions."""
+the predictions.
+
+Under a ``mesh`` of several ranks each rank runs its rows of every batch;
+the ranks' predictions are gathered (exactly, in rank order, which is the
+dataset's order) and the metrics reduced, so every rank returns the whole
+sweep's; rank 0 writes ``preds.npz`` (``training.py``)."""
 
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ from torch import nn
 
 from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
-from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics
+from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics, reduce_metrics
+from vision_mtl_tpu_torch.parallel.multihost import all_gather_exact
 from vision_mtl_tpu_torch.train.step import make_predict_eval_step
 
 
@@ -29,6 +35,7 @@ def predict(
     loss_segm_weight: float = 1.0,
     loss_depth_weight: float = 1.0,
     device: t.Union[str, torch.device] = "cuda",
+    mesh: t.Any = None,
 ) -> t.Tuple[t.List[t.Dict[str, np.ndarray]], t.Dict[str, float]]:
     """Returns (list of per-batch pred dicts, predict-stage metrics).
 
@@ -39,22 +46,31 @@ def predict(
     Batches reach the device through ``prefetch_to_device`` (two in
     flight). With ``do_plot_preds`` each batch's plot goes to ``exp`` (and
     to the screen with ``do_show_preds``); a failed plot is printed and the
-    sweep goes on.
+    sweep goes on. Under a ``mesh`` (several ranks) ``batches`` yields this
+    rank's rows, ``device`` is its device, and only rank 0 plots.
     """
-    dev = resolve_device(device)
+    comm = mesh.comm if mesh is not None and mesh.world > 1 else None
+    dev = mesh.device if mesh is not None else resolve_device(device)
     step = make_predict_eval_step(
-        model, loss_segm_weight=loss_segm_weight, loss_depth_weight=loss_depth_weight
+        model, loss_segm_weight=loss_segm_weight, loss_depth_weight=loss_depth_weight, mesh=mesh
     )
     mstate = init_metrics(num_classes, dev)
     preds: t.List[t.Dict[str, np.ndarray]] = []
     for batch in prefetch_to_device(batches, dev, size=2):
         batch_preds, mstate, _ = step(batch, mstate)
+        valid = batch.get("valid")
+        if comm is not None:
+            # every rank's rows, in rank order: the global batch's order
+            batch_preds = {k: all_gather_exact(v, comm).flatten(0, 1)
+                           for k, v in batch_preds.items()}
+            if valid is not None:
+                valid = all_gather_exact(valid, comm).flatten(0, 1)
         host_preds = {k: v.cpu().numpy() for k, v in batch_preds.items()}
-        if "valid" in batch:
-            n_valid = int(batch["valid"].sum())
+        if valid is not None:
+            n_valid = int(valid.sum())
             host_preds = {k: v[:n_valid] for k, v in host_preds.items()}
         preds.append(host_preds)
-        if do_plot_preds:
+        if do_plot_preds and (comm is None or comm.rank == 0):
             try:
                 from vision_mtl_tpu_torch.vis import plot_preds
 
@@ -74,6 +90,7 @@ def predict(
                 print("plot failed:", e)
     if float(mstate.num_steps) == 0.0:
         return preds, {}
+    mstate = reduce_metrics(mstate, comm)
     predict_metrics = {f"predict/{k}": float(v) for k, v in compute_metrics(mstate).items()}
     return preds, predict_metrics
 

@@ -19,6 +19,13 @@ given: later training of the caller's module changes neither its answers
 nor is it touched by them. An exported program reaches kernels B1 and
 B3 through their operators (``torch.ops.vmtl.*``), which the kernels
 package registers when it is imported.
+
+With a ``mesh`` of several ranks (``parallel/mesh.py``), a ``Predictor``
+splits the request batch over the ranks: every rank is called with the same
+images, runs its rows on its own snapshot, and the answers are gathered
+exactly, so every rank returns the whole answer. A ``BatchingServer``
+takes requests on rank 0, which broadcasts each coalesced batch; the other
+ranks serve them through :meth:`BatchingServer.follow` until rank 0 closes.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.device import resolve_device
+from vision_mtl_tpu_torch.parallel.multihost import all_gather_exact
 from vision_mtl_tpu_torch.train.step import make_predict_step, predict_outputs
 
 
@@ -50,6 +58,11 @@ class Predictor:
     (raw; normalised on the device, /255 in f32). ``compact_out`` returns
     segm as uint8 (lossless: every head has <= 255 classes) and depth as
     float16, cutting the device-to-host payload.
+
+    ``mesh``: the ranks split each batch (``batch_size`` must divide by
+    their number) and every rank returns the whole answer; the model is
+    this rank's copy, on ``mesh.device``. Collective: every rank makes the
+    same calls with the same images.
     """
 
     def __init__(
@@ -62,8 +75,10 @@ class Predictor:
         dtype: t.Any = np.float32,
         compact_out: bool = False,
         device: t.Union[str, torch.device] = "cuda",
+        mesh: t.Any = None,
     ):
-        self.device = resolve_device(device)
+        self._comm = mesh.comm if mesh is not None and mesh.world > 1 else None
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         p = next(model.parameters())
         if p.device != self.device:
             raise ValueError(
@@ -80,10 +95,19 @@ class Predictor:
         if self.dtype not in (np.float32, np.uint8):
             raise ValueError(f"wire dtype must be float32 or uint8, got {self.dtype}")
         self.compact_out = compact_out
+        self._check_batch_size(batch_size)
+
+    def _check_batch_size(self, batch_size: int) -> None:
+        if self._comm is not None and batch_size % self._comm.world:
+            raise ValueError(
+                f"batch size {batch_size} does not divide over the mesh's {self._comm.world} "
+                "ranks (its data axis)"
+            )
 
     def _with_batch_size(self, batch_size: int) -> "Predictor":
         """This predictor, serving the same snapshot, at another batch
         size."""
+        self._check_batch_size(batch_size)
         other = copy.copy(self)
         other.batch_size = batch_size
         other.shape = (batch_size,) + self.shape[1:]
@@ -91,6 +115,8 @@ class Predictor:
 
     def _run(self, img: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         out = self._step(img)
+        if self._comm is not None:
+            out = {k: all_gather_exact(v, self._comm).flatten(0, 1) for k, v in out.items()}
         if self.compact_out:
             out = {"segm": out["segm"].to(torch.uint8), "depth": out["depth"].to(torch.float16)}
         return out
@@ -113,6 +139,9 @@ class Predictor:
         if n < self.batch_size:
             pad = np.repeat(imgs[-1:], self.batch_size - n, axis=0)
             imgs = np.concatenate([imgs, pad], axis=0)
+        if self._comm is not None:  # this rank's rows
+            per = self.batch_size // self._comm.world
+            imgs = imgs[self._comm.rank * per:(self._comm.rank + 1) * per]
         img = torch.from_numpy(np.ascontiguousarray(imgs))
         if self.device.type == "cuda":
             # from pinned memory the copy is queued, not waited for
@@ -144,6 +173,12 @@ class BatchingServer:
     backpressures the queue instead of piling device work.
 
     Thread-safe; use as a context manager or call :meth:`close`.
+
+    ``mesh`` (several ranks): every bucket is a :class:`Predictor` over the
+    ranks. Rank 0 takes the requests and broadcasts each batch it
+    dispatches; every other rank calls :meth:`follow`, which runs those
+    batches until rank 0's server closes. Each rank makes its collective
+    calls from one thread at a time: rank 0's worker, a follower's caller.
     """
 
     def __init__(
@@ -158,6 +193,7 @@ class BatchingServer:
         max_in_flight: int = 2,
         compact_out: bool = False,
         device: t.Union[str, torch.device] = "cuda",
+        mesh: t.Any = None,
     ):
         if max_in_flight < 1:
             raise ValueError(f"max_in_flight must be >= 1, got {max_in_flight}")
@@ -166,7 +202,8 @@ class BatchingServer:
         self._buckets = sorted(set(int(b) for b in buckets))
         # one snapshot of the model serves every bucket
         first = Predictor(model, self._buckets[0], height, width, channels=channels,
-                          dtype=dtype, compact_out=compact_out, device=device)
+                          dtype=dtype, compact_out=compact_out, device=device, mesh=mesh)
+        self._comm = first._comm
         self._predictors = {b: first._with_batch_size(b) for b in self._buckets}
         self._sample_shape = (height, width, channels)
         self._wire_dtype = np.dtype(dtype)
@@ -182,6 +219,8 @@ class BatchingServer:
         }
         # dispatched-but-unfetched batches; bounded so dispatch backpressures
         self._inflight: "queue.Queue[t.Optional[tuple]]" = queue.Queue(maxsize=max_in_flight)
+        if self._comm is not None and self._comm.rank != 0:
+            return  # a follower: no request queue of its own (follow)
         self._fetcher = threading.Thread(
             target=self._run_fetch, name="vmtl-batching-fetch", daemon=True
         )
@@ -203,6 +242,10 @@ class BatchingServer:
             )
         if img.dtype != self._wire_dtype:
             raise ValueError(f"server takes {self._wire_dtype} images, got {img.dtype}")
+        if self._comm is not None and self._comm.rank != 0:
+            raise RuntimeError(
+                f"rank {self._comm.rank} follows rank 0's batches: submit requests on rank 0"
+            )
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
         with self._lock:
             if self._closed:
@@ -237,12 +280,27 @@ class BatchingServer:
         )
         return s
 
+    def follow(self) -> None:
+        """A follower rank's serving loop: run each batch rank 0 broadcasts,
+        until rank 0's server closes."""
+        if self._comm is None or self._comm.rank == 0:
+            raise RuntimeError("follow() is for the ranks other than 0 of a mesh")
+        while True:
+            item = self._comm.broadcast_object(None)
+            if item is None:
+                return
+            bucket, imgs = item
+            pred = self._predictors[bucket]
+            pred.fetch(*pred.dispatch(imgs))
+
     def close(self) -> None:
         """Stop the workers after draining already-submitted requests."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+        if self._comm is not None and self._comm.rank != 0:
+            return
         self._queue.put(None)
         self._worker.join()
         self._fetcher.join()
@@ -295,6 +353,8 @@ class BatchingServer:
                     pending.append(item)
                 self._flush(pending)
         finally:
+            if self._comm is not None:
+                self._comm.broadcast_object(None)  # the followers return
             self._inflight.put(None)  # fetch thread drains, then exits
 
     def _flush(self, pending: t.List[tuple]) -> None:
@@ -304,6 +364,8 @@ class BatchingServer:
         bucket = next(b for b in self._buckets if b >= n)
         imgs = np.stack([img for img, _ in pending], axis=0)
         try:
+            if self._comm is not None:
+                self._comm.broadcast_object((bucket, imgs))
             out, _ = self._predictors[bucket].dispatch(imgs)
         except Exception as e:  # resolve, don't kill the worker
             for _, fut in pending:

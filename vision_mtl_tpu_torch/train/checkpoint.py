@@ -15,6 +15,10 @@ epoch's position and metric accumulators, and a ``preempt_meta.json``
 sidecar with the position, which ``resolve_resume`` compares with the
 newest epoch checkpoint.
 
+Under several ranks every rank holds the same state: rank 0 writes each
+checkpoint, then every rank passes a barrier, so no rank goes on (or
+restores) before the files are complete. Every rank restores.
+
 The names ``model_{e}.pt`` and ``session_{e}.pt`` belong to the reference
 PyTorch code's checkpoints (and to the JAX package's export of its runs):
 ``restore_state`` and ``restore_session`` import a run dir that holds them
@@ -39,6 +43,7 @@ import typing as t
 import torch
 
 from vision_mtl_tpu_torch.metrics import MetricState
+from vision_mtl_tpu_torch.parallel.multihost import current, process_info
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
 from vision_mtl_tpu_torch.utils.io import atomic_write_json
@@ -73,16 +78,33 @@ def _save_dir_atomic(obj: t.Any, path: str, filename: str) -> None:
         raise
 
 
+def _rank0_writes(write: t.Callable[[], None]) -> None:
+    """``write()`` on rank 0 (the only rank in one process), then a barrier
+    of every rank."""
+    if process_info()[0] == 0:
+        write()
+    comm = current()
+    if comm is not None and comm.world > 1:
+        comm.barrier()
+
+
 def save_ckpt(
     state: TrainState, scheduler: ReduceLROnPlateau, epoch: int, save_dir: str,
     exp: t.Any = None,
 ) -> t.Tuple[str, str]:
     """Write ``model_{epoch}`` and ``session_{epoch}``, and log both to
     ``exp`` if it is a live experiment; returns their paths. Blocks until
-    both are on disk."""
-    os.makedirs(save_dir, exist_ok=True)
+    both are on disk. Collective under several ranks (rank 0 writes)."""
     model_path = os.path.abspath(os.path.join(save_dir, f"model_{epoch}"))
     session_path = os.path.abspath(os.path.join(save_dir, f"session_{epoch}"))
+    _rank0_writes(lambda: _write_ckpt(state, scheduler, epoch, save_dir, exp, model_path,
+                                      session_path))
+    return model_path, session_path
+
+
+def _write_ckpt(state: TrainState, scheduler: ReduceLROnPlateau, epoch: int, save_dir: str,
+                exp: t.Any, model_path: str, session_path: str) -> None:
+    os.makedirs(save_dir, exist_ok=True)
     _save_dir_atomic(_to_cpu(state.model.state_dict()), model_path, MODEL_FILE)
     session = {
         "optimizer": _to_cpu(state.optimizer.state_dict()),
@@ -98,7 +120,6 @@ def save_ckpt(
         log_ckpt_to_exp(exp, model_path)
         log_ckpt_to_exp(exp, session_path)
     print(f"Saved model to {model_path}")
-    return model_path, session_path
 
 
 def _epochs(ckpt_dir: str, prefix: str) -> t.List[int]:
@@ -268,10 +289,20 @@ def save_preempt_ckpt(
     accumulators and the validation step counter. The caller waits for the
     device's queued work first. The position sidecar goes last, written
     atomically and synced: this runs inside the grace period, and a torn
-    sidecar would stop every later ``--auto_resume``."""
-    os.makedirs(save_dir, exist_ok=True)
+    sidecar would stop every later ``--auto_resume``. Collective under
+    several ranks (rank 0 writes)."""
     model_path = os.path.abspath(os.path.join(save_dir, PREEMPT_MODEL))
     session_path = os.path.abspath(os.path.join(save_dir, PREEMPT_SESSION))
+    _rank0_writes(lambda: _write_preempt_ckpt(
+        state, scheduler, epoch, batch_in_epoch, train_mstate, val_step, save_dir, model_path,
+        session_path))
+    return model_path, session_path
+
+
+def _write_preempt_ckpt(state: TrainState, scheduler: ReduceLROnPlateau, epoch: int,
+                        batch_in_epoch: int, train_mstate: MetricState, val_step: int,
+                        save_dir: str, model_path: str, session_path: str) -> None:
+    os.makedirs(save_dir, exist_ok=True)
     _save_dir_atomic(_to_cpu(state.model.state_dict()), model_path, MODEL_FILE)
     session = {
         "optimizer": _to_cpu(state.optimizer.state_dict()),
@@ -293,7 +324,6 @@ def save_preempt_ckpt(
         fsync=True,
     )
     print(f"Preemption checkpoint saved to {model_path} (epoch {epoch}, batch {batch_in_epoch})")
-    return model_path, session_path
 
 
 def _has_preempt_ckpt(ckpt_dir: str) -> bool:

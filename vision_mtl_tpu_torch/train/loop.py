@@ -1,5 +1,4 @@
-"""The training loop (counterpart of ``vision_mtl_tpu/train/loop.py``, one
-device).
+"""The training loop (counterpart of ``vision_mtl_tpu/train/loop.py``).
 
 Per epoch: the train steps over batches copied to the device ahead of use
 (``prefetch_to_device``), the epoch's metrics, every ``val_epoch_freq``
@@ -19,6 +18,12 @@ datamodule's benchmark batch and logs the plot (``vis.plot_preds``).
 A ``PreemptionGuard`` (``train/preempt.py``) is polled after every train
 and validation step and once after each epoch's checkpoint; a request
 writes a checkpoint and exits 143 (``_preempt_exit``).
+
+Under a ``mesh`` of several ranks every rank runs this loop in step with
+the others on its own rows (``data/loader.py``) and device: the epoch's
+metrics are the ranks' reduced ones (``metrics.reduce_metrics``), rank 0
+writes the checkpoints and prunes old ones while the others wait at a
+barrier, and the benchmark batch is used only when every rank loaded it.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ from collections import defaultdict
 
 import torch
 
-from vision_mtl_tpu_torch.data.datamodule import MTLDataModule
+from vision_mtl_tpu_torch.data.datamodule import MTLDataModule, configure_host_sharded_loading
 from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
-from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metrics
+from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metrics, reduce_metrics
+from vision_mtl_tpu_torch.parallel.multihost import all_processes_agree
 from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt, save_preempt_ckpt
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
@@ -149,6 +155,7 @@ def run_pipe(
     initial_train_mstate: t.Optional[MetricState] = None,
     start_val_step: int = 0,
     device: t.Union[str, torch.device] = "cuda",
+    mesh: t.Any = None,
 ) -> t.Tuple[TrainState, t.Dict[str, t.Dict[str, list]]]:
     """Train ``state`` from ``start_epoch`` to ``num_epochs``; returns the
     state and the epoch metrics. Checkpoints go to ``logger.log_dir``.
@@ -164,23 +171,38 @@ def run_pipe(
     ``start_batch``, ``initial_train_mstate`` and ``start_val_step``
     continue an interrupted epoch exactly (``checkpoint.restore_preempt``):
     the loader skips the batches of ``start_epoch``'s order already
-    trained, and the epoch's accumulators go on from where they stopped."""
-    dev = resolve_device(device)
+    trained, and the epoch's accumulators go on from where they stopped.
+
+    ``mesh`` (``parallel/mesh.py``, several ranks): this rank's part of a
+    data-parallel run on ``mesh.device``; every rank calls ``run_pipe``
+    with the same arguments."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    comm = mesh.comm if mesh is not None else None
+    rank0 = comm is None or comm.rank == 0
+    configure_host_sharded_loading(datamodule, mesh)
     train_step = make_train_step(
         loss_segm_weight=args.loss_segm_weight,
         loss_depth_weight=args.loss_depth_weight,
         grad_accum_steps=getattr(args, "grad_accum_steps", 1),
         device=dev,
+        mesh=mesh,
     )
     eval_step = make_eval_step(
         loss_segm_weight=args.loss_segm_weight,
         loss_depth_weight=args.loss_depth_weight,
         device=dev,
+        mesh=mesh,
     )
     predict_step = make_predict_step(state.model)
     if scheduler is None:
         scheduler = ReduceLROnPlateau(patience=2, factor=0.9)
     benchmark_batch = datamodule.benchmark_batch
+    # every rank or none: a rank whose load failed would leave the others'
+    # plots out of step with its own
+    if not all_processes_agree(benchmark_batch is not None, "benchmark_batch", comm):
+        if benchmark_batch is not None:
+            print("benchmark batch dropped: at least one rank failed to load it")
+        benchmark_batch = None
     if benchmark_batch is None:
         print("A batch for benchmarking is not found.")
 
@@ -214,8 +236,8 @@ def run_pipe(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         if logger is not None:
-            save_preempt_ckpt(state, scheduler, epoch, batch_in_epoch, mstate_, val_step_,
-                              save_dir=logger.log_dir)
+            save_preempt_ckpt(state, scheduler, epoch, batch_in_epoch,
+                              reduce_metrics(mstate_, comm), val_step_, save_dir=logger.log_dir)
         else:
             print("Preemption requested but run_pipe has no logger: no checkpoint dir to "
                   "write; exiting without saving.")
@@ -251,7 +273,7 @@ def run_pipe(
 
         # reading the metrics waits for the epoch's work: the epoch's time
         # is end to end (host decode, copies and steps)
-        train_metrics = _metrics_float(mstate)
+        train_metrics = _metrics_float(reduce_metrics(mstate, comm))
         epoch_dt = time.perf_counter() - epoch_t0
         imgs_seen = (batch_in_epoch - epoch_start_batch) * train_loader.batch_size
         if epoch_dt > 0 and imgs_seen > 0:
@@ -272,7 +294,7 @@ def run_pipe(
 
         if (epoch + 1) % args.val_epoch_freq == 0:
             want_benchmark = bool(exp) or getattr(args, "do_plot_preds", False)
-            if benchmark_batch is not None and want_benchmark:
+            if benchmark_batch is not None and want_benchmark and rank0:
                 # the eval-mode forward; only the plotting is best-effort
                 preds = predict_step(torch.from_numpy(benchmark_batch["img"]).to(dev))
                 _plot_benchmark(args, benchmark_batch, preds, exp, logger, epoch)
@@ -290,6 +312,7 @@ def run_pipe(
                     _preempt_exit(batches, epoch, batch_in_epoch, mstate, val_step0)
             val_log.flush()
 
+            val_mstate = reduce_metrics(val_mstate, comm)
             val_metrics = _host_floats(
                 {**compute_metrics(val_mstate), "loss_sum": val_mstate.loss_sum}
             )
@@ -314,7 +337,8 @@ def run_pipe(
         epoch_saved = (epoch + 1) % args.save_epoch_freq == 0 or epoch == num_epochs - 1
         if epoch_saved and logger is not None:
             save_ckpt(state, scheduler, epoch, save_dir=logger.log_dir, exp=exp)
-            prune_old_ckpts(logger.log_dir, getattr(args, "keep_ckpt_last_k", 0))
+            if rank0:
+                prune_old_ckpts(logger.log_dir, getattr(args, "keep_ckpt_last_k", 0))
 
         # a request after the epoch's last poll: the epoch, its scheduler
         # step included, is complete, so an epoch checkpoint resumes it

@@ -1,4 +1,4 @@
-"""Preemption-safe training in one process (counterpart of
+"""Preemption-safe training (counterpart of
 ``vision_mtl_tpu/train/preempt.py``).
 
 A preemptible machine gets a SIGTERM and a short grace period before it
@@ -15,8 +15,11 @@ ends with the uninterrupted run's weights.
 Fault injection: ``VMTL_PREEMPT_AT_STEP=<k>`` (or ``inject_at_step=k``)
 fires the guard once the global step reaches ``k``.
 
-Several processes (the JAX package's preemption sync point across hosts)
-wait for the parallel slice, ROADMAP.md A10.
+Several ranks decide together, as the JAX package's preemption sync point
+does across hosts: a rank's SIGTERM or injected step sets its own flag, and
+every poll takes the MAX of the flags over the ranks (one small host
+all-reduce), so every rank sees the request at the same poll, saves with
+the others and exits 143.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 import os
 import signal
 import typing as t
+
+from vision_mtl_tpu_torch.parallel.multihost import Comm, current
 
 
 class PreemptionGuard:
@@ -35,8 +40,11 @@ class PreemptionGuard:
         self,
         signals: t.Sequence[int] = (signal.SIGTERM,),
         inject_at_step: t.Optional[int] = None,
+        comm: t.Optional[Comm] = None,
     ):
         self._flag = False
+        # the run's ranks, polled together; None or one rank: local only
+        self._comm = comm if comm is not None else current()
         if inject_at_step is None:
             env = os.environ.get("VMTL_PREEMPT_AT_STEP")
             inject_at_step = int(env) if env else None
@@ -52,7 +60,10 @@ class PreemptionGuard:
         self._flag = True
 
     def requested(self, global_step: int) -> bool:
-        """True once a signal arrived or the injected step is reached."""
-        if self._inject_at is not None and global_step >= self._inject_at:
-            return True
-        return self._flag
+        """True once a signal arrived or the injected step is reached, on
+        this rank or, under several ranks, on any (collective: every rank
+        polls at the same points)."""
+        local = self._flag or (self._inject_at is not None and global_step >= self._inject_at)
+        if self._comm is None or self._comm.world <= 1:
+            return local
+        return bool(self._comm.host_all_reduce([int(local)], "max")[0])

@@ -8,6 +8,15 @@ step -> metric update; it runs with autograd on. The eval and predict steps
 run under ``torch.inference_mode``. Each step sets the model's mode for its
 own forward and restores it after. Steps return without synchronising:
 reading a result on the host is the sync.
+
+Given a ``mesh`` of several ranks (``parallel/mesh.py``, the ``data``
+axis), each rank's step takes its own rows of the global batch and runs
+inside ``multihost.global_batch``: train-mode batch statistics and the
+losses are the global batch's. The train step back-propagates ``1 /
+world`` of the global loss on every rank and then sums the gradients over
+the ranks, once per step, in one flat buffer, before Adam: every rank's
+parameters and Adam moments stay bit for bit equal. The metric states stay
+per rank until ``metrics.reduce_metrics``.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from torch import nn
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.losses import mtl_loss
 from vision_mtl_tpu_torch.metrics import MetricState, update_metrics
+from vision_mtl_tpu_torch.parallel.multihost import Comm, global_batch
 from vision_mtl_tpu_torch.train.state import TrainState
 
 Batch = t.Dict[str, torch.Tensor]
@@ -103,15 +113,22 @@ def _update(mstate: MetricState, post: Batch, batch: Batch, losses: Losses) -> M
     )
 
 
+def _comm(mesh: t.Any) -> t.Optional[Comm]:
+    """The mesh's ranks when there are several, else None."""
+    return mesh.comm if mesh is not None and mesh.world > 1 else None
+
+
 def make_predict_eval_step(
     model: nn.Module,
     loss_segm_weight: float = 1.0,
     loss_depth_weight: float = 1.0,
+    mesh: t.Any = None,
 ) -> t.Callable[[Batch, MetricState], t.Tuple[Batch, MetricState, Losses]]:
     """Returns ``step(batch, mstate) -> (preds, mstate, losses)``: one
     eval-mode pass that returns predictions and, when the batch has ground
-    truth ("mask" and "depth"), its losses and the metric state updated with
-    it."""
+    truth ("mask" and "depth"), its losses (the global batch's under a
+    ``mesh``) and the metric state updated with it."""
+    comm = _comm(mesh)
 
     @torch.inference_mode()
     def step(batch: Batch, mstate: MetricState):
@@ -121,7 +138,8 @@ def make_predict_eval_step(
         preds = {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
         if "mask" not in batch or "depth" not in batch:
             return preds, mstate, {}
-        losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)
+        with global_batch(comm):
+            losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)
         return preds, _update(mstate, post, batch, losses), losses
 
     return step
@@ -146,6 +164,7 @@ def make_train_step(
     loss_depth_weight: float = 1.0,
     grad_accum_steps: int = 1,
     device: t.Union[str, torch.device] = "cuda",
+    mesh: t.Any = None,
 ) -> t.Callable[[TrainState, Batch, MetricState], t.Tuple[TrainState, MetricState, Losses]]:
     """Returns ``step(state, batch, mstate) -> (state, mstate, losses)``: one
     optimizer step of ``state.model`` on the batch, moved to ``device`` first
@@ -158,16 +177,21 @@ def make_train_step(
     microbatch to the next; gradients and losses are averaged; the metric
     state counts one step, with the loss sums corrected to add the averages.
     The SILog depth loss is not linear in the batch, so the accumulated loss
-    differs from the full-batch one.
+    differs from the full-batch one. Under a ``mesh`` of several ranks,
+    ``batch`` is this rank's rows and ``device`` its device; microbatch i is
+    every rank's i-th slice of its rows together.
     """
     dev = resolve_device(device)
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    comm = _comm(mesh)
+    # every rank holds the global loss: each back-propagates its share
+    seed = 1.0 / (grad_accum_steps * (comm.world if comm is not None else 1))
 
     def micro(model: nn.Module, mb: Batch, mstate: MetricState) -> t.Tuple[Losses, MetricState]:
         post = postprocess_raw_out(model(mb["img"]))
         losses = _losses(post, mb, loss_segm_weight, loss_depth_weight)
-        (losses["loss"] / grad_accum_steps).backward()
+        (losses["loss"] * seed).backward()
         with torch.no_grad():  # the metric state keeps no graph alive
             losses = {k: v.detach() for k, v in losses.items()}
             return losses, _update(mstate, post, mb, losses)
@@ -175,7 +199,7 @@ def make_train_step(
     def step(state: TrainState, batch: Batch, mstate: MetricState):
         batch = _to_device(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
-        with _mode(state.model, True):
+        with _mode(state.model, True), global_batch(comm):
             if grad_accum_steps == 1:
                 losses, mstate = micro(state.model, batch, mstate)
             else:
@@ -201,11 +225,24 @@ def make_train_step(
                     loss_segm_sum=mstate.loss_segm_sum - losses["loss_segm"] * (k - 1),
                     loss_depth_sum=mstate.loss_depth_sum - losses["loss_depth"] * (k - 1),
                 )
+        if comm is not None:
+            all_reduce_grads(state.model, comm)
         state.optimizer.step()
         state.step += 1
         return state, mstate, losses
 
     return step
+
+
+def all_reduce_grads(model: nn.Module, comm: Comm) -> None:
+    """Sum every parameter's gradient over the ranks: one all-reduce of one
+    flat buffer per gradient dtype, in parameter order."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        group = [g for g in grads if g.dtype == dtype]
+        flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in group]))
+        for g, part in zip(group, flat.split([g.numel() for g in group])):
+            g.copy_(part.view_as(g))
 
 
 def _split(batch: Batch, k: int) -> t.List[Batch]:
@@ -217,18 +254,22 @@ def make_eval_step(
     loss_segm_weight: float = 1.0,
     loss_depth_weight: float = 1.0,
     device: t.Union[str, torch.device] = "cuda",
+    mesh: t.Any = None,
 ) -> t.Callable[[TrainState, Batch, MetricState], t.Tuple[MetricState, Losses]]:
     """Returns ``step(state, batch, mstate) -> (mstate, losses)``: an
-    eval-mode forward of ``state.model`` (running statistics) with losses and
-    the metric update, under ``torch.inference_mode``."""
+    eval-mode forward of ``state.model`` (running statistics) with losses
+    (the global batch's under a ``mesh``) and the metric update, under
+    ``torch.inference_mode``."""
     dev = resolve_device(device)
+    comm = _comm(mesh)
 
     @torch.inference_mode()
     def step(state: TrainState, batch: Batch, mstate: MetricState):
         batch = _to_device(batch, dev)
         with _mode(state.model, False):
             post = postprocess_raw_out(state.model(batch["img"]))
-        losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)
+        with global_batch(comm):
+            losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)
         return _update(mstate, post, batch, losses), losses
 
     return step

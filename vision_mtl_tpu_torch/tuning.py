@@ -8,7 +8,10 @@ optuna's (a seeded ``TPESampler`` and its ``MedianPruner``); without it, a
 seeded uniform sweep with :class:`MedianPruner` does the same.
 
 Trials run on threads (``--n_jobs``) on the CPU; on the card they run one
-after another, since one card is one queue.
+after another, since one card is one queue. Under several ranks (a
+``mesh``) the trials run one after another in lockstep on every rank: each
+rank draws the same seeded suggestions, trains its rows, and prunes on the
+ranks' reduced validation metrics, so all ranks prune together.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from vision_mtl_tpu_torch.cfg import DataConfig
 from vision_mtl_tpu_torch.device import resolve_device
+from vision_mtl_tpu_torch.parallel.multihost import process_info
 from vision_mtl_tpu_torch.pipeline import create_main_components, create_tools
 from vision_mtl_tpu_torch.train.loop import run_pipe
 from vision_mtl_tpu_torch.utils.args import torch_device, update_args
@@ -71,6 +75,13 @@ def _effective_n_jobs(args: argparse.Namespace) -> int:
     card, whose trials share one queue (concurrent trials would only mix
     their step times and memory)."""
     n_jobs = getattr(args, "n_jobs", 1) or 1
+    world = process_info()[1]
+    if world > 1 and n_jobs != 1:
+        # every rank must run the same collectives in the same order, and
+        # thread-parallel trials would also cross the loggers' rendezvous
+        print(f"n_jobs={n_jobs} ignored under {world} ranks: trials must run in lockstep; "
+              "running serially")
+        return 1
     device = torch.device(torch_device(getattr(args, "device", "cuda")))
     if device.type != "cpu" and n_jobs != 1:
         print(f"n_jobs={n_jobs} ignored on {device.type}: "
@@ -85,6 +96,7 @@ def _run_trial(
     loss_weights: t.Mapping[str, float],
     tag: str,
     epoch_callback: t.Optional[t.Callable[[int, t.Dict[str, float]], None]] = None,
+    mesh: t.Any = None,
 ) -> float:
     """One training trial in a run dir of its own; returns its mean
     validation accuracy. ``epoch_callback`` goes to ``run_pipe``; a pruning
@@ -92,9 +104,9 @@ def _run_trial(
     closed."""
     args = copy.deepcopy(args)
     args = update_args(args, dict(loss_weights))
-    device = resolve_device(torch_device(args.device))
+    device = mesh.device if mesh is not None else resolve_device(torch_device(args.device))
     components = create_main_components(args, data_cfg, device)
-    tools = create_tools(args)
+    tools = create_tools(args, rendezvous_tag=tag)
     exp, logger = tools["exp"], tools["logger"]
     if exp:
         exp.add_tags([tag])
@@ -109,6 +121,7 @@ def _run_trial(
             logger=logger,
             epoch_callback=epoch_callback,
             device=device,
+            mesh=mesh,
         )
     finally:
         if exp:
@@ -119,9 +132,10 @@ def _run_trial(
 
 
 def run_study(
-    args: argparse.Namespace, data_cfg: DataConfig, trial_epochs: int = 3
+    args: argparse.Namespace, data_cfg: DataConfig, trial_epochs: int = 3, mesh: t.Any = None
 ) -> t.Dict[str, float]:
-    """Returns the best ``{loss_segm_weight, loss_depth_weight}``."""
+    """Returns the best ``{loss_segm_weight, loss_depth_weight}``; under a
+    ``mesh``, every rank's trials run in lockstep with the others'."""
     args = copy.deepcopy(args)
     args.num_epochs = trial_epochs
 
@@ -147,7 +161,7 @@ def run_study(
                     raise optuna.TrialPruned()
 
             return _run_trial(args, data_cfg, weights, f"trial_{trial.number}",
-                              epoch_callback=cb)
+                              epoch_callback=cb, mesh=mesh)
 
         study.optimize(objective, n_trials=args.n_trials, n_jobs=_effective_n_jobs(args))
         print("Best trial:", study.best_trial.value, study.best_trial.params)
@@ -170,7 +184,8 @@ def run_study(
             pruner.report(len(history) - 1, acc)
 
         try:
-            score = _run_trial(args, data_cfg, all_weights[i], f"trial_{i}", epoch_callback=cb)
+            score = _run_trial(args, data_cfg, all_weights[i], f"trial_{i}", epoch_callback=cb,
+                               mesh=mesh)
         except TrialPruned as e:
             # as in optuna, only complete trials can be best
             print(f"trial {i}: {all_weights[i]} pruned ({e})")

@@ -4,7 +4,9 @@
 
 Flags whose feature the port does not have yet are parsed, and
 :func:`check_ported` refuses a value other than their default, naming the
-ROADMAP.md item that ports it.
+ROADMAP.md item that ports it; it also refuses a ``--mesh_shape`` axis the
+port does not run (``spatial`` or ``model`` above 1, ROADMAP.md A10b).
+``--device cpu:N`` runs N ranks on the CPU (``training.main``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def parse_args(argv: t.Optional[t.Sequence[str]] = None) -> argparse.Namespace:
     pipe_args.add_argument(
         "--device",
         default="cuda",
-        help="'cuda' (default: the card; raises without one) or 'cpu'.",
+        help="'cuda' (default: the card; raises without one), 'cpu', or 'cpu:N' for N "
+        "data-parallel ranks on the CPU.",
     )
     pipe_args.add_argument("--exp_tags", nargs="*", default=[])
 
@@ -115,10 +118,9 @@ def parse_args(argv: t.Optional[t.Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
-# flag: (its default, the ROADMAP.md item that ports its feature)
-NOT_PORTED: t.Dict[str, t.Tuple[t.Any, str]] = {
-    "mesh_shape": ("data:-1", "A10 (parallel)"),
-}
+# flag: (its default, the ROADMAP.md item that ports its feature); none is
+# left
+NOT_PORTED: t.Dict[str, t.Tuple[t.Any, str]] = {}
 
 
 def update_args(args: argparse.Namespace, kv_map: t.Mapping[str, t.Any]) -> argparse.Namespace:
@@ -131,24 +133,40 @@ def update_args(args: argparse.Namespace, kv_map: t.Mapping[str, t.Any]) -> argp
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Refuse, with SystemExit, a flag whose feature is not ported, and a
-    ``--device`` the port cannot run."""
+    """Refuse, with SystemExit, a flag whose feature is not ported, a mesh
+    axis the port does not run, and a ``--device`` it cannot run."""
     for flag, (default, item) in NOT_PORTED.items():
         if getattr(args, flag) != default:
             raise SystemExit(
                 f"--{flag} {getattr(args, flag)!r}: not ported to vision_mtl_tpu_torch "
                 f"yet, see ROADMAP.md {item}"
             )
-    device = args.device
-    if device.startswith("cpu:") and device != "cpu:1":
-        raise SystemExit(
-            f"--device {device!r}: the port runs on one device; several CPU devices "
-            "are ROADMAP.md A10 (parallel)"
-        )
+    from vision_mtl_tpu_torch.parallel.mesh import refuse_unported_axes
+
+    sizes: t.Dict[str, int] = {}
+    for part in args.mesh_shape.split(","):
+        name, _, size = part.strip().partition(":")
+        if size.lstrip("-").isdigit():
+            sizes[name] = int(size)
+    refuse_unported_axes(sizes, args.mesh_shape)
+    cpu_ranks(args.device)
+
+
+def cpu_ranks(device: str) -> int:
+    """N of ``--device cpu:N`` (1 for ``cpu``, 0 for a card); SystemExit for
+    a malformed N."""
+    if not device.startswith("cpu"):
+        return 0
+    if device == "cpu":
+        return 1
+    n = device[len("cpu:"):]
+    if not device.startswith("cpu:") or not n.isdigit() or int(n) < 1:
+        raise SystemExit(f"--device {device!r}: expected cpu or cpu:N with N >= 1")
+    return int(n)
 
 
 def torch_device(device: str) -> str:
-    """The torch device string of a ``--device`` value (``cpu:1`` is the
-    one CPU device)."""
+    """The torch device string of a ``--device`` value (``cpu:N`` runs each
+    rank on the CPU)."""
     return "cpu" if device.startswith("cpu") else device
 
