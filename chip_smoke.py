@@ -137,10 +137,27 @@ tree (one run dir, one checkpoint, the same weights on every rank). Each
 path's launches are counted exactly per rank (B4's staged calls under
 ``fused_attention_gate_train_ranks``).
 
-``--parallel`` builds the kernels and runs the MTAN f32 check against the
-CPU (for its limits), MTAN's bf16 steps (for the one-process p50) and the
-``parallel`` phase alone, then prints the card's name and power limit and
-no ``ok`` line: a development run, and the phase over several cards.
+The ``spatial`` phase (the mesh's ``spatial`` axis: image rows split over
+the ranks, a halo exchange around every conv and resize) runs in the same
+rank processes right after, over ``spatial:2`` (two ranks sharing one
+card) or ``data:N/2,spatial:2`` (a card each); each rank holds its block of
+the global batch 8 (its images, their rows). For MTAN and basic at full
+width: one f32 step held to a one-process f32 step the parent takes
+(the f32 check's limits, each model's own); 1 + 3 bf16 steps after which
+every rank holds the same parameters and Adam moments bit for bit, their
+p50 beside the one-process step's; B3 timed on the halo'd row blocks
+basic's step gave it, against its plain version; B4's staged call at the
+blocks' gate shapes; MTAN's ``Predictor(8, mesh=)`` against the
+one-process answer, whole on every rank; the training CLI in process for
+one MTAN epoch over the mesh on the ``cli`` tree (every rank decodes whole
+batches and keeps its block). Launches are counted exactly per rank: B4's
+staged calls and B3's convs run on the row blocks.
+
+``--parallel`` builds the kernels and runs the MTAN and basic f32 checks
+against the CPU (for their limits), their bf16 steps (for the one-process
+p50s) and the ``parallel`` and ``spatial`` phases alone, then prints the
+card's name and power limit and no ``ok`` line: a development run, and the
+phases over several cards.
 
 ``--kernels`` times the eval gate and the confusion matrix only (the
 ``gate_shapes`` and ``confmat_mixes`` lines, then the card's name and power
@@ -237,8 +254,8 @@ bare step's img/s of the training phase, the loader's img/s alone and with
 the copies to the card, and the card's idle share over one more epoch of
 the loop, from torch.profiler), the per-shape and per-call kernel lines at
 the NYUv2 shapes and the ``nyuv2`` line, the ``task_gate_shapes`` line,
-the ``interop``, ``options`` and ``parallel`` lines, the ``timing`` line (the kernels'
-build and the whole run, in seconds), the ``kernels`` JSON line (each entry
+the ``interop``, ``options``, ``parallel`` and ``spatial`` lines, the ``timing`` line (the
+kernels' build and the whole run, in seconds), the ``kernels`` JSON line (each entry
 with its ``nyuv2`` numbers beside), the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3183,6 +3200,19 @@ import sys
 import chip_smoke
 sys.exit(chip_smoke.parallel_rank(sys.argv[1]))
 """
+# the spatial phase: the mesh's spatial axis over the same ranks, MTAN and
+# basic; 1 + SPATIAL_BF16_STEPS bf16 steps each
+SPATIAL_MODELS = ("mtan", "basic")
+SPATIAL_BF16_STEPS = 3
+# a train step under ranks: MTAN's gates take B4's staged call, basic's 4 B3
+# convs (and their dx) run on row blocks with one halo row each side
+PER_SPATIAL_TRAIN_STEP = {"mtan": PER_RANK_TRAIN_STEP, "basic": PER_TRAIN_STEP["basic"]}
+
+
+def spatial_spec(world: int) -> str:
+    """The mesh of the ``spatial`` phase: two ranks (sharing one card) split
+    the image rows; four (a card each) split the batch and the rows."""
+    return "spatial:2" if world == 2 else f"data:{world // 2},spatial:2"
 
 
 def parallel_world() -> int:
@@ -3213,16 +3243,18 @@ def train_tensors(state) -> list:
     return params + moments
 
 
-def rank_gate_times(fused_gate_train, comm, dev) -> tuple:
-    """B4's staged call at MTAN's 8 gate shapes on this rank's rows of the
-    batch (bf16, as the main path): against the plain version's split,
-    timed with CUDA events around 10 calls (the gathers between the passes
-    included). Per train step: two tasks a level."""
+def rank_gate_times(fused_gate_train, comm, dev, rows: int = 0, split_h: int = 1) -> tuple:
+    """B4's staged call at MTAN's 8 gate shapes on this rank's block of the
+    batch (``rows`` images, ``BATCH / world`` by default, and ``1 /
+    split_h`` of their rows; bf16, as the main path): against the plain
+    version's split, timed with CUDA events around 10 calls (the gathers
+    between the passes included). Per train step: two tasks a level."""
     gen = torch.Generator(device=dev).manual_seed(10 + comm.rank)
-    per = BATCH // comm.world
+    per = rows or BATCH // comm.world
     rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
     for level, cin, c2, h, w in GATE_SHAPES:
+        h //= split_h
         def uniform(*shape, bound=1.0):
             return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
@@ -3270,17 +3302,277 @@ def rank_gate_times(fused_gate_train, comm, dev) -> tuple:
     return rows, totals
 
 
+def time_recorded(calls: list, fn, plain) -> dict:
+    """B3's wrapper ``fn`` on each input it was given in one step (the row
+    blocks with their halo rows) against ``plain`` on the same inputs: max
+    |diff| (bf16: within one bf16 step of the plain output), CUDA-event ms
+    of all the calls together for the kernel, the plain version and one
+    cuDNN ``F.conv2d`` each, and the bound of the calls' bytes and products
+    (the input and weights read once, the output written once)."""
+    import torch.nn.functional as F
+
+    err = nbytes = flops = 0.0
+    library_args = []
+    with torch.no_grad():
+        for x, k, bias in calls:
+            got, want = fn(x, k, bias), plain(x, k, bias)
+            d = float((got.float() - want.float()).abs().max())
+            if not d <= max(2.0**-7 * float(want.float().abs().max()) + 1e-6, 1e-4):
+                fail(f"conv3x3_small on a row block {tuple(x.shape)}: max |diff| {d}")
+            err = max(err, d)
+            n, (c, o) = x.shape[0] * x.shape[1] * x.shape[2], k.shape[2:]
+            es = x.element_size()
+            nbytes += es * n * (c + o) + es * 9 * c * o + (4 * o if bias is not None else 0)
+            flops += 2.0 * n * 9 * c * o
+            library_args.append((x.permute(0, 3, 1, 2), k.to(x.dtype).permute(3, 2, 0, 1)
+                                 .contiguous(), None if bias is None else bias.to(x.dtype)))
+
+        ms = time_ms(lambda: [fn(*a) for a in calls], iters=10, warmup=2)
+        plain_ms = time_ms(lambda: [plain(*a) for a in calls], iters=5, warmup=1)
+        library_ms = time_ms(lambda: [F.conv2d(x, w, b, padding=1) for x, w, b in library_args],
+                             iters=10, warmup=2)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "calls": len(calls),
+            "shapes": sorted({tuple(x.shape) for x, _, _ in calls})}
+
+
+def count_exchanges(comm, fn) -> dict:
+    """``fn()`` with every all-reduce of ``comm`` counted by what made it,
+    read from the call stack: the halo exchanges of ``parallel/halo.py``
+    (forward and backward), its row gathers, and the others (the group sums
+    of the SE means and the losses, the BN and B4 statistics, the gradient
+    all-reduce). One step's worth: the stack walk is not free."""
+    import traceback
+
+    counts: dict = {}
+    real = comm.all_reduce_
+
+    def counted(tensor, op="sum"):
+        frames = traceback.extract_stack(limit=12)
+        in_halo = [f.name for f in frames if f.filename.endswith(os.path.join("parallel", "halo.py"))]
+        kind = ("halo_" + ("backward" if "backward" in in_halo else "forward") if
+                ("forward" in in_halo or "backward" in in_halo) else
+                "gather_rows" if "gather_rows" in in_halo else "other")
+        counts[kind] = counts.get(kind, 0) + 1
+        return real(tensor, op)
+
+    comm.all_reduce_ = counted
+    try:
+        fn()
+    finally:
+        del comm.all_reduce_
+    return counts
+
+
+def spatial_rank(comm, out_dir: str) -> dict:
+    """The ``spatial`` phase on one rank: the mesh of :func:`spatial_spec`
+    over the ``parallel`` phase's ranks. Per model (MTAN, basic at 128x256,
+    global batch 8, each rank its block): one f32 step (rank 0 saves its
+    gradients for :func:`parallel_phase` to hold to the one-process step),
+    then 1 + ``SPATIAL_BF16_STEPS`` bf16 steps after which every rank holds
+    the same parameters and Adam moments bit for bit, launches counted per
+    rank; B3 timed on the row blocks basic's step gave it; MTAN's
+    ``Predictor(8, mesh=)`` against the one-process answer; one MTAN epoch
+    of the training CLI over the mesh (:func:`rank_cli`). Returns the
+    rank's record, its main-path launches under ``launches``."""
+    from vision_mtl_tpu_torch import kernels
+    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+    from vision_mtl_tpu_torch.kernels import fused_gate_train, small_conv
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.models.registry import build_model
+    from vision_mtl_tpu_torch.parallel.mesh import create_mesh
+    from vision_mtl_tpu_torch.serving import Predictor
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = fetch_data_cfg("cityscapes")
+    spec = spatial_spec(comm.world)
+    mesh = create_mesh(spec, comm)
+    dev, rank = mesh.device, comm.rank
+    step = make_train_step(device=dev, mesh=mesh)
+    out = {"mesh": spec, "coords": mesh.coords(), "block": {
+        "rows": str(mesh.batch_rows(BATCH)), "image_rows": str(mesh.image_rows(cfg.height))}}
+    launches = {name: 0 for name in kernels.KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
+    bf16_batches = [mesh.block(b) for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+    for name in SPATIAL_MODELS:
+        per = PER_SPATIAL_TRAIN_STEP[name]
+        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+        state = create_train_state(model, LR, device=dev)
+        kernels.reset_launch_counts()
+        _, _, losses = step(state, mesh.block(batch), init_metrics(cfg.num_classes, dev))
+        torch.cuda.synchronize()
+        f32_counts = kernels.launch_counts()
+        add(f32_counts)
+        if f32_counts != expected(kernels, per, 1):
+            fail(f"spatial {name} f32 step rank {rank}: launches {f32_counts}")
+        if not same_on_every_rank(comm, [p.grad for p in model.parameters()]):
+            fail(f"spatial {name} f32 step: the all-reduced gradients differ between the ranks")
+        if rank == 0:
+            torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                        "loss": float(losses["loss"])},
+                       os.path.join(out_dir, f"spatial_{name}_f32_grads.pt"))
+        del model, state
+
+        model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        state = create_train_state(model, LR, device=dev)
+        n_steps = 1 + SPATIAL_BF16_STEPS
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+        calls: list = []
+        real_b3 = small_conv.conv3x3_small
+
+        def recording(x, kernel, bias=None):
+            if len(calls) < per.get("conv3x3_small", 0):  # the first step's
+                calls.append((x.detach().clone(), kernel.detach().clone(),
+                              None if bias is None else bias.detach().clone()))
+            return real_b3(x, kernel, bias)
+
+        kernels.reset_launch_counts()
+        step_losses = []
+        small_conv.conv3x3_small = recording
+        try:
+            events[0].record()
+            for i in range(n_steps):
+                state, _, ls = step(state, bf16_batches[i % TRAIN_BATCHES],
+                                    init_metrics(cfg.num_classes, dev))
+                events[i + 1].record()
+                step_losses.append(ls["loss"])
+            torch.cuda.synchronize()
+        finally:
+            small_conv.conv3x3_small = real_b3
+        counts = kernels.launch_counts()
+        add(counts)
+        if counts != expected(kernels, per, n_steps):
+            fail(f"spatial {name} bf16 steps rank {rank}: launches {counts}")
+        step_losses = [float(v) for v in step_losses]
+        if not all(np.isfinite(step_losses)):
+            fail(f"spatial {name} bf16 steps: losses {step_losses}")
+        if not same_on_every_rank(comm, train_tensors(state)):
+            fail(f"spatial {name} bf16 steps: parameters or Adam moments differ between the "
+                 f"ranks after {n_steps} steps")
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
+        # one more step, its collectives counted by what made them (after
+        # the checks and counts above: it moves the weights on)
+        exchanges = count_exchanges(mesh.spatial_comm, lambda: step(
+            state, bf16_batches[0], init_metrics(cfg.num_classes, dev)))
+        kernels.reset_launch_counts()
+        out[name] = {"f32": {"loss": float(losses["loss"]), "launches": f32_counts},
+                     "all_reduces_per_step": exchanges,
+                     "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
+                              "step_ms_p50": float(np.median(step_ms)), "launches": counts,
+                              "params_and_moments_equal_across_ranks": True}}
+        if calls:  # B3 on this rank's row blocks, forward and dx
+            comm.barrier()
+            out[name]["conv3x3_small_row_blocks"] = time_recorded(
+                calls, small_conv.conv3x3_small, small_conv.conv3x3_small_plain)
+        del model, state
+
+    # MTAN's Predictor(8) over the ranks against the one-process Predictor(8)
+    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
+    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval()
+    kernels.reset_launch_counts()
+    answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
+    torch.cuda.synchronize()
+    pred_counts = kernels.launch_counts()
+    add(pred_counts)
+    if pred_counts != expected(kernels, PER_FORWARD["mtan"], 1):
+        fail(f"spatial Predictor rank {rank}: launches {pred_counts}")
+    ref = np.load(os.path.join(out_dir, "predictor_ref.npz"))
+    depth_err = float(np.abs(answer["depth"] - ref["depth"]).max())
+    mismatch = float((answer["segm"] != ref["segm"]).mean())
+    if answer["segm"].shape != ref["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
+            or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
+        fail(f"spatial Predictor rank {rank}: depth max |diff| {depth_err}, segm ids differ on "
+             f"{mismatch} of the pixels, from the one-process Predictor")
+    if not same_on_every_rank(comm, [torch.from_numpy(answer["depth"]).to(dev),
+                                     torch.from_numpy(answer["segm"]).to(dev).float()]):
+        fail("spatial Predictor: the ranks' answers differ")
+    out["predictor"] = {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
+                        "launches": pred_counts, "answers_equal_across_ranks": True}
+    del model
+    # the training CLI over the same mesh: whole batches decoded, blocks kept
+    out["cli"] = rank_cli(comm, out_dir, spec, "spatial_logs", "spatial")
+    add(out["cli"]["launches"])
+    gate_rows, gate_totals = rank_gate_times(fused_gate_train, comm, dev,
+                                             rows=BATCH // mesh.size("data"),
+                                             split_h=mesh.size("spatial"))
+    out["gate_train_staged"] = {"rows": gate_rows, **gate_totals}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def rank_cli(comm, out_dir: str, mesh_shape: str, logs: str, tag: str) -> dict:
+    """The training CLI in process on this rank: one MTAN epoch on the
+    ``cli`` tree over ``--mesh_shape mesh_shape``, run dirs under
+    ``out_dir/logs``. Launches counted exactly (what the loaders' lengths
+    predict), every rank's weights and Adam moments the same bits after the
+    epoch, one run dir with one checkpoint and ``preds.npz``."""
+    from vision_mtl_tpu_torch import kernels, training
+    from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
+
+    rank = comm.rank
+    pipeline_cfg.log_root_dir = os.path.join(out_dir, logs)
+    argv = ["--dataset_name", "cityscapes", "--data_dir", CLI_DATA, "--batch_size", str(BATCH),
+            "--num_workers", "4", "--lr", str(LR), "--save_epoch_freq", "1",
+            "--model_name", "mtan", "--num_epochs", "1", "--mesh_shape", mesh_shape]
+    seen: dict = {}
+    real_run_pipe = training.run_pipe
+
+    def run_pipe(args, state, datamodule, **kw):
+        state, metrics = real_run_pipe(args, state, datamodule, **kw)
+        seen.update(state=state, datamodule=datamodule)
+        return state, metrics
+
+    training.run_pipe = run_pipe
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_dir = training.main(argv)
+    finally:
+        training.run_pipe = real_run_pipe
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = kernels.launch_counts()
+    dm = seen["datamodule"]
+    n_train, n_val, n_pred = (len(dm.train_dataloader()), len(dm.val_dataloader()),
+                              len(dm.predict_dataloader()))
+    want = expected(kernels, PER_RANK_TRAIN_STEP, n_train, confusion_matrix=n_val + n_pred)
+    want["fused_attention_gate"] += PER_FORWARD["mtan"]["fused_attention_gate"] * (n_val + n_pred)
+    if cli_counts != want:
+        fail(f"{tag} cli rank {rank}: launches {cli_counts}, want {want}")
+    if not same_on_every_rank(comm, train_tensors(seen["state"])):
+        fail(f"{tag} cli: the ranks' weights or Adam moments differ after the epoch")
+    if comm.broadcast_object(run_dir) != run_dir:
+        fail(f"{tag} cli: rank {rank} trained into {run_dir}, rank 0 elsewhere")
+    if rank == 0:
+        versions = glob.glob(os.path.join(out_dir, logs, "training-mtan", "version_*"))
+        entries = sorted(os.listdir(run_dir))
+        if versions != [run_dir] or [e for e in entries if e.startswith(("model_", "session_"))] \
+                != ["model_0", "session_0"] or "preds.npz" not in entries:
+            fail(f"{tag} cli: run dirs {versions}, entries {entries}")
+    return {"argv": argv, "wall_s": cli_s, "run_dir": run_dir, "launches": cli_counts,
+            "loader_lengths": {"train": n_train, "val": n_val, "predict": n_pred},
+            "weights_equal_across_ranks": True}
+
+
 def parallel_rank(out_dir: str) -> int:
     """One rank of the ``parallel`` phase (started by :func:`parallel_phase`
     with torchrun's environment): joins the process group
     (``maybe_initialize_distributed``: gloo when the ranks share the one
     card, NCCL with a card each) and drives MTAN at full width on its rows
-    of each global batch;
-    writes ``rank_{r}.json`` into ``out_dir`` and, on rank 0, the f32
-    step's gradients."""
+    of each global batch, then runs the ``spatial`` phase
+    (:func:`spatial_rank`); writes ``rank_{r}.json`` into ``out_dir`` and,
+    on rank 0, the f32 steps' gradients."""
     import torch.distributed as dist
-    from vision_mtl_tpu_torch import kernels, training
-    from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
+    from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
     from vision_mtl_tpu_torch.kernels import fused_gate_train
     from vision_mtl_tpu_torch.metrics import init_metrics
@@ -3383,48 +3675,8 @@ def parallel_rank(out_dir: str) -> int:
     del model
 
     # the training CLI, in process, over the ranks
-    pipeline_cfg.log_root_dir = os.path.join(out_dir, "logs")
-    argv = ["--dataset_name", "cityscapes", "--data_dir", CLI_DATA, "--batch_size", str(BATCH),
-            "--num_workers", "4", "--lr", str(LR), "--save_epoch_freq", "1",
-            "--model_name", "mtan", "--num_epochs", "1", "--mesh_shape", f"data:{comm.world}"]
-    seen: dict = {}
-    real_run_pipe = training.run_pipe
-
-    def run_pipe(args, state, datamodule, **kw):
-        state, metrics = real_run_pipe(args, state, datamodule, **kw)
-        seen.update(state=state, datamodule=datamodule)
-        return state, metrics
-
-    training.run_pipe = run_pipe
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        run_dir = training.main(argv)
-    finally:
-        training.run_pipe = real_run_pipe
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    cli_counts = kernels.launch_counts()
-    dm = seen["datamodule"]
-    n_train, n_val, n_pred = (len(dm.train_dataloader()), len(dm.val_dataloader()),
-                              len(dm.predict_dataloader()))
-    want = expected(kernels, PER_RANK_TRAIN_STEP, n_train, confusion_matrix=n_val + n_pred)
-    want["fused_attention_gate"] += PER_FORWARD["mtan"]["fused_attention_gate"] * (n_val + n_pred)
-    if cli_counts != want:
-        fail(f"parallel cli rank {rank}: launches {cli_counts}, want {want}")
-    if not same_on_every_rank(comm, train_tensors(seen["state"])):
-        fail("parallel cli: the ranks' weights or Adam moments differ after the epoch")
-    if comm.broadcast_object(run_dir) != run_dir:
-        fail(f"parallel cli: rank {rank} trained into {run_dir}, rank 0 elsewhere")
-    if rank == 0:
-        versions = glob.glob(os.path.join(out_dir, "logs", "training-mtan", "version_*"))
-        entries = sorted(os.listdir(run_dir))
-        if versions != [run_dir] or [e for e in entries if e.startswith(("model_", "session_"))] \
-                != ["model_0", "session_0"] or "preds.npz" not in entries:
-            fail(f"parallel cli: run dirs {versions}, entries {entries}")
-    rec["cli"] = {"argv": argv, "wall_s": cli_s, "run_dir": run_dir, "launches": cli_counts,
-                  "loader_lengths": {"train": n_train, "val": n_val, "predict": n_pred},
-                  "weights_equal_across_ranks": True}
+    rec["cli"] = rank_cli(comm, out_dir, f"data:{comm.world}", "logs", "parallel")
+    rec["spatial"] = spatial_rank(comm, out_dir)
     rec["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -3433,14 +3685,18 @@ def parallel_rank(out_dir: str) -> int:
 
 
 def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
-                   one_process_p50: float) -> tuple:
+                   one_process_p50: dict) -> tuple:
     """Data parallelism over :func:`parallel_world` ranks: the one-process
     references first (MTAN's f32 step on the global batch, a
     ``Predictor(8)`` of the f32 model), then the rank processes
     (:func:`parallel_rank`) with torchrun's environment. The ranks' f32
     step is held to the one-process step with the limits of the f32 check
     against the CPU (``f32_limits``: per-leaf and whole relative L2,
-    ``ZERO_GRAD`` left out). Returns the ``parallel`` line and the ranks'
+    ``ZERO_GRAD`` left out; ``f32_limits`` and ``one_process_p50`` by
+    model). The ``spatial`` phase runs in the same ranks after the
+    ``parallel`` one (:func:`spatial_rank`); its f32 steps are held the same
+    way, MTAN's and basic's, to one-process references taken here. Returns
+    the ``parallel`` line, the ``spatial`` line and each phase's ranks'
     main-path launches summed."""
     from vision_mtl_tpu_torch.metrics import init_metrics
     from vision_mtl_tpu_torch.parallel.multihost import free_port
@@ -3460,6 +3716,17 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
     ref_grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
     ref_loss = float(losses["loss"])
     del model, state
+    refs = {"mtan": (ref_grads, ref_loss)}
+    for name in SPATIAL_MODELS:
+        if name in refs:
+            continue
+        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+        state = create_train_state(model, LR, device=dev)
+        _, _, losses = make_train_step(device=dev)(state, batch,
+                                                   init_metrics(cfg.num_classes, dev))
+        refs[name] = ({k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                      float(losses["loss"]))
+        del model, state
     # the seeded weights as built, as each rank builds them
     model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval()
     imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
@@ -3497,28 +3764,59 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
         fail(f"parallel: ranks exited {codes}: {tails}")
     recs = [json.load(open(os.path.join(PARALLEL_DIR, f"rank_{r}.json")))
             for r in range(world)]
-    got = torch.load(os.path.join(PARALLEL_DIR, "f32_grads.pt"))
-    whole, per_leaf = grad_distance(got["grads"], ref_grads)
-    worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
-    if not whole <= f32_limits["rel_l2_limit"] or not worst[0][1] <= f32_limits["leaf_limit"]:
-        fail(f"parallel f32 step: gradients off the one-process step by {whole} (worst leaves "
-             f"{worst}), limits {f32_limits}")
-    if abs(got["loss"] - ref_loss) > 1e-4 * abs(ref_loss):
-        fail(f"parallel f32 step: loss {got['loss']} over the ranks, {ref_loss} in one process")
+    def held(tag: str, path: str, name: str) -> dict:
+        got = torch.load(os.path.join(PARALLEL_DIR, path))
+        want_grads, want_loss = refs[name]
+        limits = f32_limits[name]
+        whole, per_leaf = grad_distance(got["grads"], want_grads)
+        worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
+        if not whole <= limits["rel_l2_limit"] or not worst[0][1] <= limits["leaf_limit"]:
+            fail(f"{tag} f32 step: gradients off the one-process step by {whole} (worst "
+                 f"leaves {worst}), limits {limits}")
+        if abs(got["loss"] - want_loss) > 1e-4 * abs(want_loss):
+            fail(f"{tag} f32 step: loss {got['loss']} over the ranks, {want_loss} in one process")
+        return {"loss_ranks": got["loss"], "loss_one_process": want_loss, "grad_rel_l2": whole,
+                "worst_leaves": worst, "limits": limits}
+
+    f32_step = held("parallel", "f32_grads.pt", "mtan")
     launches = {name: sum(rec[path]["launches"][name] for rec in recs
                           for path in ("f32", "bf16", "predictor", "cli"))
                 for name in kernels.KERNELS}
+    spatial_launches = {name: sum(rec["spatial"]["launches"][name] for rec in recs)
+                        for name in kernels.KERNELS}
+    sp = [rec["spatial"] for rec in recs]
+    spatial_line = {
+        "mesh": sp[0]["mesh"], "ranks": world, "backend": recs[0]["backend"],
+        "blocks": [r["block"] for r in sp],
+        **{name: {
+            "f32_step": {**held(f"spatial {name}", f"spatial_{name}_f32_grads.pt", name),
+                         "launches_per_rank": sp[0][name]["f32"]["launches"]},
+            "all_reduces_per_step": sp[0][name]["all_reduces_per_step"],
+            "bf16_steps": {"steps": sp[0][name]["bf16"]["steps"],
+                           "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in sp],
+                           "step_ms_p50_one_process": one_process_p50[name],
+                           "losses": sp[0][name]["bf16"]["losses"],
+                           "launches_per_rank": sp[0][name]["bf16"]["launches"],
+                           "params_and_moments_equal_across_ranks": True},
+            **({"conv3x3_small_row_blocks_per_step": sp[0][name]["conv3x3_small_row_blocks"]}
+               if "conv3x3_small_row_blocks" in sp[0][name] else {}),
+        } for name in SPATIAL_MODELS},
+        "gate_train_staged_per_step": {k: sp[0]["gate_train_staged"][k]
+                                       for k in ("ms", "plain_ms", "bound_ms", "bound_by", "err")},
+        "predictor": sp[0]["predictor"],
+        "cli": {k: sp[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
+        "launches": spatial_launches,
+        "rank_phase_s": [r["phase_s"] for r in sp],
+    }
     gate = recs[0]["gate_train_staged"]
     line = {
         "ranks": world, "backend": recs[0]["backend"],
         "arrangement": (f"{world} ranks, one a card" if world <= torch.cuda.device_count()
                         else f"{world} ranks sharing one card (not a scaling figure)"),
-        "f32_step": {"loss_ranks": got["loss"], "loss_one_process": ref_loss,
-                     "grad_rel_l2": whole, "worst_leaves": worst, "limits": f32_limits,
-                     "launches_per_rank": recs[0]["f32"]["launches"]},
+        "f32_step": {**f32_step, "launches_per_rank": recs[0]["f32"]["launches"]},
         "bf16_steps": {"steps": recs[0]["bf16"]["steps"],
                        "step_ms_p50_two_ranks": [r["bf16"]["step_ms_p50"] for r in recs],
-                       "step_ms_p50_one_process": one_process_p50,
+                       "step_ms_p50_one_process": one_process_p50["mtan"],
                        "losses": recs[0]["bf16"]["losses"],
                        "params_and_moments_equal_across_ranks": True},
         "gate_train_staged_per_step": {k: gate[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -3530,7 +3828,7 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
         "references_s": ref_s, "launches": launches,
         "phase_s": time.perf_counter() - t_start,
     }
-    return line, launches
+    return line, launches, spatial_line, spatial_launches
 
 
 def main(argv: list) -> int:
@@ -3569,12 +3867,15 @@ def main(argv: list) -> int:
 
     cfg = fetch_data_cfg("cityscapes")
     if parallel_only:
-        mtan_f32 = check_train_step_against_cpu("mtan", cfg, build_model, dev)
-        one_process = train_model("mtan", cfg, build_model, dev, kernels)
-        parallel_line, _ = parallel_phase(
-            cfg, kernels, dev, build_model,
-            {k: mtan_f32[k] for k in ("rel_l2_limit", "leaf_limit")}, one_process["step_ms_p50"])
+        limits, p50 = {}, {}
+        for name in SPATIAL_MODELS:
+            f32 = check_train_step_against_cpu(name, cfg, build_model, dev)
+            limits[name] = {k: f32[k] for k in ("rel_l2_limit", "leaf_limit")}
+            p50[name] = train_model(name, cfg, build_model, dev, kernels)["step_ms_p50"]
+        parallel_line, _, spatial_line, _ = parallel_phase(cfg, kernels, dev, build_model,
+                                                           limits, p50)
         print(json.dumps({"parallel": parallel_line}), flush=True)
+        print(json.dumps({"spatial": spatial_line}), flush=True)
         print(smi, flush=True)
         return 0
     gate_rows, gate = check_gate(dev, fused_gate)
@@ -3699,9 +4000,10 @@ def main(argv: list) -> int:
         "small_conv_fwd_share_of_forward_events": conv["fwd_ms"] / basic_timing["forward_events_ms"],
     }
     print(json.dumps({"model": model_line}), flush=True)
+    basic_f32 = check_train_step_against_cpu("basic", cfg, build_model, dev)
     train_line = {
         "model": "basic", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
-        "reference_f32_step_vs_cpu": check_train_step_against_cpu("basic", cfg, build_model, dev),
+        "reference_f32_step_vs_cpu": basic_f32,
         **basic_training,
         "small_conv_ms_per_step": conv["ms"], "small_conv_bound_ms_per_step": conv["bound_ms"],
         "small_conv_share_of_step_events": conv["ms"] / basic_training["step_ms_p50"],
@@ -3731,11 +4033,14 @@ def main(argv: list) -> int:
     print(json.dumps({"interop": interop_line}), flush=True)
     print(json.dumps({"options": options_line}), flush=True)
     # last: the rank processes use the card after every profiled phase
-    parallel_line, parallel_launches = parallel_phase(
+    parallel_line, parallel_launches, spatial_line, spatial_launches = parallel_phase(
         cfg, kernels, dev, build_model,
-        {k: mtan_f32[k] for k in ("rel_l2_limit", "leaf_limit")}, mtan_training["step_ms_p50"])
+        {name: {k: f32[k] for k in ("rel_l2_limit", "leaf_limit")}
+         for name, f32 in (("mtan", mtan_f32), ("basic", basic_f32))},
+        {"mtan": mtan_training["step_ms_p50"], "basic": basic_training["step_ms_p50"]})
     print(json.dumps({"parallel": parallel_line}), flush=True)
-    phases.append(parallel_launches)
+    print(json.dumps({"spatial": spatial_line}), flush=True)
+    phases += [parallel_launches, spatial_launches]
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     # B3's entry: one bf16 train step of the basic model and one of CSNet

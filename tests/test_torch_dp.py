@@ -2,7 +2,8 @@
 rank, started from this file's ``__main__`` block (they meet through a
 ``FileStore`` under the test's temporary dir, so concurrent test workers
 never share a port, and are killed on a timeout). One launch of the pair
-runs every step-level check and writes each rank's results to an ``.npz``:
+runs every step-level check and writes each rank's results to an ``.npz``,
+then runs the training CLI in both ranks (below):
 
   * a tiny MTAN (16x24, hidden 8, 2 levels) in f64 at global batch 6, 3
     rows a rank: the loss, the all-reduced gradients and the BatchNorm and
@@ -10,21 +11,30 @@ runs every step-level check and writes each rank's results to an ``.npz``:
     the global batch and against the port's one-process step;
   * the same step with ``remat_attention``, bit for bit the plain 2-rank
     step;
-  * the basic model (kernel B3's plain path at decoder width 16) and its
-    ``fold_tail`` (the folded BatchNorm), one f64 step against one process;
+  * the basic model (kernel B3's plain path at decoder width 16, 32x32) and
+    its ``fold_tail`` (the folded BatchNorm), one f64 step against one
+    process;
   * kernel B4's plain split, forward and backward, against the one-process
     plain version on the concatenated rows;
   * two f32 MTAN steps, after which both ranks hold the same parameters and
     Adam moments, bit for bit;
   * an eval step on a padded batch, its reduced metrics against one
-    process (the counts exactly).
+    process (the counts exactly);
+  * ``Comm.split`` (the mesh's spatial groups) over gloo, with a halo
+    exchange across the pair.
 
-Then the training CLI with ``--device cpu:2`` on the synthetic set (full
-MTAN width at 32x32, f32): one epoch, a resume to the second, a predict
-sweep whose ``preds.npz`` rank 0 writes, and a preemption injected on one
-rank that stops both at the same step with exit 143."""
+Then the training CLI in both ranks of the pair (``training.main``, which
+adopts their process group; the synthetic set at full MTAN width, 16x16,
+f32): one epoch with a predict sweep whose ``preds.npz`` rank 0 writes, a
+resume to the second epoch, and a run with a preemption injected on one
+rank that stops both at the same step with exit 143. Running them in the
+pair's processes spares three launches of ranks; the ``--device cpu:N``
+launcher (``multihost.launch_local_ranks`` and the run dir rank 0 hands
+back) is held on its own at the end, on processes that import no torch."""
 
+import contextlib
 import glob
+import io
 import json
 import os
 import re
@@ -53,21 +63,16 @@ NC = 5
 TASKS = {"depth": 1, "segm": NC}
 MTAN_KW = dict(task_subnets_hidden_channels=8, encoder_first_channel=8, encoder_num_channels=2)
 HW = (16, 24)
+BASIC_HW = (32, 32)
 LR = 2e-3
 RANKS_TIMEOUT_S = 240
 # the CLI runs: the tiny synthetic set (6 train rows after the split, 2
-# val, 2 predict), read by the ranks' processes through a sitecustomize
-TINY = dict(height=32, width=32, num_train=8, num_val=2)
-SITECUSTOMIZE = f"""
-import os, sys
-sys.modules["torch.utils.tensorboard"] = None  # it would load TensorFlow here
-from vision_mtl_tpu_torch.data import synthetic
-for k, v in {TINY!r}.items():
-    setattr(synthetic.synthetic_data_cfg, k, v)
-if os.environ.get("VMTL_TEST_PREEMPT_RANK") and \\
-        os.environ.get("RANK") == os.environ["VMTL_TEST_PREEMPT_RANK"]:
-    os.environ["VMTL_PREEMPT_AT_STEP"] = os.environ["VMTL_TEST_PREEMPT_AT"]
-"""
+# val, 2 predict)
+TINY = dict(height=16, width=16, num_train=8, num_val=2)
+ARGV = ["--dataset_name", "synthetic", "--model_name", "mtan", "--batch_size", "4",
+        "--precision", "f32", "--exp_disabled", "--save_epoch_freq", "1"]
+# the preemption run: requested at this step on this rank alone
+PREEMPT_RANK, PREEMPT_AT = 1, 1
 
 
 def _batch(seed, n=BATCH, hw=HW, valid=None):
@@ -139,9 +144,31 @@ def _eval(batch, mesh_=None):
             **{f"metric/{k}": v.numpy() for k, v in compute_metrics(mstate).items()}}
 
 
+def _split(comm) -> dict:
+    """``Comm.split`` over gloo: the rank's group alone and both ranks
+    together (``dist.new_group`` on every rank in the same order), a sum in
+    each, an object broadcast and a barrier in the pair's group, and a halo
+    exchange of 2 rows each way over it (one row a rank: the halo reaches
+    past the image's edge)."""
+    from vision_mtl_tpu_torch.parallel.halo import halo_rows
+
+    alone = comm.split([[0], [1]])
+    pair = comm.split([[0, 1]])
+    x = torch.full((1, 1, 2, 3), float(comm.rank + 1), dtype=torch.float64)
+    halo = halo_rows(x.requires_grad_(), 2, 2, pair)
+    halo.backward(torch.ones_like(halo))
+    pair.barrier()
+    return {"alone": (alone.rank, alone.world, float(alone.all_reduce_(torch.ones(1)))),
+            "pair": (pair.rank, pair.world, float(pair.all_reduce_(torch.ones(1)))),
+            "object": pair.broadcast_object(f"from {comm.rank}"),
+            "halo": halo.detach().numpy()[0, :, 0, 0].tolist(),
+            "halo_grad": x.grad.numpy()[0, :, 0, 0].tolist()}
+
+
 def _rank_main(rank: int, out_dir: str, store_path: str) -> None:
     """One rank of the pair: joins through the FileStore and writes
-    ``rank_{rank}.npz``."""
+    ``rank_{rank}.npz`` and ``split_{rank}.json``, then runs
+    :func:`_rank_cli`."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD), rank=rank,
                             world_size=WORLD)
@@ -157,8 +184,8 @@ def _rank_main(rank: int, out_dir: str, store_path: str) -> None:
     for name, rec in (
         ("mtan", _step(_mtan(), mine(_batch(0)), m)),
         ("remat", _step(_mtan(remat_attention=True), mine(_batch(0)), m)),
-        ("basic", _step(_basic(False), mine(_batch(4, hw=(64, 64))), m)),
-        ("fold_tail", _step(_basic(True), mine(_batch(4, hw=(64, 64))), m)),
+        ("basic", _step(_basic(False), mine(_batch(4, hw=BASIC_HW)), m)),
+        ("fold_tail", _step(_basic(True), mine(_batch(4, hw=BASIC_HW)), m)),
         ("f32", _step(_mtan(torch.float32), mine({k: v.float() if v.is_floating_point() else v
                                                   for k, v in _batch(1).items()}), m, steps=2)),
         ("gate", _gate(x[rows], shared[rows], weights, cot[rows], comm=m.comm)),
@@ -166,8 +193,45 @@ def _rank_main(rank: int, out_dir: str, store_path: str) -> None:
     ):
         out.update({f"{name}:{k}": np.asarray(v) for k, v in rec.items()})
     np.savez(os.path.join(out_dir, f"rank_{rank}.npz"), **out)
+    with open(os.path.join(out_dir, f"split_{rank}.json"), "w") as f:
+        json.dump(_split(m.comm), f)
+    _rank_cli(rank, out_dir)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _rank_cli(rank: int, out_dir: str) -> None:
+    """The CLI in this rank of the pair (``training.main`` adopts its process
+    group): one epoch, a resume of that run to the second epoch, then a run
+    whose preemption is requested on rank ``PREEMPT_RANK`` alone; writes
+    ``cli_{rank}.json`` (run dirs, exit codes, the preempted run's
+    output)."""
+    from vision_mtl_tpu_torch import training
+    from vision_mtl_tpu_torch.cfg import cfg
+    from vision_mtl_tpu_torch.data import synthetic
+
+    sys.modules["torch.utils.tensorboard"] = None  # it would load TensorFlow here
+    for k, v in TINY.items():
+        setattr(synthetic.synthetic_data_cfg, k, v)
+    cfg.log_root_dir = Path(out_dir) / "logs"
+    run_dir = training.main(ARGV + ["--device", "cpu", "--num_epochs", "1"])
+    rec = {"run_dir": run_dir,
+           "resumed": training.main(ARGV + ["--device", "cpu", "--num_epochs", "2",
+                                            "--resume_dir", run_dir])}
+    cfg.log_root_dir = Path(out_dir) / "preempt_logs"
+    if rank == PREEMPT_RANK:
+        os.environ["VMTL_PREEMPT_AT_STEP"] = str(PREEMPT_AT)
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            training.main(ARGV + ["--device", "cpu", "--num_epochs", "2", "--preempt_save"])
+        rec["preempt_code"] = 0
+    except SystemExit as e:
+        rec["preempt_code"] = e.code
+    os.environ.pop("VMTL_PREEMPT_AT_STEP", None)
+    rec["preempt_out"] = log.getvalue()
+    with open(os.path.join(out_dir, f"cli_{rank}.json"), "w") as f:
+        json.dump(rec, f)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -179,8 +243,9 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Both ranks' results, from one launch of the pair."""
+def launched(tmp_path_factory):
+    """One launch of the pair: ``(out dir, both ranks' step results, both
+    ranks' CLI records)``."""
     out = tmp_path_factory.mktemp("dp")
     env = {k: v for k, v in os.environ.items() if k not in multihost.LAUNCH_VARS}
     env["OMP_NUM_THREADS"] = "1"
@@ -196,11 +261,19 @@ def ranks(tmp_path_factory):
         pytest.fail("the two ranks did not finish in time")
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
-    results = []
+    results, cli = [], []
     for r in range(WORLD):
         with np.load(out / f"rank_{r}.npz") as f:
             results.append({k: f[k] for k in f.files})
-    return results
+        cli.append(json.load(open(out / f"cli_{r}.json")))
+        results[r]["split"] = json.load(open(out / f"split_{r}.json"))
+    return out, results, cli
+
+
+@pytest.fixture(scope="module")
+def ranks(launched):
+    """Both ranks' step results."""
+    return launched[1]
 
 
 def _part(rec, name):
@@ -223,6 +296,21 @@ def test_ranks_hold_the_same_state(ranks):
         _assert_same_bits(_part(ranks[0], name), _part(ranks[1], name))
 
 
+def test_comm_split_over_gloo(ranks):
+    """Sub-groups of the process group (the mesh's spatial groups): each
+    rank alone, then the pair; sums within each, rank 0's object on both,
+    and a halo exchange of 2 rows each way over 1 row a rank: the other
+    rank's row on one side and zeros past the image's edge, its gradient
+    (all ones) sent back and added to the row's own."""
+    for rank, rec in enumerate(r["split"] for r in ranks):
+        assert rec["alone"] == [0, 1, 1.0] and rec["pair"] == [rank, 2, 2.0]
+        assert rec["object"] == "from 0"
+    assert ranks[0]["split"]["halo"] == [0.0, 0.0, 1.0, 2.0, 0.0]
+    assert ranks[1]["split"]["halo"] == [0.0, 1.0, 2.0, 0.0, 0.0]
+    for r in ranks:  # its own row once, and once as the other's halo row
+        assert r["split"]["halo_grad"] == [2.0]
+
+
 def test_remat_attention_is_bit_for_bit_its_plain_step(ranks):
     """``remat_attention`` under two ranks: the recompute calls the same
     collectives, and leaves the statistics as the first pass left them."""
@@ -242,7 +330,7 @@ def test_step_over_two_ranks_matches_one_process(ranks, name):
     if name == "mtan":
         model, batch = _mtan(), _batch(0)
     else:
-        model, batch = _basic(name == "fold_tail"), _batch(4, hw=(64, 64))
+        model, batch = _basic(name == "fold_tail"), _batch(4, hw=BASIC_HW)
     want = _step(model, batch)
     got = _part(ranks[0], name)
     assert got.keys() == want.keys()
@@ -343,37 +431,21 @@ def test_reduced_metrics_match_one_process(ranks):
 # ---- the CLI over two CPU ranks ----------------------------------------------
 
 
-@pytest.fixture
-def cli_env(tmp_path, monkeypatch):
-    """The ranks' environment: the tiny synthetic set and no TensorBoard
-    (a sitecustomize on their path), run dirs under ``tmp_path``."""
-    site = tmp_path / "site"
-    site.mkdir()
-    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
-    monkeypatch.setenv("PYTHONPATH", os.pathsep.join([str(site), str(REPO)]))
-    monkeypatch.setenv("VMTL_LOG_ROOT", str(tmp_path / "logs"))
-    for var in multihost.LAUNCH_VARS:
-        monkeypatch.delenv(var, raising=False)
-    return tmp_path / "logs" / "training-mtan"
-
-
-ARGV = ["--device", "cpu:2", "--dataset_name", "synthetic", "--model_name", "mtan",
-        "--batch_size", "4", "--precision", "f32", "--exp_disabled", "--save_epoch_freq", "1"]
-
-
-def test_cli_over_two_cpu_ranks_trains_resumes_and_predicts(cli_env, monkeypatch):
-    """One epoch over two ranks: one run dir with one checkpoint, and a
-    ``preds.npz`` (written by rank 0) equal to a one-process predict sweep
-    of the saved model (ids exactly, depth within 1e-5: the ranks' forwards
-    see 2 rows, the sweep 4). A resume to epoch 2 writes one more run dir
-    holding epoch 1's checkpoint alone."""
-    from vision_mtl_tpu_torch import training
+def test_cli_over_two_cpu_ranks_trains_resumes_and_predicts(launched, monkeypatch):
+    """One epoch over two ranks: one run dir with one checkpoint, the same
+    on both ranks, and a ``preds.npz`` (written by rank 0) equal to a
+    one-process predict sweep of the saved model (ids exactly, depth within
+    1e-5: the ranks' forwards see 2 rows, the sweep 4). A resume to epoch 2
+    writes one more run dir holding epoch 1's checkpoint alone."""
     from vision_mtl_tpu_torch.data import datamodule, synthetic
     from vision_mtl_tpu_torch.pipeline import load_run_model
     from vision_mtl_tpu_torch.predict import predict
 
-    run_dir = training.main(ARGV + ["--num_epochs", "1"])
-    assert sorted(glob.glob(str(cli_env / "version_*"))) == [run_dir]
+    out, _, cli = launched
+    logs = out / "logs" / "training-mtan"
+    run_dir, resumed = cli[0]["run_dir"], cli[0]["resumed"]
+    assert (cli[1]["run_dir"], cli[1]["resumed"]) == (run_dir, resumed)
+    assert sorted(glob.glob(str(logs / "version_*"))) == sorted([run_dir, resumed])
     entries = sorted(os.listdir(run_dir))
     assert [e for e in entries if e.startswith(("model_", "session_"))] == \
         ["model_0", "session_0"]
@@ -390,29 +462,57 @@ def test_cli_over_two_cpu_ranks_trains_resumes_and_predicts(cli_env, monkeypatch
     np.testing.assert_allclose(saved["depth"], np.concatenate([p["depth"] for p in preds]),
                                atol=1e-5, rtol=0)
 
-    resumed = training.main(ARGV + ["--num_epochs", "2", "--resume_dir", run_dir])
-    assert sorted(glob.glob(str(cli_env / "version_*"))) == sorted([run_dir, resumed])
     assert [e for e in sorted(os.listdir(resumed)) if e.startswith(("model_", "session_"))] \
         == ["model_1", "session_1"]
     records = [json.loads(ln) for ln in open(os.path.join(resumed, "metrics.jsonl"))]
     assert [r["step"] for r in records if "epoch/train/loss" in r] == [1]
 
 
-def test_cli_preempts_every_rank_at_the_same_step(cli_env, monkeypatch, capfd):
+def test_cli_preempts_every_rank_at_the_same_step(launched):
     """``VMTL_PREEMPT_AT_STEP`` on rank 1 alone: both ranks save together
-    at the same step and exit 143, and the launch exits 143."""
-    from vision_mtl_tpu_torch import training
-
-    monkeypatch.setenv("VMTL_TEST_PREEMPT_RANK", "1")
-    monkeypatch.setenv("VMTL_TEST_PREEMPT_AT", "1")
-    with pytest.raises(SystemExit) as e:
-        training.main(ARGV + ["--num_epochs", "2", "--preempt_save"])
-    assert e.value.code == 143
-    (run_dir,) = glob.glob(str(cli_env / "version_*"))
+    at the same step and ``training.main`` exits 143 on both."""
+    out, _, cli = launched
+    assert [c["preempt_code"] for c in cli] == [143] * WORLD
+    (run_dir,) = glob.glob(str(out / "preempt_logs" / "training-mtan" / "version_*"))
     meta = json.load(open(os.path.join(run_dir, "preempt_meta.json")))
     assert meta == {"epoch": 0, "batch_in_epoch": 1}
-    out = capfd.readouterr().out
-    assert out.count("Preempted at epoch 1 step 1;") == WORLD
+    for c in cli:
+        assert c["preempt_out"].count(f"Preempted at epoch 1 step {PREEMPT_AT};") == 1
+
+
+def test_cpu_launcher_runs_ranks_and_fails_with_them(capfd):
+    """``multihost.launch_local_ranks`` (``--device cpu:N``) starts N
+    processes with torchrun's environment, each its own ``RANK``, and waits
+    for all; a rank that fails fails the launch with its exit code. The
+    ranks here run ``python -m json.tool``, which imports no torch."""
+    assert multihost.launch_local_ranks("json.tool", ["--help"], 2) == {"returncodes": [0, 0]}
+    with pytest.raises(SystemExit) as e:
+        multihost.launch_local_ranks("json.tool", [str(REPO / "no such file")], 2, grace_s=5.0)
+    assert e.value.code not in (0, None)
+    assert "ranks exited with" in capfd.readouterr().out
+
+
+def test_cpu_launch_returns_rank_0s_run_dir(monkeypatch, tmp_path):
+    """``training.main(["--device", "cpu:2", ...])`` checks the mesh, launches
+    the CLI's module as 2 ranks with the launch argv, and returns the run
+    dir that rank 0 wrote to ``VMTL_RUN_DIR_FILE`` (the launch stubbed)."""
+    from vision_mtl_tpu_torch import training
+
+    for var in multihost.LAUNCH_VARS:
+        monkeypatch.delenv(var, raising=False)
+    seen = {}
+
+    def launch(module, argv, world):
+        seen.update(module=module, argv=argv, world=world)
+        with open(os.environ[training.RUN_DIR_FILE_ENV], "w") as f:
+            f.write(str(tmp_path / "run"))
+        return {"returncodes": [0] * world}
+
+    monkeypatch.setattr(multihost, "launch_local_ranks", launch)
+    argv = ARGV + ["--device", "cpu:2", "--num_epochs", "1"]
+    assert training.main(argv) == str(tmp_path / "run")
+    assert seen == {"module": "vision_mtl_tpu_torch.training", "argv": argv, "world": 2}
+    assert training.RUN_DIR_FILE_ENV not in os.environ
 
 
 if __name__ == "__main__":

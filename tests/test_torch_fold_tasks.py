@@ -264,14 +264,14 @@ def test_task_axis_plain_versions_equal_per_task_calls(n_tasks):
 
 
 def test_fold_tasks_run_restores_and_resumes(tmp_path, monkeypatch):
-    """``training --fold_tasks --remat_attention`` (full MTAN width, 32x32)
+    """``training --fold_tasks --remat_attention`` (full MTAN width, 16x16)
     writes a run whose ``model_0/`` restores through ``load_run_model`` into
     a folded model, the options read back from ``train_args.yaml``, and
     into no unfolded one; ``--resume_dir`` continues it from those weights;
     a reference checkpoint of an unfolded MTAN does not load into the
     folded model, as in the JAX package."""
     monkeypatch.setitem(__import__("sys").modules, "torch.utils.tensorboard", None)
-    for k, v in dict(height=32, width=32, num_classes=NC, num_train=4, num_val=2).items():
+    for k, v in dict(height=16, width=16, num_classes=NC, num_train=4, num_val=2).items():
         monkeypatch.setattr(synthetic.synthetic_data_cfg, k, v)
     monkeypatch.setattr(cfg, "log_root_dir", tmp_path)
     argv = ["--device", "cpu", "--dataset_name", "synthetic", "--model_name", "mtan",

@@ -49,7 +49,7 @@ def test_port_imports_nothing_of_jax():
                  "data.nyu_cache", "train.preempt", "utils.io", "eval_harness",
                  "utils.ckpt_import", "utils.torch_port", "export_torch_ckpt", "tuning", "vis",
                  "tracking.comet", "tracking.artifacts", "utils.inference", "utils.profiling",
-                 "utils.debug", "parallel.mesh", "parallel.multihost"):
+                 "utils.debug", "parallel.mesh", "parallel.multihost", "parallel.halo"):
         assert f"vision_mtl_tpu_torch.{name}" in modules
     code = textwrap.dedent(
         f"""

@@ -209,12 +209,12 @@ def test_train_args_yaml_reads_back_in_jax(tmp_path):
 
 def test_cli_trains_and_serves(tiny_synthetic, no_tensorboard, tmp_path, monkeypatch):
     """``training.main`` at the full MTAN width on the CPU (8 synthetic
-    samples of 32x32, batch 2), then ``serve --run_dir`` on its run dir
+    samples of 16x16, batch 2), then ``serve --run_dir`` on its run dir
     answers a request with what the trained model predicts; ``--auto_resume``
     finds that run and continues it; ``--ckpt_dir`` starts a fresh run from
     its weights."""
-    monkeypatch.setattr(synthetic.synthetic_data_cfg, "height", 32)
-    monkeypatch.setattr(synthetic.synthetic_data_cfg, "width", 32)
+    monkeypatch.setattr(synthetic.synthetic_data_cfg, "height", 16)
+    monkeypatch.setattr(synthetic.synthetic_data_cfg, "width", 16)
     monkeypatch.setattr(synthetic.synthetic_data_cfg, "num_train", 8)
     monkeypatch.setattr(synthetic.synthetic_data_cfg, "num_val", 2)
     monkeypatch.setattr(cfg, "log_root_dir", tmp_path)
@@ -241,7 +241,7 @@ def test_cli_trains_and_serves(tiny_synthetic, no_tensorboard, tmp_path, monkeyp
         assert k in keys, k
     assert [r["step"] for r in records if "step/train/loss" in r] == [0, 1, 2]
     preds = np.load(os.path.join(run_dir, "preds.npz"))
-    assert preds["segm"].shape == (2, 32, 32) and preds["depth"].shape == (2, 32, 32, 1)
+    assert preds["segm"].shape == (2, 16, 16) and preds["depth"].shape == (2, 16, 16, 1)
     model = trained["state"].model
     assert checkpoint.load_args(os.path.join(run_dir, "train_args.yaml")).model_name == "mtan"
 
@@ -264,7 +264,7 @@ def test_cli_trains_and_serves(tiny_synthetic, no_tensorboard, tmp_path, monkeyp
         time.sleep(0.05)
     assert servers, "the server did not start"
     httpd = servers[0]
-    img = np.random.default_rng(0).uniform(size=(32, 32, 3)).astype(np.float32)
+    img = np.random.default_rng(0).uniform(size=(16, 16, 3)).astype(np.float32)
     try:
         buf = io.BytesIO()
         np.save(buf, img)
@@ -302,12 +302,12 @@ def test_cli_trains_and_serves(tiny_synthetic, no_tensorboard, tmp_path, monkeyp
 )
 def test_unported_flags_exit_naming_their_roadmap_item(flag, monkeypatch):
     """A flag whose feature is not ported exits before anything is built:
-    since the data axis is ported, ``--mesh_shape`` with a model axis, and
-    ``--device cpu:4`` with a spatial one (refused before any rank
-    starts), name ROADMAP A10b."""
+    since the data and spatial axes are ported, ``--mesh_shape`` with a
+    model axis, and ``--device cpu:4`` with one beside the spatial axis
+    (refused before any rank starts), name ROADMAP A10c."""
     values = {"backbone_weights": "imagenet", "remat_tail": "2", "mesh_shape": "data:2,model:2",
               "log_param_histograms_every": "25",
-              "device": "cpu:4 --mesh_shape data:2,spatial:2"}
+              "device": "cpu:4 --mesh_shape spatial:2,model:2"}
     argv = [f"--{flag}"] + (values[flag].split() if flag in values else [])
     monkeypatch.setattr(training, "create_tools", None)  # nothing may be set up
     monkeypatch.setattr(training.multihost, "launch_local_ranks", None)

@@ -90,20 +90,21 @@ def test_parse_mesh_shape_matches_jax(spec, n):
 
 
 def test_unported_axes_are_refused_naming_a10b():
-    """``spatial`` or ``model`` above 1 is refused; size 1 is accepted."""
+    """``model`` above 1 is refused (ROADMAP A10c; ``spatial``, A10b, is
+    ported); size 1 is accepted."""
     comm = multihost.Comm(0, 4)
-    for spec in ("data:2,model:2", "data:2,spatial:2", "model:-1"):
-        with pytest.raises(SystemExit, match=r"ROADMAP\.md A10b"):
+    for spec in ("data:2,model:2", "spatial:2,model:2", "model:-1"):
+        with pytest.raises(SystemExit, match=r"ROADMAP\.md A10c"):
             mesh.create_mesh(spec, comm)
     m = mesh.create_mesh("data:-1,spatial:1,model:1", comm)
     assert m.shape == {"data": 4, "spatial": 1, "model": 1}
     assert mesh.process_spanning_axes(m) == ("data",)
     assert mesh.process_spanning_axes(mesh.create_mesh("data:1", multihost.Comm(0, 1))) == ()
-    # row-sliced loading, the loaders' one mode, needs data to be the one
-    # axis across processes
+    # row-sliced loading needs data to be the one axis across processes;
+    # spatial takes the full-batch mode, model neither
     configure_host_sharded_loading(None, m)
-    with pytest.raises(ValueError, match="spatial.*A10b"):
-        configure_host_sharded_loading(None, mesh.Mesh({"data": 2, "spatial": 2}, comm))
+    with pytest.raises(ValueError, match="model.*A10c"):
+        configure_host_sharded_loading(None, mesh.Mesh({"data": 2, "model": 2}, comm))
 
 
 def test_process_index_range_matches_jax():
@@ -246,11 +247,11 @@ def test_logger_rendezvous_over_ranks(tmp_path, monkeypatch):
 
 def test_cli_refuses_unported_mesh_and_odd_batch(monkeypatch):
     """Under ``--device cpu:2`` the launcher checks the mesh and the batch
-    before it starts a rank: the model axis names ROADMAP A10b, an odd
+    before it starts a rank: the model axis names ROADMAP A10c, an odd
     batch gets JAX's message."""
     monkeypatch.setattr(multihost, "launch_local_ranks", None)  # no rank may start
     argv = ["--device", "cpu:2", "--dataset_name", "synthetic"]
-    with pytest.raises(SystemExit, match=r"model axis .*ROADMAP\.md A10b"):
+    with pytest.raises(SystemExit, match=r"model axis .*ROADMAP\.md A10c"):
         training.main(argv + ["--mesh_shape", "data:2,model:2"])
     with pytest.raises(SystemExit) as e:
         training.main(argv + ["--batch_size", "3"])

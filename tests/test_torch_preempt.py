@@ -235,8 +235,8 @@ def test_cli_preempt_and_resume(tiny_synthetic, tmp_path, monkeypatch):
     the end; its last checkpoint's weights equal an uninterrupted run's bit
     for bit."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
-    monkeypatch.setattr(synthetic.synthetic_data_cfg, "height", 32)
-    monkeypatch.setattr(synthetic.synthetic_data_cfg, "width", 32)
+    monkeypatch.setattr(synthetic.synthetic_data_cfg, "height", 16)
+    monkeypatch.setattr(synthetic.synthetic_data_cfg, "width", 16)
     monkeypatch.setattr(synthetic.synthetic_data_cfg, "num_train", 5)
     monkeypatch.setattr(synthetic.synthetic_data_cfg, "num_val", 2)
     argv = ["--device", "cpu", "--dataset_name", "synthetic", "--model_name", "mtan",

@@ -90,7 +90,7 @@ def _step(model, batch, watched):
 def case(request):
     """Both models of a case, built from one seed, and their train steps."""
     make, plain_opts, remat_opts, watched = CASES[request.param]
-    hw = (32, 32) if request.param.startswith("mtan") else (64, 64)
+    hw = (32, 32)
     batch = _batch(hw)
     plain, remat = make(**plain_opts), make(**remat_opts)
     states = {k: v.clone() for k, v in plain.state_dict().items()}

@@ -5,7 +5,8 @@ The split is a seeded permutation (``default_rng(seed)``, 0.8 train).
 ``do_overfit`` makes train = val = test = predict the first batch. Test
 and predict read the "val" stage for Cityscapes and "test" for the others.
 Under several ranks each loader decodes its rank's rows of every global
-batch (:func:`configure_host_sharded_loading`).
+batch, or under the mesh's ``spatial`` axis the whole batch, of which each
+rank keeps its block (:func:`configure_host_sharded_loading`).
 """
 
 from __future__ import annotations
@@ -36,19 +37,23 @@ def _make_dataset(dataset_name: str, stage: str, transforms: t.Any) -> MTLDatase
 
 
 def configure_host_sharded_loading(datamodule: t.Any, mesh: t.Any) -> None:
-    """Check that ``mesh`` suits the loaders' one mode under several ranks:
-    row-sliced, each rank decoding its rows of every global batch, which is
-    consistent only when ``data`` is the one axis that spans processes (the
-    JAX package's full-batch mode for the ``spatial`` and ``model`` axes
-    waits with them, ROADMAP.md A10b). A no-op without a mesh."""
+    """Pick the loaders' mode for ``mesh``, as the JAX package does:
+    row-sliced (each rank decodes its rows of every global batch) when
+    ``data`` is the one axis that spans processes; full-batch
+    (``shard_rows`` False: every rank decodes the whole global batch and
+    keeps its block, ``parallel.mesh.local_batches``) when ``spatial`` spans
+    them too. ``model`` is refused before a mesh exists (ROADMAP.md A10c).
+    A no-op without a mesh."""
     from vision_mtl_tpu_torch.parallel.mesh import process_spanning_axes
 
     spanning = set(process_spanning_axes(mesh)) - {"data"}
-    if spanning:
+    if spanning - {"spatial"}:
         raise ValueError(
-            f"mesh axes {sorted(spanning)} span processes: row-sliced loading cannot express "
-            "their shards (ROADMAP.md A10b)"
+            f"mesh axes {sorted(spanning - {'spatial'})} span processes: neither loading mode "
+            "expresses their shards (ROADMAP.md A10c)"
         )
+    if datamodule is not None:
+        datamodule.shard_rows = not spanning
 
 
 class MTLDataModule:
@@ -81,6 +86,8 @@ class MTLDataModule:
         self.data_test: t.Any = None
         self.data_predict: t.Any = None
         self.benchmark_batch: t.Optional[t.Dict[str, np.ndarray]] = None
+        #: each rank decodes its rows of a global batch (False: all of it)
+        self.shard_rows = True
 
     def setup(self, stage: t.Optional[str] = None) -> None:
         data_train = _make_dataset(self.dataset_name, "train", self.train_transform)
@@ -129,6 +136,7 @@ class MTLDataModule:
             drop_last=True,
             num_workers=self.num_workers,
             wire_format=self.wire_format,
+            shard_rows=self.shard_rows,
         )
 
     def _eval_loader(self, dataset: t.Any) -> DataLoader:
@@ -140,6 +148,7 @@ class MTLDataModule:
             pad_last=True,
             num_workers=self.num_workers,
             wire_format=self.wire_format,
+            shard_rows=self.shard_rows,
         )
 
     def val_dataloader(self) -> DataLoader:

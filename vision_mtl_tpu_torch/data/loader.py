@@ -15,7 +15,9 @@ card through pinned memory (counterpart of ``vision_mtl_tpu/data/loader.py``).
     same seeded global order and decodes only its contiguous
     ``batch_size / world`` rows of each global batch: train batches drop
     the ragged last batch, eval batches pad the global batch and ``valid``
-    marks the rank's padded rows.
+    marks the rank's padded rows. ``shard_rows=False`` (the mesh's
+    ``spatial`` axis) decodes the whole global batch on every rank, as the
+    JAX loader's full-batch mode does.
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ class DataLoader:
         num_workers: int = 0,
         with_valid: bool = False,
         wire_format: str = "f32",
+        shard_rows: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -96,6 +99,7 @@ class DataLoader:
         self.num_workers = num_workers
         self.with_valid = with_valid
         self.wire_format = wire_format
+        self.shard_rows = shard_rows
         self.epoch = 0
         # one-shot: the next iteration skips this many leading batches
         # without decoding them, then resets it to 0
@@ -129,7 +133,7 @@ class DataLoader:
             self.skip_batches = 0
         self.epoch += 1
 
-        rank, world = self._process_shard()
+        rank, world = self._process_shard() if self.shard_rows else (0, 1)
         if world > 1:
             if self.batch_size % world:
                 raise ValueError(

@@ -29,7 +29,7 @@ from torch import nn
 
 from vision_mtl_tpu_torch.kernels.small_conv import fits as small_conv_fits
 from vision_mtl_tpu_torch.models.blocks import conv_nhwc, init_weights
-from vision_mtl_tpu_torch.models.mobilenetv3 import MobileNetV3Encoder
+from vision_mtl_tpu_torch.models.mobilenetv3 import ENCODER_STRIDE, MobileNetV3Encoder
 from vision_mtl_tpu_torch.ops.fold import depth_to_space
 from vision_mtl_tpu_torch.models.unet_decoder import (
     SegmentationHead,
@@ -79,6 +79,8 @@ class BasicMTLModel(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.segm_classes = segm_classes
+        #: the encoder's stride at its coarsest level (see ``parallel/mesh.check_rows``)
+        self.row_stride = ENCODER_STRIDE
         # the decoder folds its last block only when it is skip-less (4
         # encoder skips): the heads' layout follows the map they take
         self.fold_tail = fold_tail and num_decoder_layers > 4

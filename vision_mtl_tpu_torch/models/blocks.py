@@ -21,7 +21,11 @@ several ranks) a train-mode BatchNorm normalises with the statistics of the
 ranks' rows together, as a JAX BatchNorm over a batch sharded on the mesh's
 ``data`` axis does: each rank's (rows, mean, M2) are gathered and combined
 in f64 in rank order, and the backward all-reduces the two per-channel sums
-it needs (:class:`GlobalBatchNorm`).
+it needs (:class:`GlobalBatchNorm`). Inside ``parallel.halo.spatial_rows``
+(the mesh's ``spatial`` axis) every map holds this rank's image rows:
+:func:`conv_nhwc` takes the rows its conv reads from the neighbouring ranks
+and the squeeze-excite mean sums over them; the BatchNorms stay as they
+are, their statistics global over data x spatial.
 """
 
 from __future__ import annotations
@@ -40,9 +44,11 @@ from torch import nn
 from vision_mtl_tpu_torch.kernels import small_conv as small_conv_kernel
 from vision_mtl_tpu_torch.ops import fold as fold_ops
 from vision_mtl_tpu_torch.ops import small_conv as small_conv_op
+from vision_mtl_tpu_torch.parallel.halo import halo_rows, rows_comm, spatial_rows
 from vision_mtl_tpu_torch.parallel.multihost import (
     Comm,
     all_gather_exact,
+    all_reduce_sum,
     batch_comm,
     combine_moments,
     global_batch,
@@ -75,21 +81,23 @@ _recompute = threading.local()
 
 
 @contextlib.contextmanager
-def _recomputing(comm: t.Optional[Comm] = None) -> t.Iterator[None]:
+def _recomputing(
+    comm: t.Optional[Comm] = None, rows: t.Optional[Comm] = None
+) -> t.Iterator[None]:
     before = getattr(_recompute, "active", False)
     _recompute.active = True
     try:
         # the recompute runs in the backward pass, maybe on autograd's own
-        # thread: it takes the forward's ranks, so that it calls the same
-        # collectives in the same order on every rank
-        with global_batch(comm):
+        # thread: it takes the forward's ranks and spatial group, so that it
+        # calls the same collectives in the same order on every rank
+        with global_batch(comm), spatial_rows(rows):
             yield
     finally:
         _recompute.active = before
 
 
 def _remat_contexts() -> t.Tuple[t.ContextManager[None], t.ContextManager[None]]:
-    return contextlib.nullcontext(), _recomputing(batch_comm())
+    return contextlib.nullcontext(), _recomputing(batch_comm(), rows_comm())
 
 
 def checkpointed(module: nn.Module, *args: t.Any) -> t.Any:
@@ -144,6 +152,15 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
         p.uniform_(-bound, bound, generator=generator)
 
 
+def conv_halo(kh: int, stride: int) -> t.Tuple[int, int]:
+    """(lo, hi): the rows above and below its own that a rank needs for a
+    conv of ``kh`` rows at ``stride`` with padding ``(kh-1)//2``, when it
+    holds a multiple of ``stride`` rows: its first output row reads from
+    ``lo`` rows up, its last ``hi`` rows past its own."""
+    lo = (kh - 1) // 2
+    return lo, max(kh - stride - lo, 0)
+
+
 def conv_nhwc(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -157,13 +174,28 @@ def conv_nhwc(
     every stride, computed in ``dtype``. ``small_conv`` routes a 3x3
     stride-1 dense conv through kernel B3 (``ops.small_conv``), which adds
     the bias in f32 before its one cast; otherwise PyTorch's conv runs in
-    ``dtype`` with the bias in ``dtype``."""
-    if small_conv:
-        return small_conv_op.conv3x3_small(x.to(dtype), weight.permute(2, 3, 1, 0), bias)
+    ``dtype`` with the bias in ``dtype``.
+
+    Inside ``parallel.halo.spatial_rows`` x is this rank's rows of the map:
+    it is extended by the halo rows the conv reads (``halo_rows``) and the
+    same conv runs on them with no row padding, giving this rank's output
+    rows. B3 pads one row itself: it runs on x with one halo row each side,
+    and its first and last output rows, which that padding made wrong, are
+    dropped."""
     kh, kw = weight.shape[2:]
+    comm = rows_comm()
+    if small_conv:
+        k = weight.permute(2, 3, 1, 0)
+        if comm is None:
+            return small_conv_op.conv3x3_small(x.to(dtype), k, bias)
+        return small_conv_op.conv3x3_small(halo_rows(x.to(dtype), 1, 1, comm), k, bias)[:, 1:-1]
+    pad_h = (kh - 1) // 2
+    if comm is not None:  # the rows travel in the conv's dtype
+        x = halo_rows(x.to(dtype), *conv_halo(kh, strides[0]), comm)
+        pad_h = 0
     y = F.conv2d(
         _to_nchw(x).to(dtype), weight.to(dtype), None if bias is None else bias.to(dtype),
-        stride=strides, padding=((kh - 1) // 2, (kw - 1) // 2), groups=groups,
+        stride=strides, padding=(pad_h, (kw - 1) // 2), groups=groups,
     )
     return _to_nhwc(y)
 
@@ -483,7 +515,9 @@ def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
 class SqueezeExcite(nn.Module):
     """MobileNetV3 squeeze-excite: the f32 spatial mean, 1x1 conv, ReLU, 1x1
     conv (both with bias, in the block's dtype), then x times the hard
-    sigmoid of the result taken in f32 and cast to x's dtype."""
+    sigmoid of the result taken in f32 and cast to x's dtype. Under
+    ``parallel.halo.spatial_rows`` the mean is the whole image's: the rows'
+    sums are summed over the spatial group."""
 
     def __init__(self, channels: int, reduced: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -492,7 +526,12 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f32 = torch.promote_types(x.dtype, torch.float32)
-        s = x.to(f32).mean((1, 2), keepdim=True)
+        comm = rows_comm()
+        if comm is None:
+            s = x.to(f32).mean((1, 2), keepdim=True)
+        else:  # the image's mean: the sum over the group's rows
+            s = all_reduce_sum(x.to(f32).sum((1, 2), keepdim=True), comm)
+            s = s / (x.shape[1] * comm.world * x.shape[2])
         s = self.Conv_1(torch.relu(self.Conv_0(s)))
         return x * hard_sigmoid(s.to(f32)).to(x.dtype)
 

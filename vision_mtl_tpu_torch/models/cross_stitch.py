@@ -43,6 +43,7 @@ from torch import nn
 from vision_mtl_tpu_torch.models.blocks import checkpointed, init_weights
 from vision_mtl_tpu_torch.models.mobilenetv3 import (
     CONV_HEAD_CH,
+    ENCODER_STRIDE,
     FEATURE_TAP_AFTER_STAGE,
     NUM_STAGES,
     STAGE_OUT_CHANNELS,
@@ -124,6 +125,8 @@ class CSNet(nn.Module):
         super().__init__()
         self.task_names = list(task_channels)
         self.num_decoder_layers = num_decoder_layers
+        #: the encoders' stride at their coarsest level (``parallel/mesh.check_rows``)
+        self.row_stride = ENCODER_STRIDE
         self.remat_tail = remat_tail
         self.upsample_skips = upsample_skips
         n = len(self.task_names)

@@ -21,6 +21,7 @@ the gradient. The parameters are the same either way.
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing as t
 
 import torch
@@ -83,6 +84,9 @@ NUM_STAGES = len(MOBILENETV3_LARGE_SPECS)
 STAGE_OUT_CHANNELS: t.Tuple[int, ...] = tuple(s[-1].out_ch for s in MOBILENETV3_LARGE_SPECS)
 # encoder feature channels at strides (1, 2, 4, 8, 16, 32) for a depth-5 Unet
 ENCODER_OUT_CHANNELS: t.Tuple[int, ...] = (3, 16, 24, 40, 112, 960)
+#: the encoder's stride at its coarsest level: the stem's 2 times each stage's
+#: (32; ``parallel/mesh.check_rows``)
+ENCODER_STRIDE = 2 * math.prod(s.stride for stage in MOBILENETV3_LARGE_SPECS for s in stage)
 # stages after which a pyramid tap is taken; the /32 tap is the conv head's
 FEATURE_TAP_AFTER_STAGE: t.Tuple[int, ...] = (0, 1, 2, 4)
 

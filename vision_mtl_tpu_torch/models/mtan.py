@@ -373,6 +373,12 @@ class TaskAttentionModuleDecoder(nn.Module):
         return task_conv_bn_relu(self.Conv_1, self.BatchNorm_1, g)
 
 
+def levels_row_stride(num_levels: int) -> int:
+    """The row stride of MTAN's coarsest level: each of its ``num_levels``
+    encoder levels halves the rows."""
+    return 2**num_levels
+
+
 class MTANMiniUnet(nn.Module):
     """Mini-Unet global net + per-task attention streams. Input NHWC; output
     ``{task: (B, H, W, channels)}`` in ``dtype``.
@@ -396,6 +402,9 @@ class MTANMiniUnet(nn.Module):
         super().__init__()
         self.task_names = list(map_tasks_to_num_channels)
         self.num_levels = encoder_num_channels
+        #: the factor by which the coarsest level's rows are fewer (the
+        #: ``spatial`` axis needs H to divide by it times its size)
+        self.row_stride = levels_row_stride(encoder_num_channels)
         self.remat_attention = remat_attention
         self.remat_shared = remat_shared
         self.fold_tasks = fold_tasks

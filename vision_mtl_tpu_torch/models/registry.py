@@ -21,6 +21,24 @@ from torch import nn
 from vision_mtl_tpu_torch.cfg import DataConfig
 from vision_mtl_tpu_torch.device import resolve_device
 
+#: MTAN's encoder levels at the registry's config
+MTAN_LEVELS = 4
+
+
+def row_stride(model_name: str) -> int:
+    """The ``row_stride`` of ``model_name`` as :func:`build_model` builds it:
+    its coarsest level has this many times fewer rows than the image
+    (``parallel/mesh.check_rows``); 1 for a name the registry does not know."""
+    if model_name == "mtan":
+        from vision_mtl_tpu_torch.models.mtan import levels_row_stride
+
+        return levels_row_stride(MTAN_LEVELS)
+    if model_name in ("basic", "csnet"):
+        from vision_mtl_tpu_torch.models.mobilenetv3 import ENCODER_STRIDE
+
+        return ENCODER_STRIDE
+    return 1
+
 
 def build_model(
     model_name: str,
@@ -57,7 +75,7 @@ def build_model(
             map_tasks_to_num_channels={"depth": 1, "segm": data_cfg.num_classes},
             task_subnets_hidden_channels=128,
             encoder_first_channel=32,
-            encoder_num_channels=4,
+            encoder_num_channels=MTAN_LEVELS,
             remat_attention=remat_attention,
             remat_shared=remat_shared,
             fold_tasks=fold_tasks,

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vision_mtl_tpu_torch.parallel.halo import halo_rows, rows_comm
+
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/2, W/2, 4C), phase-major channel layout."""
@@ -161,13 +163,18 @@ def folded_conv(
     """An unfolded-parameter (k, k, C, O) stride-1 conv applied to a FOLDED
     input (B, Hf, Wf, 4C); returns the folded (B, Hf, Wf, 4O). With
     ``dtype`` the conv computes in it; the bias is added after, in the
-    output's dtype."""
+    output's dtype. Inside ``parallel.halo.spatial_rows`` x is this rank's
+    folded rows and takes a halo of the folded conv's padding in folded
+    rows."""
     kf = fold_kernel(kernel, in_splits)
     if dtype is not None:
         x = x.to(dtype)
         kf = kf.to(dtype)
-    pad = (kf.shape[0] - 1) // 2
-    y = F.conv2d(x.permute(0, 3, 1, 2), kf.permute(3, 2, 0, 1), padding=pad)
+    pad = pad_h = (kf.shape[0] - 1) // 2
+    comm = rows_comm()
+    if comm is not None:  # this rank's folded rows, with the halo the conv reads
+        x, pad_h = halo_rows(x, pad, pad, comm), 0
+    y = F.conv2d(x.permute(0, 3, 1, 2), kf.permute(3, 2, 0, 1), padding=(pad_h, pad))
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + fold_vector(bias).to(y.dtype)

@@ -1,6 +1,8 @@
 """Several processes over ``torch.distributed`` (counterpart of
-``vision_mtl_tpu/parallel/multihost.py``): data parallelism, one rank per
-process, each decoding only its rows of every global batch.
+``vision_mtl_tpu/parallel/multihost.py``): one rank per process, each
+decoding only its rows of every global batch (the mesh's ``data`` axis),
+or the whole batch, of which it keeps its block (the ``spatial`` axis:
+``parallel/mesh.local_batches``, JAX's full-batch mode).
 
 A launcher (``torchrun``, or ``--device cpu:N`` through
 :func:`launch_local_ranks`) sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -18,7 +20,9 @@ joins the process group before any other work, and the run's
     ``all_reduce`` and ``broadcast`` alone on them, so the steps use nothing
     else on the device;
   * host-side agreement over CPU integers (:func:`all_processes_agree`, the
-    preemption poll) and object broadcasts (the logger's run dir).
+    preemption poll) and object broadcasts (the logger's run dir);
+  * :meth:`Comm.split`: the group of some of the ranks (the mesh's
+    spatial groups, where ``parallel/halo.py`` exchanges rows).
 
 Every rank computes the global loss, so every rank back-propagates ``1 /
 world`` of it and the parameter gradients are summed across the ranks
@@ -60,13 +64,14 @@ _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 class Comm:
     """This process's place in a group of ranks and the group's collectives.
 
-    The default process group reduces device tensors (NCCL when every rank
-    on the host has a card of its own, gloo otherwise); ``host_group``
-    reduces CPU tensors and broadcasts objects (a gloo group beside NCCL;
-    None, the default group, when that is gloo). The
+    ``group`` reduces device tensors (None: the default process group, NCCL
+    when every rank on the host has a card of its own, gloo otherwise);
+    ``host_group`` reduces CPU tensors and broadcasts objects (a gloo group
+    beside NCCL; None, the default group, when that is gloo). The
     primitives :meth:`all_reduce_`, :meth:`host_all_reduce`,
-    :meth:`broadcast_object` and :meth:`barrier` are all that the rest of the
-    port calls; an in-process group (:class:`ThreadComm`) overrides them."""
+    :meth:`broadcast_object`, :meth:`barrier` and :meth:`split` are all that
+    the rest of the port calls; an in-process group (:class:`ThreadComm`)
+    overrides them."""
 
     def __init__(
         self,
@@ -74,10 +79,12 @@ class Comm:
         world: int,
         device: t.Union[str, torch.device] = "cpu",
         host_group: t.Any = None,
+        group: t.Any = None,
     ):
         self.rank, self.world = rank, world
         self.device = torch.device(device)
         self.host_group = host_group
+        self.group = group
         self._calls: t.Dict[str, t.Iterator[int]] = {}
 
     def next_call(self, kind: str) -> int:
@@ -87,7 +94,7 @@ class Comm:
 
     def all_reduce_(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``tensor`` in place on its device; returns it."""
-        dist.all_reduce(tensor, op=getattr(dist.ReduceOp, _OPS[op]))
+        dist.all_reduce(tensor, op=getattr(dist.ReduceOp, _OPS[op]), group=self.group)
         return tensor
 
     def host_all_reduce(self, values: t.Sequence[int], op: str) -> t.List[int]:
@@ -99,11 +106,32 @@ class Comm:
     def broadcast_object(self, obj: t.Any, src: int = 0) -> t.Any:
         """``obj`` of rank ``src`` on every rank (picklable)."""
         box = [obj]
+        if self.host_group is not None:
+            src = dist.get_global_rank(self.host_group, src)
         dist.broadcast_object_list(box, src=src, group=self.host_group)
         return box[0]
 
     def barrier(self) -> None:
         dist.barrier(group=self.host_group)
+
+    def split(self, groups: t.Sequence[t.Sequence[int]]) -> "Comm":
+        """This rank's :class:`Comm` among ``groups``, a partition of the
+        ranks into lists (a rank's place in its list is its rank there).
+        Collective: every rank calls it with the same ``groups``, since
+        ``torch.distributed.new_group`` must see every group on every rank
+        in the same order; beside an NCCL group each gets a gloo one for the
+        host."""
+        mine: t.Optional[Comm] = None
+        for ranks in groups:
+            ranks = [int(r) for r in ranks]
+            group = dist.new_group(ranks)
+            host = dist.new_group(ranks, backend="gloo") if self.host_group is not None else group
+            if self.rank in ranks:
+                mine = Comm(ranks.index(self.rank), len(ranks), self.device,
+                            host_group=host, group=group)
+        if mine is None:
+            raise ValueError(f"rank {self.rank} is in none of the groups {groups}")
+        return mine
 
 
 class ThreadGroup:
@@ -112,8 +140,20 @@ class ThreadGroup:
 
     def __init__(self, world: int, timeout: float = 600.0):
         self.world = world
+        self.timeout = timeout
         self._slots: t.List[t.Any] = [None] * world
         self._barrier = threading.Barrier(world, timeout=timeout)
+        self._subgroups: t.Dict[t.Tuple[int, ...], "ThreadGroup"] = {}
+        self._lock = threading.Lock()
+
+    def subgroup(self, ranks: t.Sequence[int]) -> "ThreadGroup":
+        """The group of the threads ``ranks``, the same object for every
+        thread that asks."""
+        key = tuple(int(r) for r in ranks)
+        with self._lock:
+            if key not in self._subgroups:
+                self._subgroups[key] = ThreadGroup(len(key), self.timeout)
+            return self._subgroups[key]
 
     def exchange(self, rank: int, value: t.Any) -> t.List[t.Any]:
         self._slots[rank] = value
@@ -153,6 +193,10 @@ class ThreadComm(Comm):
 
     def barrier(self) -> None:
         self.threads.exchange(self.rank, None)
+
+    def split(self, groups: t.Sequence[t.Sequence[int]]) -> "ThreadComm":
+        (ranks,) = [list(g) for g in groups if self.rank in g]
+        return ThreadComm(self.threads.subgroup(ranks), ranks.index(self.rank), self.device)
 
 
 _COMM: t.Optional[Comm] = None
@@ -327,8 +371,8 @@ def process_index_range(
 def global_batch_from_local(
     local_batch: t.Mapping[str, np.ndarray], device: t.Union[str, torch.device]
 ) -> t.Dict[str, torch.Tensor]:
-    """This rank's rows of the global batch as tensors on its device. The
-    global batch exists only as the ranks' rows: the steps' collectives
+    """This rank's block of the global batch as tensors on its device. The
+    global batch exists only as the ranks' blocks: the steps' collectives
     (:func:`global_batch`) make each statistic global."""
     dev = torch.device(device)
     return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in local_batch.items()}

@@ -5,10 +5,11 @@ the batches carry ground truth, and optionally plot each batch's
 predictions (``vis.plot_preds``) to the experiment; ``save_preds`` writes
 the predictions.
 
-Under a ``mesh`` of several ranks each rank runs its rows of every batch;
-the ranks' predictions are gathered (exactly, in rank order, which is the
-dataset's order) and the metrics reduced, so every rank returns the whole
-sweep's; rank 0 writes ``preds.npz`` (``training.py``)."""
+Under a ``mesh`` of several ranks each rank runs its block of every batch
+(its rows, and under ``spatial`` its image rows of them); the ranks'
+predictions are gathered exactly and put back whole (``Mesh.gather``, as
+JAX's ``replicate_gather``) and the metrics reduced, so every rank returns
+the whole sweep's; rank 0 writes ``preds.npz`` (``training.py``)."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from torch import nn
 from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics, reduce_metrics
-from vision_mtl_tpu_torch.parallel.multihost import all_gather_exact
+from vision_mtl_tpu_torch.parallel.mesh import local_batches
 from vision_mtl_tpu_torch.train.step import make_predict_eval_step
 
 
@@ -47,7 +48,9 @@ def predict(
     flight). With ``do_plot_preds`` each batch's plot goes to ``exp`` (and
     to the screen with ``do_show_preds``); a failed plot is printed and the
     sweep goes on. Under a ``mesh`` (several ranks) ``batches`` yields this
-    rank's rows, ``device`` is its device, and only rank 0 plots.
+    rank's rows, or under ``spatial`` whole batches of which the rank keeps
+    its block (``mesh.local_batches``); ``device`` is its device, and only
+    rank 0 plots.
     """
     comm = mesh.comm if mesh is not None and mesh.world > 1 else None
     dev = mesh.device if mesh is not None else resolve_device(device)
@@ -56,15 +59,14 @@ def predict(
     )
     mstate = init_metrics(num_classes, dev)
     preds: t.List[t.Dict[str, np.ndarray]] = []
-    for batch in prefetch_to_device(batches, dev, size=2):
+    for batch in prefetch_to_device(local_batches(batches, mesh), dev, size=2):
         batch_preds, mstate, _ = step(batch, mstate)
         valid = batch.get("valid")
         if comm is not None:
-            # every rank's rows, in rank order: the global batch's order
-            batch_preds = {k: all_gather_exact(v, comm).flatten(0, 1)
-                           for k, v in batch_preds.items()}
+            # every rank's block in its place: the global batch
+            batch_preds = {k: mesh.gather(v) for k, v in batch_preds.items()}
             if valid is not None:
-                valid = all_gather_exact(valid, comm).flatten(0, 1)
+                valid = mesh.gather(valid)
         host_preds = {k: v.cpu().numpy() for k, v in batch_preds.items()}
         if valid is not None:
             n_valid = int(valid.sum())

@@ -21,9 +21,11 @@ B3 through their operators (``torch.ops.vmtl.*``), which the kernels
 package registers when it is imported.
 
 With a ``mesh`` of several ranks (``parallel/mesh.py``), a ``Predictor``
-splits the request batch over the ranks: every rank is called with the same
-images, runs its rows on its own snapshot, and the answers are gathered
-exactly, so every rank returns the whole answer. A ``BatchingServer``
+splits the request batch over the ranks, by data index along the batch and
+by spatial index along the image rows: every rank is called with the same
+images, runs its block on its own snapshot, and the blocks of the answer
+are gathered exactly (``Mesh.gather``), so every rank returns the whole
+answer. A ``BatchingServer``
 takes requests on rank 0, which broadcasts each coalesced batch; the other
 ranks serve them through :meth:`BatchingServer.follow` until rank 0 closes.
 """
@@ -42,7 +44,6 @@ import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.device import resolve_device
-from vision_mtl_tpu_torch.parallel.multihost import all_gather_exact
 from vision_mtl_tpu_torch.train.step import make_predict_step, predict_outputs
 
 
@@ -59,10 +60,11 @@ class Predictor:
     segm as uint8 (lossless: every head has <= 255 classes) and depth as
     float16, cutting the device-to-host payload.
 
-    ``mesh``: the ranks split each batch (``batch_size`` must divide by
-    their number) and every rank returns the whole answer; the model is
-    this rank's copy, on ``mesh.device``. Collective: every rank makes the
-    same calls with the same images.
+    ``mesh``: the ranks split each batch, its rows over the ``data`` axis
+    (``batch_size`` must divide by its size) and its image rows over
+    ``spatial``, and every rank returns the whole answer; the model is this
+    rank's copy, on ``mesh.device``. Collective: every rank makes the same
+    calls with the same images.
     """
 
     def __init__(
@@ -77,7 +79,8 @@ class Predictor:
         device: t.Union[str, torch.device] = "cuda",
         mesh: t.Any = None,
     ):
-        self._comm = mesh.comm if mesh is not None and mesh.world > 1 else None
+        self._mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self._comm = self._mesh.comm if self._mesh is not None else None
         self.device = resolve_device(mesh.device if mesh is not None else device)
         p = next(model.parameters())
         if p.device != self.device:
@@ -88,7 +91,7 @@ class Predictor:
         if model.training:
             raise ValueError("Predictor needs a model in eval mode (model.eval())")
         self.model = copy.deepcopy(model).requires_grad_(False)
-        self._step = make_predict_step(self.model)
+        self._step = make_predict_step(self.model, self._mesh)
         self.batch_size = batch_size
         self.shape = (batch_size, height, width, channels)
         self.dtype = np.dtype(dtype)
@@ -98,10 +101,10 @@ class Predictor:
         self._check_batch_size(batch_size)
 
     def _check_batch_size(self, batch_size: int) -> None:
-        if self._comm is not None and batch_size % self._comm.world:
+        if self._mesh is not None and batch_size % self._mesh.size("data"):
             raise ValueError(
-                f"batch size {batch_size} does not divide over the mesh's {self._comm.world} "
-                "ranks (its data axis)"
+                f"batch size {batch_size} does not divide over the mesh's "
+                f"{self._mesh.size('data')} ranks of its data axis"
             )
 
     def _with_batch_size(self, batch_size: int) -> "Predictor":
@@ -115,8 +118,8 @@ class Predictor:
 
     def _run(self, img: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         out = self._step(img)
-        if self._comm is not None:
-            out = {k: all_gather_exact(v, self._comm).flatten(0, 1) for k, v in out.items()}
+        if self._mesh is not None:
+            out = {k: self._mesh.gather(v) for k, v in out.items()}
         if self.compact_out:
             out = {"segm": out["segm"].to(torch.uint8), "depth": out["depth"].to(torch.float16)}
         return out
@@ -139,9 +142,8 @@ class Predictor:
         if n < self.batch_size:
             pad = np.repeat(imgs[-1:], self.batch_size - n, axis=0)
             imgs = np.concatenate([imgs, pad], axis=0)
-        if self._comm is not None:  # this rank's rows
-            per = self.batch_size // self._comm.world
-            imgs = imgs[self._comm.rank * per:(self._comm.rank + 1) * per]
+        if self._mesh is not None:  # this rank's block
+            imgs = self._mesh.block({"img": imgs})["img"]
         img = torch.from_numpy(np.ascontiguousarray(imgs))
         if self.device.type == "cuda":
             # from pinned memory the copy is queued, not waited for

@@ -20,7 +20,9 @@ and validation step and once after each epoch's checkpoint; a request
 writes a checkpoint and exits 143 (``_preempt_exit``).
 
 Under a ``mesh`` of several ranks every rank runs this loop in step with
-the others on its own rows (``data/loader.py``) and device: the epoch's
+the others on its own block of each batch (its rows, decoded alone by the
+loader; under ``spatial`` its image rows of them, cut from the whole batch
+that every rank decodes: ``mesh.local_batches``) and device: the epoch's
 metrics are the ranks' reduced ones (``metrics.reduce_metrics``), rank 0
 writes the checkpoints and prunes old ones while the others wait at a
 barrier, and the benchmark batch is used only when every rank loaded it.
@@ -39,6 +41,7 @@ from vision_mtl_tpu_torch.data.datamodule import MTLDataModule, configure_host_s
 from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metrics, reduce_metrics
+from vision_mtl_tpu_torch.parallel.mesh import local_batches
 from vision_mtl_tpu_torch.parallel.multihost import all_processes_agree
 from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt, save_preempt_ckpt
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
@@ -174,8 +177,8 @@ def run_pipe(
     trained, and the epoch's accumulators go on from where they stopped.
 
     ``mesh`` (``parallel/mesh.py``, several ranks): this rank's part of a
-    data-parallel run on ``mesh.device``; every rank calls ``run_pipe``
-    with the same arguments."""
+    run over the mesh's ``data`` and ``spatial`` axes on ``mesh.device``;
+    every rank calls ``run_pipe`` with the same arguments."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     comm = mesh.comm if mesh is not None else None
     rank0 = comm is None or comm.rank == 0
@@ -257,7 +260,7 @@ def run_pipe(
         epoch_start_batch = batch_in_epoch
 
         step_log = _LaggedLossLog("step/train", logger, exp)
-        batches = prefetch_to_device(train_loader, dev, size=2)
+        batches = prefetch_to_device(local_batches(train_loader, mesh), dev, size=2)
         for batch in batches:
             state, mstate, losses = train_step(state, batch, mstate)
             step_log.offer(global_step, losses, global_step % log_every_n_steps == 0)
@@ -302,7 +305,8 @@ def run_pipe(
             val_mstate = init_metrics(num_classes, dev)
             val_log = _LaggedLossLog("step/val", logger, exp)
             val_step0 = val_step  # a preempted sweep is run again from here
-            batches = prefetch_to_device(datamodule.val_dataloader(), dev, size=2)
+            batches = prefetch_to_device(local_batches(datamodule.val_dataloader(), mesh), dev,
+                                         size=2)
             for batch in batches:
                 val_mstate, losses = eval_step(state, batch, val_mstate)
                 val_log.offer(val_step, losses, val_step % log_every_n_steps == 0)

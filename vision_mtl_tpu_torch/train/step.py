@@ -9,14 +9,17 @@ run under ``torch.inference_mode``. Each step sets the model's mode for its
 own forward and restores it after. Steps return without synchronising:
 reading a result on the host is the sync.
 
-Given a ``mesh`` of several ranks (``parallel/mesh.py``, the ``data``
-axis), each rank's step takes its own rows of the global batch and runs
+Given a ``mesh`` of several ranks (``parallel/mesh.py``: the ``data`` and
+``spatial`` axes), each rank's step takes its own block of the global
+batch (its rows, and under ``spatial`` its image rows of them) and runs
 inside ``multihost.global_batch``: train-mode batch statistics and the
-losses are the global batch's. The train step back-propagates ``1 /
-world`` of the global loss on every rank and then sums the gradients over
-the ranks, once per step, in one flat buffer, before Adam: every rank's
-parameters and Adam moments stay bit for bit equal. The metric states stay
-per rank until ``metrics.reduce_metrics``.
+losses are the global batch's. Under ``spatial`` the forward also runs
+inside ``halo.spatial_rows`` with the rank's spatial group, where the
+convolutions take their halo rows from the neighbouring ranks. The train
+step back-propagates ``1 / world`` of the global loss on every rank and
+then sums the gradients over the ranks, once per step, in one flat buffer,
+before Adam: every rank's parameters and Adam moments stay bit for bit
+equal. The metric states stay per rank until ``metrics.reduce_metrics``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from torch import nn
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.losses import mtl_loss
 from vision_mtl_tpu_torch.metrics import MetricState, update_metrics
+from vision_mtl_tpu_torch.parallel.halo import spatial_rows
+from vision_mtl_tpu_torch.parallel.mesh import check_rows
 from vision_mtl_tpu_torch.parallel.multihost import Comm, global_batch
 from vision_mtl_tpu_torch.train.state import TrainState
 
@@ -65,14 +70,15 @@ def postprocess_raw_out(out: t.Dict[str, torch.Tensor]) -> t.Dict[str, torch.Ten
     }
 
 
-def make_predict_step(model: nn.Module) -> t.Callable[[torch.Tensor], Batch]:
+def make_predict_step(model: nn.Module, mesh: t.Any = None) -> t.Callable[[torch.Tensor], Batch]:
     """Returns ``step(img) -> {"segm": argmax ids, "depth": sigmoid depths}``:
     an eval-mode forward (running statistics, which stay as they are); a
-    uint8 image is normalised on the device."""
+    uint8 image is normalised on the device. Under a ``mesh`` with a
+    ``spatial`` axis, ``img`` is this rank's block and so is the answer."""
 
     @torch.inference_mode()
     def step(img: torch.Tensor) -> Batch:
-        with _mode(model, False):
+        with _mode(model, False), _rows(mesh, model, img):
             return predict_outputs(model, img)
 
     return step
@@ -118,6 +124,17 @@ def _comm(mesh: t.Any) -> t.Optional[Comm]:
     return mesh.comm if mesh is not None and mesh.world > 1 else None
 
 
+def _rows(mesh: t.Any, model: nn.Module, img: torch.Tensor) -> t.ContextManager[None]:
+    """The forward's ``spatial_rows`` context: the mesh's spatial group,
+    once the image's height (``img`` holds this rank's rows) is checked to
+    split over it at every level of ``model`` (``mesh.check_rows``)."""
+    rows = mesh.spatial_comm if mesh is not None else None
+    if rows is not None:
+        check_rows(img.shape[1] * rows.world, rows.world, model.row_stride,
+                   type(model).__name__)
+    return spatial_rows(rows)
+
+
 def make_predict_eval_step(
     model: nn.Module,
     loss_segm_weight: float = 1.0,
@@ -133,7 +150,7 @@ def make_predict_eval_step(
     @torch.inference_mode()
     def step(batch: Batch, mstate: MetricState):
         batch = decode_batch(batch)
-        with _mode(model, False):
+        with _mode(model, False), _rows(mesh, model, batch["img"]):
             post = postprocess_raw_out(model(batch["img"]))
         preds = {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
         if "mask" not in batch or "depth" not in batch:
@@ -189,7 +206,8 @@ def make_train_step(
     seed = 1.0 / (grad_accum_steps * (comm.world if comm is not None else 1))
 
     def micro(model: nn.Module, mb: Batch, mstate: MetricState) -> t.Tuple[Losses, MetricState]:
-        post = postprocess_raw_out(model(mb["img"]))
+        with _rows(mesh, model, mb["img"]):
+            post = postprocess_raw_out(model(mb["img"]))
         losses = _losses(post, mb, loss_segm_weight, loss_depth_weight)
         (losses["loss"] * seed).backward()
         with torch.no_grad():  # the metric state keeps no graph alive
@@ -266,7 +284,7 @@ def make_eval_step(
     @torch.inference_mode()
     def step(state: TrainState, batch: Batch, mstate: MetricState):
         batch = _to_device(batch, dev)
-        with _mode(state.model, False):
+        with _mode(state.model, False), _rows(mesh, state.model, batch["img"]):
             post = postprocess_raw_out(state.model(batch["img"]))
         with global_batch(comm):
             losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)

@@ -20,7 +20,9 @@ Data parallelism: launched by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), every process joins the
 process group before any other work and trains its rows of each global
 batch on ``cuda:(LOCAL_RANK % device_count)``; ``--mesh_shape`` (default
-``data:-1``) lays the ranks out, and only its ``data`` axis is ported.
+``data:-1``) lays the ranks out over its ``data`` and ``spatial`` axes
+(``data:2,spatial:2``: each rank a quarter of every batch, half its
+rows of half its images); ``model`` above 1 is refused (ROADMAP.md A10c).
 ``--device cpu:N`` starts N ranks of this CLI on the CPU (gloo, one thread
 each) and returns rank 0's run dir; a rank that fails fails the run.
 """
@@ -37,7 +39,8 @@ from vision_mtl_tpu_torch.cfg import cfg, fetch_data_cfg
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import rank_part
 from vision_mtl_tpu_torch.parallel import multihost
-from vision_mtl_tpu_torch.parallel.mesh import Mesh, create_mesh, parse_mesh_shape
+from vision_mtl_tpu_torch.models.registry import row_stride
+from vision_mtl_tpu_torch.parallel.mesh import Mesh, check_rows, create_mesh, parse_mesh_shape
 from vision_mtl_tpu_torch.pipeline import create_main_components, create_tools
 from vision_mtl_tpu_torch.predict import predict, save_preds
 from vision_mtl_tpu_torch.tracking.artifacts import register_run, run_registry_key
@@ -97,7 +100,9 @@ def _launch_cpu_ranks(args: argparse.Namespace, argv: t.List[str], n_ranks: int)
 
 def check_mesh(args: argparse.Namespace, world: int) -> t.Dict[str, int]:
     """The mesh of ``--mesh_shape`` over ``world`` ranks; SystemExit when its
-    data axis does not divide ``--batch_size`` (JAX's message)."""
+    data axis does not divide ``--batch_size`` (JAX's message), or when the
+    dataset's image height does not split over its spatial axis at every
+    level of the model (``parallel.mesh.check_rows``)."""
     axes = parse_mesh_shape(args.mesh_shape, world)
     data_shards = axes.get("data", 1)
     if args.batch_size % data_shards:
@@ -106,6 +111,10 @@ def check_mesh(args: argparse.Namespace, world: int) -> t.Dict[str, int]:
             f"mesh data axis ({data_shards}); pick a multiple or adjust "
             f"--mesh_shape."
         )
+    data_cfg = fetch_data_cfg(args.dataset_name)
+    height = (data_cfg.train_transform or data_cfg).height
+    check_rows(height, axes.get("spatial", 1), row_stride(args.model_name),
+               f"--model_name {args.model_name}")
     return axes
 
 

@@ -5,7 +5,7 @@
 Flags whose feature the port does not have yet are parsed, and
 :func:`check_ported` refuses a value other than their default, naming the
 ROADMAP.md item that ports it; it also refuses a ``--mesh_shape`` axis the
-port does not run (``spatial`` or ``model`` above 1, ROADMAP.md A10b).
+port does not run (``model`` above 1, ROADMAP.md A10c).
 ``--device cpu:N`` runs N ranks on the CPU (``training.main``).
 """
 
