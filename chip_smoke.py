@@ -153,9 +153,30 @@ one MTAN epoch over the mesh on the ``cli`` tree (every rank decodes whole
 batches and keeps its block). Launches are counted exactly per rank: B4's
 staged calls and B3's convs run on the row blocks.
 
-``--parallel`` builds the kernels and runs the MTAN and basic f32 checks
+The ``model`` phase (the mesh's ``model`` axis: large conv kernels
+sharded by output channel with their Adam moments, the output channels
+gathered over the model group) runs in the same rank processes last, over
+``model:2`` (two ranks sharing one card) or ``data:N/2,model:2`` (a card
+each), at the default ``min_size``. For MTAN and basic at full width, each
+rank the whole of its data block: the parameter-and-moment bytes a rank
+holds against one process's (MTAN's must be 53.6% +- 1%); one f32 step
+held to the one-process step as the other phases' are; 1 + 3 bf16 steps,
+after which the replicated leaves and their moments hold the same bits on
+every rank and each sharded one on the data ranks of its slice, their p50
+beside the one-process step's; the model group's collectives of one step
+by kind (copy-in, gather-out, the gate's whole weights). Then MTAN's
+``Predictor(8, mesh=)`` of the sharded f32 model against the one-process
+answer; the training CLI for one MTAN epoch over the mesh, whose
+checkpoint must hold the trained state gathered whole bit for bit and
+whose one-process f32 ``Predictor`` must answer as the same checkpoint
+sharded over the mesh does; both gates at MTAN's shapes with ``dec0``'s
+``w1`` gathered (B4 staged over the replica group when it has several
+ranks). Launches are counted exactly per rank.
+
+``--parallel [phase ...]`` builds the kernels and runs the MTAN and basic f32 checks
 against the CPU (for their limits), their bf16 steps (for the one-process
-p50s) and the ``parallel`` and ``spatial`` phases alone, then prints the
+p50s) and the rank phases alone (all of ``parallel``, ``spatial`` and
+``model``, or those named), then prints the
 card's name and power limit and no ``ok`` line: a development run, and the
 phases over several cards.
 
@@ -254,7 +275,8 @@ bare step's img/s of the training phase, the loader's img/s alone and with
 the copies to the card, and the card's idle share over one more epoch of
 the loop, from torch.profiler), the per-shape and per-call kernel lines at
 the NYUv2 shapes and the ``nyuv2`` line, the ``task_gate_shapes`` line,
-the ``interop``, ``options``, ``parallel`` and ``spatial`` lines, the ``timing`` line (the
+the ``interop``, ``options``, ``parallel``, ``spatial`` and ``model_axis`` lines, the
+``timing`` line (the
 kernels' build and the whole run, in seconds), the ``kernels`` JSON line (each entry
 with its ``nyuv2`` numbers beside), the card's name and power limit. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -3187,7 +3209,7 @@ PARALLEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 PARALLEL_BF16_STEPS = 3  # timed two-rank bf16 steps, after one untimed
 PARALLEL_BATCH_SEED = 31
 PARALLEL_PREDICT_SEED = 41
-PARALLEL_TIMEOUT_S = 420
+PARALLEL_TIMEOUT_S = 600
 # a train step of MTAN under ranks: its 16 gates take B4's staged call
 PER_RANK_TRAIN_STEP = {"fused_attention_gate_train_ranks": 16, "confusion_matrix": 1}
 # Predictor(8, mesh=) against the one-process Predictor(8), f32 weights: the
@@ -3198,8 +3220,10 @@ PARALLEL_SEGM_MISMATCH_TOL = 1e-4  # share of pixels whose argmax may differ
 PARALLEL_CODE = r"""
 import sys
 import chip_smoke
-sys.exit(chip_smoke.parallel_rank(sys.argv[1]))
+sys.exit(chip_smoke.parallel_rank(sys.argv[1], sys.argv[2:]))
 """
+#: the phases the rank processes run, in order
+PARALLEL_PHASES = ("parallel", "spatial", "model")
 # the spatial phase: the mesh's spatial axis over the same ranks, MTAN and
 # basic; 1 + SPATIAL_BF16_STEPS bf16 steps each
 SPATIAL_MODELS = ("mtan", "basic")
@@ -3207,6 +3231,10 @@ SPATIAL_BF16_STEPS = 3
 # a train step under ranks: MTAN's gates take B4's staged call, basic's 4 B3
 # convs (and their dx) run on row blocks with one halo row each side
 PER_SPATIAL_TRAIN_STEP = {"mtan": PER_RANK_TRAIN_STEP, "basic": PER_TRAIN_STEP["basic"]}
+# the model phase: the mesh's model axis over the same ranks, MTAN and basic;
+# 1 + MODEL_BF16_STEPS bf16 steps each
+MODEL_MODELS = ("mtan", "basic")
+MODEL_BF16_STEPS = 3
 
 
 def spatial_spec(world: int) -> str:
@@ -3499,6 +3527,7 @@ def spatial_rank(comm, out_dir: str) -> dict:
     del model
     # the training CLI over the same mesh: whole batches decoded, blocks kept
     out["cli"] = rank_cli(comm, out_dir, spec, "spatial_logs", "spatial")
+    out["cli"].pop("state")
     add(out["cli"]["launches"])
     gate_rows, gate_totals = rank_gate_times(fused_gate_train, comm, dev,
                                              rows=BATCH // mesh.size("data"),
@@ -3509,12 +3538,16 @@ def spatial_rank(comm, out_dir: str) -> dict:
     return out
 
 
-def rank_cli(comm, out_dir: str, mesh_shape: str, logs: str, tag: str) -> dict:
+def rank_cli(comm, out_dir: str, mesh_shape: str, logs: str, tag: str,
+             per_step: dict = PER_RANK_TRAIN_STEP, whole=None) -> dict:
     """The training CLI in process on this rank: one MTAN epoch on the
     ``cli`` tree over ``--mesh_shape mesh_shape``, run dirs under
     ``out_dir/logs``. Launches counted exactly (what the loaders' lengths
-    predict), every rank's weights and Adam moments the same bits after the
-    epoch, one run dir with one checkpoint and ``preds.npz``."""
+    predict, ``per_step`` a train step's), every rank's weights and Adam
+    moments the same bits after the epoch (``whole(state)``: the tensors to
+    hold equal, :func:`train_tensors` by default), one run dir with one
+    checkpoint and ``preds.npz``. The record's ``state`` is the trained
+    state (not JSON: the caller pops it)."""
     from vision_mtl_tpu_torch import kernels, training
     from vision_mtl_tpu_torch.cfg import cfg as pipeline_cfg
 
@@ -3544,11 +3577,11 @@ def rank_cli(comm, out_dir: str, mesh_shape: str, logs: str, tag: str) -> dict:
     dm = seen["datamodule"]
     n_train, n_val, n_pred = (len(dm.train_dataloader()), len(dm.val_dataloader()),
                               len(dm.predict_dataloader()))
-    want = expected(kernels, PER_RANK_TRAIN_STEP, n_train, confusion_matrix=n_val + n_pred)
+    want = expected(kernels, per_step, n_train, confusion_matrix=n_val + n_pred)
     want["fused_attention_gate"] += PER_FORWARD["mtan"]["fused_attention_gate"] * (n_val + n_pred)
     if cli_counts != want:
         fail(f"{tag} cli rank {rank}: launches {cli_counts}, want {want}")
-    if not same_on_every_rank(comm, train_tensors(seen["state"])):
+    if not same_on_every_rank(comm, (whole or train_tensors)(seen["state"])):
         fail(f"{tag} cli: the ranks' weights or Adam moments differ after the epoch")
     if comm.broadcast_object(run_dir) != run_dir:
         fail(f"{tag} cli: rank {rank} trained into {run_dir}, rank 0 elsewhere")
@@ -3560,38 +3593,403 @@ def rank_cli(comm, out_dir: str, mesh_shape: str, logs: str, tag: str) -> dict:
             fail(f"{tag} cli: run dirs {versions}, entries {entries}")
     return {"argv": argv, "wall_s": cli_s, "run_dir": run_dir, "launches": cli_counts,
             "loader_lengths": {"train": n_train, "val": n_val, "predict": n_pred},
-            "weights_equal_across_ranks": True}
+            "weights_equal_across_ranks": True, "state": seen["state"]}
 
 
-def parallel_rank(out_dir: str) -> int:
-    """One rank of the ``parallel`` phase (started by :func:`parallel_phase`
-    with torchrun's environment): joins the process group
-    (``maybe_initialize_distributed``: gloo when the ranks share the one
-    card, NCCL with a card each) and drives MTAN at full width on its rows
-    of each global batch, then runs the ``spatial`` phase
-    (:func:`spatial_rank`); writes ``rank_{r}.json`` into ``out_dir`` and,
-    on rank 0, the f32 steps' gradients."""
-    import torch.distributed as dist
+def model_spec(world: int) -> str:
+    """The mesh of the ``model`` phase: two ranks (sharing one card) split
+    the large conv kernels' output channels; four (a card each) split the
+    batch over ``data`` too."""
+    return "model:2" if world == 2 else f"data:{world // 2},model:2"
+
+
+def whole_tensors(state) -> list:
+    """Parameters and Adam moments of a train state placed on the model
+    axis, each sharded leaf gathered whole (collective over the model
+    group), in parameter order."""
+    from vision_mtl_tpu_torch.parallel.mesh import model_slices
+
+    slices = model_slices(state.model)
+    named = list(state.model.named_parameters())
+    out = [slices[k].gather(p) if k in slices else p for k, p in named]
+    for k, p in named:
+        for field in ("exp_avg", "exp_avg_sq"):
+            if p in state.optimizer.state:
+                v = state.optimizer.state[p][field]
+                out.append(slices[k].gather(v) if k in slices else v)
+    return out
+
+
+def split_tensors(state) -> tuple:
+    """(replicated, sharded): the parameters and Adam moments of a state on
+    the model axis, by whether their leaf is sharded."""
+    from vision_mtl_tpu_torch.parallel.mesh import model_slices
+
+    slices = model_slices(state.model)
+    rep, shard = [], []
+    for k, p in state.model.named_parameters():
+        moments = [state.optimizer.state[p][f] for f in ("exp_avg", "exp_avg_sq")
+                   if p in state.optimizer.state]
+        (shard if k in slices else rep).extend([p, *moments])
+    return rep, shard
+
+
+def state_bytes(state) -> int:
+    """Bytes of a state's parameters and Adam moments held on this rank."""
+    return sum(t.numel() * t.element_size() for t in train_tensors(state))
+
+
+def count_model_collectives(comm, fn) -> dict:
+    """``fn()`` with every all-reduce of ``comm`` (the model group) counted
+    by what made it, read from the call stack's qualified names: the
+    copy-in's backward (the input gradient summed over the group), the
+    gather-out of a sharded layer's output channels, the gather of a whole
+    weight (``blocks.whole_param``: the gate's ``w1`` and ``w2`` in
+    ``GateChain``), and the others (where the group is every rank: the
+    replicated gradients' mean). One step's worth."""
+    counts: dict = {}
+    real = comm.all_reduce_
+
+    def counted(tensor, op="sum"):
+        names = []
+        frame = sys._getframe(1)
+        while frame is not None and len(names) < 16:
+            names.append(frame.f_code.co_qualname)
+            frame = frame.f_back
+        if "_CopyIn.backward" in names:
+            kind = "copy_in"
+        elif "_GatherOut.forward" in names:
+            kind = ("gate_weight" if "GateChain.forward" in names else "weight") \
+                if "whole_param" in names else "gather_out"
+        else:
+            kind = "other"
+        counts[kind] = counts.get(kind, 0) + 1
+        return real(tensor, op)
+
+    comm.all_reduce_ = counted
+    try:
+        fn()
+    finally:
+        del comm.all_reduce_
+    return counts
+
+
+def model_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
+    """Both gates at MTAN's 8 gate shapes on this rank's block of batch 8
+    (bf16, as the main path), each ``w1`` that the layout shards (``dec0``'s
+    640x128 at the default ``min_size``) gathered over the model group
+    inside the call, as ``GateChain`` does: B1 (row 1m) with folded
+    weights, B4 (row 4m) staged over the replica group when it has several
+    ranks, else the fused call. Each against its plain version on the same
+    inputs, CUDA-event ms of one forward's or one step's calls (two tasks a
+    level; the gathers included), the bound of the gates' own work."""
+    from vision_mtl_tpu_torch.parallel.mesh import MIN_SHARD_SIZE
+    from vision_mtl_tpu_torch.parallel.multihost import gather_out
+
+    model_comm, replicas = mesh.model_comm, mesh.replica_comm
+    per = BATCH // mesh.size("data")
+    gen = torch.Generator(device=dev).manual_seed(20 + mesh.rank)
+    totals = {g: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "gathered_levels": []}
+              for g in ("eval", "train")}
+    by_flops = by_bytes = 0.0
+    for level, cin, c2, h, w in GATE_SHAPES:
+        def uniform(*shape, bound=1.0):
+            return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+        x = torch.randn(per, h, w, cin, generator=gen, device=dev).to(torch.bfloat16)
+        shared = torch.randn(per, h, w, c2, generator=gen, device=dev).to(torch.bfloat16)
+        w1 = uniform(cin, HIDDEN, bound=cin**-0.5)
+        rest = (uniform(HIDDEN, bound=cin**-0.5), uniform(HIDDEN) * 0.5 + 1.0,
+                uniform(HIDDEN, bound=0.3), uniform(HIDDEN, c2, bound=HIDDEN**-0.5),
+                uniform(c2, bound=HIDDEN**-0.5), uniform(c2) * 0.5 + 1.0, uniform(c2, bound=0.3))
+        sharded = cin * HIDDEN >= MIN_SHARD_SIZE and HIDDEN % model_comm.world == 0
+        part = HIDDEN // model_comm.world
+        w1_part = w1[:, model_comm.rank * part:(model_comm.rank + 1) * part].contiguous()
+
+        def whole_w1():
+            return gather_out(w1_part, model_comm) if sharded else w1
+
+        s1, c1 = fused_gate.fold_bn(rest[0], rest[1], rest[2], torch.zeros(HIDDEN, device=dev),
+                                    torch.ones(HIDDEN, device=dev), 1e-5)
+        s2, c2v = fused_gate.fold_bn(rest[4], rest[5], rest[6], torch.zeros(c2, device=dev),
+                                     torch.ones(c2, device=dev), 1e-5)
+        w2f = rest[3] * s2
+        calls = {
+            "eval": (lambda: fused_gate.fused_attention_gate(x, shared, whole_w1() * s1, c1,
+                                                             w2f, c2v),
+                     lambda: fused_gate.fused_attention_gate_plain(x, shared, whole_w1() * s1,
+                                                                   c1, w2f, c2v)),
+            "train": (lambda: fused_gate_train.fused_attention_gate_train(
+                          x, shared, whole_w1(), *rest, comm=replicas)[0],
+                      lambda: fused_gate_train.fused_attention_gate_train_plain(
+                          x, shared, whole_w1(), *rest, comm=replicas)[0]),
+        }
+        with torch.no_grad():
+            for g, (kernel, plain) in calls.items():
+                err, ok = output_ok(kernel(), plain())
+                if not ok:
+                    fail(f"model-axis {g} gate {level} rank {mesh.rank}: max |diff| {err} from "
+                         "its plain version")
+                mesh.comm.barrier()
+                totals[g]["ms"] += 2 * time_ms(kernel, iters=10, warmup=2)
+                mesh.comm.barrier()
+                totals[g]["plain_ms"] += 2 * time_ms(plain, iters=5, warmup=1)
+                totals[g]["err"] = max(totals[g]["err"], err)
+                if sharded:
+                    totals[g]["gathered_levels"].append(level)
+        n = per * h * w
+        nbytes = 2 * n * (cin + 2 * c2) + 4 * (
+            cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2 + 3 * c2 + 2 * (HIDDEN + c2))
+        by_flops += 2 * tf32_flops(n, cin, c2, True) / TF32_TC_FLOPS_PER_S
+        by_bytes += 2 * nbytes / HBM_BYTES_PER_S
+    for g in totals.values():
+        g["bound_ms"] = max(by_flops, by_bytes) * 1e3
+        g["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
+    totals["train"]["staged"] = replicas is not None
+    return totals
+
+
+def model_rank(comm, out_dir: str) -> dict:
+    """The ``model`` phase on one rank: the mesh of :func:`model_spec` over
+    the ``parallel`` phase's ranks. Per model (MTAN, basic at 128x256,
+    global batch 8, default ``min_size``): the state placed by
+    ``shard_state``, its parameter-and-moment bytes on this rank against
+    one process's; one f32 step (rank 0 saves the gradients, gathered
+    whole, for :func:`parallel_phase` to hold to the one-process step);
+    1 + ``MODEL_BF16_STEPS`` bf16 steps, after which every replicated leaf
+    and its moments hold the same bits on every rank and every sharded one
+    on the data ranks of its slice, launches counted per rank; one more
+    step with the model group's collectives counted by kind. Then MTAN's
+    ``Predictor(8, mesh=)`` of the sharded f32 model against the
+    one-process answer; one MTAN epoch of the training CLI over the mesh,
+    whose checkpoint holds the trained state gathered whole, bit for bit,
+    and whose one-process f32 ``Predictor`` answers as the same checkpoint
+    sharded over the mesh does; both gates with ``dec0``'s ``w1`` gathered
+    (rows 1m and 4m). Returns the rank's record, its main-path launches
+    under ``launches``."""
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
-    from vision_mtl_tpu_torch.kernels import fused_gate_train
+    from vision_mtl_tpu_torch.kernels import fused_gate, fused_gate_train
     from vision_mtl_tpu_torch.metrics import init_metrics
     from vision_mtl_tpu_torch.models.registry import build_model
-    from vision_mtl_tpu_torch.parallel import multihost
-    from vision_mtl_tpu_torch.parallel.mesh import create_mesh
+    from vision_mtl_tpu_torch.parallel.mesh import (
+        create_mesh,
+        full_optimizer_state_dict,
+        full_state_dict,
+        model_slices,
+        shard_model,
+        shard_state,
+    )
     from vision_mtl_tpu_torch.serving import Predictor
-    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.checkpoint import MODEL_FILE, SESSION_FILE, restore_model
+    from vision_mtl_tpu_torch.train.state import create_train_state, param_count
     from vision_mtl_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = fetch_data_cfg("cityscapes")
+    spec = model_spec(comm.world)
+    mesh = create_mesh(spec, comm)
+    dev, rank = mesh.device, comm.rank
+    replicas = mesh.replica_comm
+    step = make_train_step(device=dev, mesh=mesh)
+    out = {"mesh": spec, "coords": mesh.coords(),
+           "replica_ranks": replicas.world if replicas is not None else 1}
+    launches = {name: 0 for name in kernels.KERNELS}
+    b4 = "fused_attention_gate_train_ranks" if replicas is not None else \
+        "fused_attention_gate_train"
+    per_step = {"mtan": {b4: 16, "confusion_matrix": 1}, "basic": PER_TRAIN_STEP["basic"]}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
+    bf16_batches = [mesh.block(b) for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+    for name in MODEL_MODELS:
+        per = per_step[name]
+        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+        state = create_train_state(model, LR, device=dev)
+        one_process_bytes = 3 * 4 * param_count(state)
+        state = shard_state(state, mesh)
+        slices = model_slices(model)
+        kernels.reset_launch_counts()
+        _, _, losses = step(state, mesh.block(batch), init_metrics(cfg.num_classes, dev))
+        torch.cuda.synchronize()
+        f32_counts = kernels.launch_counts()
+        add(f32_counts)
+        if f32_counts != expected(kernels, per, 1):
+            fail(f"model-axis {name} f32 step rank {rank}: launches {f32_counts}")
+        grads = {k: (slices[k].gather(p.grad) if k in slices else p.grad)
+                 for k, p in model.named_parameters()}
+        if not same_on_every_rank(comm, list(grads.values())):
+            fail(f"model-axis {name} f32 step: the gathered gradients differ between the ranks")
+        if rank == 0:
+            torch.save({"grads": {k: g.double().cpu() for k, g in grads.items()},
+                        "loss": float(losses["loss"])},
+                       os.path.join(out_dir, f"model_axis_{name}_f32_grads.pt"))
+        rank_bytes = state_bytes(state)
+        del model, state, grads
+
+        model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        state = shard_state(create_train_state(model, LR, device=dev), mesh)
+        n_steps = 1 + MODEL_BF16_STEPS
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+        kernels.reset_launch_counts()
+        step_losses = []
+        events[0].record()
+        for i in range(n_steps):
+            state, _, ls = step(state, bf16_batches[i % TRAIN_BATCHES],
+                                init_metrics(cfg.num_classes, dev))
+            events[i + 1].record()
+            step_losses.append(ls["loss"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        add(counts)
+        if counts != expected(kernels, per, n_steps):
+            fail(f"model-axis {name} bf16 steps rank {rank}: launches {counts}")
+        step_losses = [float(v) for v in step_losses]
+        if not all(np.isfinite(step_losses)):
+            fail(f"model-axis {name} bf16 steps: losses {step_losses}")
+        rep, shard = split_tensors(state)
+        if not same_on_every_rank(comm, rep):
+            fail(f"model-axis {name} bf16 steps: replicated parameters or Adam moments differ "
+                 f"between the ranks after {n_steps} steps")
+        if replicas is not None and not same_on_every_rank(replicas, shard):
+            fail(f"model-axis {name} bf16 steps: a slice's parameters or Adam moments differ "
+                 f"between its data ranks after {n_steps} steps")
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
+        # one more step, the model group's collectives counted by kind
+        collectives = count_model_collectives(mesh.model_comm, lambda: step(
+            state, bf16_batches[0], init_metrics(cfg.num_classes, dev)))
+        kernels.reset_launch_counts()
+        out[name] = {
+            "sharded_leaves": len(slices),
+            "bytes": {"rank": rank_bytes, "one_process": one_process_bytes,
+                      "share": rank_bytes / one_process_bytes},
+            "f32": {"loss": float(losses["loss"]), "launches": f32_counts},
+            "model_group_collectives_per_step": collectives,
+            "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
+                     "step_ms_p50": float(np.median(step_ms)), "launches": counts,
+                     "replicated_equal_across_ranks": True,
+                     "sharded_equal_across_data_ranks": replicas is not None},
+        }
+        del model, state
+
+    # MTAN's Predictor(8) of the sharded f32 model against one process's
+    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
+    ref = np.load(os.path.join(out_dir, "predictor_ref.npz"))
+
+    def held_answer(answer, want, what):
+        depth_err = float(np.abs(answer["depth"] - want["depth"]).max())
+        mismatch = float((answer["segm"] != want["segm"]).mean())
+        if answer["segm"].shape != want["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
+                or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
+            fail(f"model-axis {what} rank {rank}: depth max |diff| {depth_err}, segm ids differ "
+                 f"on {mismatch} of the pixels")
+        if not same_on_every_rank(comm, [torch.from_numpy(answer["depth"]).to(dev),
+                                         torch.from_numpy(answer["segm"]).to(dev).float()]):
+            fail(f"model-axis {what}: the ranks' answers differ")
+        return {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
+                "answers_equal_across_ranks": True}
+
+    model = shard_model(build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval(),
+                        mesh)
+    kernels.reset_launch_counts()
+    answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
+    torch.cuda.synchronize()
+    pred_counts = kernels.launch_counts()
+    add(pred_counts)
+    if pred_counts != expected(kernels, PER_FORWARD["mtan"], 1):
+        fail(f"model-axis Predictor rank {rank}: launches {pred_counts}")
+    out["predictor"] = {**held_answer(answer, ref, "Predictor"), "launches": pred_counts}
+    del model
+
+    # the training CLI over the mesh: its checkpoint is the trained state
+    # gathered whole, and serves in one process as over the mesh
+    cli = rank_cli(comm, out_dir, spec, "model_logs", "model-axis", per_step["mtan"],
+                   whole_tensors)
+    trained = cli.pop("state")
+    add(cli["launches"])
+    saved_model = torch.load(os.path.join(cli["run_dir"], "model_0", MODEL_FILE))
+    saved_session = torch.load(os.path.join(cli["run_dir"], "session_0", SESSION_FILE))
+    in_memory = full_state_dict(trained.model)
+    moments = full_optimizer_state_dict(trained.optimizer, trained.model)["state"]
+    if sorted(saved_model) != sorted(in_memory) or not all(
+            torch.equal(saved_model[k], v) for k, v in in_memory.items()):
+        fail(f"model-axis cli rank {rank}: model_0 is not the trained model gathered whole")
+    if not all(torch.equal(saved_session["optimizer"]["state"][i][f], moments[i][f])
+               for i in moments for f in ("exp_avg", "exp_avg_sq")):
+        fail(f"model-axis cli rank {rank}: session_0's Adam moments are not the trained "
+             "ones gathered whole")
+    del trained
+    one = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=1)
+    restore_model(one, cli["run_dir"], 0)
+    want = Predictor(one.eval(), BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)(imgs)
+    sharded = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=1)
+    restore_model(shard_model(sharded, mesh), cli["run_dir"], 0)
+    kernels.reset_launch_counts()
+    got = Predictor(sharded.eval(), BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    cli["checkpoint"] = {"holds_the_trained_state_bit_for_bit": True,
+                         "one_process_predictor": held_answer(got, want, "checkpoint Predictor")}
+    out["cli"] = cli
+    del one, sharded
+    out["gates_dec0_w1_gathered"] = model_gate_times(fused_gate, fused_gate_train, mesh, dev)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_rank(out_dir: str, phases=PARALLEL_PHASES) -> int:
+    """One rank of the rank phases (started by :func:`parallel_phase` with
+    torchrun's environment): joins the process group
+    (``maybe_initialize_distributed``: gloo when the ranks share the one
+    card, NCCL with a card each) and runs ``phases`` in order: ``parallel``
+    (:func:`data_rank`), ``spatial`` (:func:`spatial_rank`), ``model``
+    (:func:`model_rank`); writes ``rank_{r}.json`` into ``out_dir`` and, on
+    rank 0, the f32 steps' gradients."""
+    import torch.distributed as dist
+    from vision_mtl_tpu_torch.parallel import multihost
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     multihost.maybe_initialize_distributed("cuda")
     comm = multihost.current()
+    rec = {"rank": comm.rank, "world": comm.world, "device": str(comm.device),
+           "backend": dist.get_backend(), "init_s": time.perf_counter() - t_start}
+    if "parallel" in phases:
+        rec.update(data_rank(comm, out_dir))
+    if "spatial" in phases:
+        rec["spatial"] = spatial_rank(comm, out_dir)
+    if "model" in phases:
+        rec["model_axis"] = model_rank(comm, out_dir)
+    rec["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank_{comm.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    multihost.shutdown_distributed()
+    return 0
+
+
+def data_rank(comm, out_dir: str) -> dict:
+    """The ``parallel`` phase on one rank: ``data:<ranks>``, MTAN at full
+    width on this rank's rows of each global batch (an f32 step, bf16 steps,
+    B4's staged call, ``Predictor(8, mesh=)``, the CLI). Returns the rank's
+    record."""
+    from vision_mtl_tpu_torch import kernels
+    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+    from vision_mtl_tpu_torch.kernels import fused_gate_train
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.models.registry import build_model
+    from vision_mtl_tpu_torch.parallel.mesh import create_mesh
+    from vision_mtl_tpu_torch.serving import Predictor
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
     mesh = create_mesh("data:-1", comm)
     dev, rank = mesh.device, comm.rank
-    rec = {"rank": rank, "world": comm.world, "device": str(dev), "backend": dist.get_backend(),
-           "init_s": time.perf_counter() - t_start}
+    rec: dict = {}
     cfg = fetch_data_cfg("cityscapes")
     per = BATCH // comm.world
 
@@ -3676,28 +4074,23 @@ def parallel_rank(out_dir: str) -> int:
 
     # the training CLI, in process, over the ranks
     rec["cli"] = rank_cli(comm, out_dir, f"data:{comm.world}", "logs", "parallel")
-    rec["spatial"] = spatial_rank(comm, out_dir)
-    rec["total_s"] = time.perf_counter() - t_start
-    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
-        json.dump(rec, f)
-    multihost.shutdown_distributed()
-    return 0
+    rec["cli"].pop("state")
+    return rec
 
 
 def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
-                   one_process_p50: dict) -> tuple:
-    """Data parallelism over :func:`parallel_world` ranks: the one-process
-    references first (MTAN's f32 step on the global batch, a
-    ``Predictor(8)`` of the f32 model), then the rank processes
-    (:func:`parallel_rank`) with torchrun's environment. The ranks' f32
-    step is held to the one-process step with the limits of the f32 check
-    against the CPU (``f32_limits``: per-leaf and whole relative L2,
-    ``ZERO_GRAD`` left out; ``f32_limits`` and ``one_process_p50`` by
-    model). The ``spatial`` phase runs in the same ranks after the
-    ``parallel`` one (:func:`spatial_rank`); its f32 steps are held the same
-    way, MTAN's and basic's, to one-process references taken here. Returns
-    the ``parallel`` line, the ``spatial`` line and each phase's ranks'
-    main-path launches summed."""
+                   one_process_p50: dict, phases: tuple = PARALLEL_PHASES) -> tuple:
+    """The rank phases over :func:`parallel_world` ranks: the one-process
+    references first (the f32 steps of MTAN and basic on the global batch,
+    a ``Predictor(8)`` of the f32 MTAN), then the rank processes
+    (:func:`parallel_rank`) with torchrun's environment, which run
+    ``phases`` in order: ``parallel`` (the data axis), ``spatial`` and
+    ``model``. Each phase's f32 steps are held to the one-process step with
+    the limits of the f32 check against the CPU (``f32_limits``: per-leaf
+    and whole relative L2, ``ZERO_GRAD`` left out; ``f32_limits`` and
+    ``one_process_p50`` by model). Returns ``(lines, launches)``: each
+    phase's JSON line and its ranks' main-path launches summed, keyed by
+    the line's name (``parallel``, ``spatial``, ``model_axis``)."""
     from vision_mtl_tpu_torch.metrics import init_metrics
     from vision_mtl_tpu_torch.parallel.multihost import free_port
     from vision_mtl_tpu_torch.serving import Predictor
@@ -3717,7 +4110,7 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
     ref_loss = float(losses["loss"])
     del model, state
     refs = {"mtan": (ref_grads, ref_loss)}
-    for name in SPATIAL_MODELS:
+    for name in dict.fromkeys(SPATIAL_MODELS + MODEL_MODELS):
         if name in refs:
             continue
         model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
@@ -3743,7 +4136,7 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
         log = open(os.path.join(PARALLEL_DIR, f"rank_{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", PARALLEL_CODE, PARALLEL_DIR], env=env, stdout=log,
+            [sys.executable, "-c", PARALLEL_CODE, PARALLEL_DIR, *phases], env=env, stdout=log,
             stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__))), log))
     deadline = time.monotonic() + PARALLEL_TIMEOUT_S
     try:
@@ -3778,64 +4171,109 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
         return {"loss_ranks": got["loss"], "loss_one_process": want_loss, "grad_rel_l2": whole,
                 "worst_leaves": worst, "limits": limits}
 
-    f32_step = held("parallel", "f32_grads.pt", "mtan")
-    launches = {name: sum(rec[path]["launches"][name] for rec in recs
-                          for path in ("f32", "bf16", "predictor", "cli"))
-                for name in kernels.KERNELS}
-    spatial_launches = {name: sum(rec["spatial"]["launches"][name] for rec in recs)
-                        for name in kernels.KERNELS}
-    sp = [rec["spatial"] for rec in recs]
-    spatial_line = {
-        "mesh": sp[0]["mesh"], "ranks": world, "backend": recs[0]["backend"],
-        "blocks": [r["block"] for r in sp],
-        **{name: {
-            "f32_step": {**held(f"spatial {name}", f"spatial_{name}_f32_grads.pt", name),
-                         "launches_per_rank": sp[0][name]["f32"]["launches"]},
-            "all_reduces_per_step": sp[0][name]["all_reduces_per_step"],
-            "bf16_steps": {"steps": sp[0][name]["bf16"]["steps"],
-                           "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in sp],
-                           "step_ms_p50_one_process": one_process_p50[name],
-                           "losses": sp[0][name]["bf16"]["losses"],
-                           "launches_per_rank": sp[0][name]["bf16"]["launches"],
+    lines: dict = {}
+    launches: dict = {}
+    if "parallel" in phases:
+        f32_step = held("parallel", "f32_grads.pt", "mtan")
+        launches["parallel"] = {name: sum(rec[path]["launches"][name] for rec in recs
+                                          for path in ("f32", "bf16", "predictor", "cli"))
+                                for name in kernels.KERNELS}
+        gate = recs[0]["gate_train_staged"]
+        lines["parallel"] = {
+            "ranks": world, "backend": recs[0]["backend"],
+            "arrangement": (f"{world} ranks, one a card" if world <= torch.cuda.device_count()
+                            else f"{world} ranks sharing one card (not a scaling figure)"),
+            "f32_step": {**f32_step, "launches_per_rank": recs[0]["f32"]["launches"]},
+            "bf16_steps": {"steps": recs[0]["bf16"]["steps"],
+                           "step_ms_p50_two_ranks": [r["bf16"]["step_ms_p50"] for r in recs],
+                           "step_ms_p50_one_process": one_process_p50["mtan"],
+                           "losses": recs[0]["bf16"]["losses"],
                            "params_and_moments_equal_across_ranks": True},
-            **({"conv3x3_small_row_blocks_per_step": sp[0][name]["conv3x3_small_row_blocks"]}
-               if "conv3x3_small_row_blocks" in sp[0][name] else {}),
-        } for name in SPATIAL_MODELS},
-        "gate_train_staged_per_step": {k: sp[0]["gate_train_staged"][k]
-                                       for k in ("ms", "plain_ms", "bound_ms", "bound_by", "err")},
-        "predictor": sp[0]["predictor"],
-        "cli": {k: sp[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
-        "launches": spatial_launches,
-        "rank_phase_s": [r["phase_s"] for r in sp],
-    }
-    gate = recs[0]["gate_train_staged"]
-    line = {
-        "ranks": world, "backend": recs[0]["backend"],
-        "arrangement": (f"{world} ranks, one a card" if world <= torch.cuda.device_count()
-                        else f"{world} ranks sharing one card (not a scaling figure)"),
-        "f32_step": {**f32_step, "launches_per_rank": recs[0]["f32"]["launches"]},
-        "bf16_steps": {"steps": recs[0]["bf16"]["steps"],
-                       "step_ms_p50_two_ranks": [r["bf16"]["step_ms_p50"] for r in recs],
-                       "step_ms_p50_one_process": one_process_p50["mtan"],
-                       "losses": recs[0]["bf16"]["losses"],
-                       "params_and_moments_equal_across_ranks": True},
-        "gate_train_staged_per_step": {k: gate[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                              "bound_by", "err")},
-        "gate_train_staged_rows": gate["rows"],
-        "predictor": recs[0]["predictor"],
-        "cli": {k: recs[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
-        "rank_init_s": [r["init_s"] for r in recs], "rank_total_s": [r["total_s"] for r in recs],
-        "references_s": ref_s, "launches": launches,
-        "phase_s": time.perf_counter() - t_start,
-    }
-    return line, launches, spatial_line, spatial_launches
+            "gate_train_staged_per_step": {k: gate[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                  "bound_by", "err")},
+            "gate_train_staged_rows": gate["rows"],
+            "predictor": recs[0]["predictor"],
+            "cli": {k: recs[0]["cli"][k]
+                    for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
+            "rank_init_s": [r["init_s"] for r in recs],
+            "rank_total_s": [r["total_s"] for r in recs],
+            "references_s": ref_s, "launches": launches["parallel"],
+            "phase_s": time.perf_counter() - t_start,
+        }
+    if "spatial" in phases:
+        launches["spatial"] = {name: sum(rec["spatial"]["launches"][name] for rec in recs)
+                               for name in kernels.KERNELS}
+        sp = [rec["spatial"] for rec in recs]
+        lines["spatial"] = {
+            "mesh": sp[0]["mesh"], "ranks": world, "backend": recs[0]["backend"],
+            "blocks": [r["block"] for r in sp],
+            **{name: {
+                "f32_step": {**held(f"spatial {name}", f"spatial_{name}_f32_grads.pt", name),
+                             "launches_per_rank": sp[0][name]["f32"]["launches"]},
+                "all_reduces_per_step": sp[0][name]["all_reduces_per_step"],
+                "bf16_steps": {"steps": sp[0][name]["bf16"]["steps"],
+                               "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in sp],
+                               "step_ms_p50_one_process": one_process_p50[name],
+                               "losses": sp[0][name]["bf16"]["losses"],
+                               "launches_per_rank": sp[0][name]["bf16"]["launches"],
+                               "params_and_moments_equal_across_ranks": True},
+                **({"conv3x3_small_row_blocks_per_step": sp[0][name]["conv3x3_small_row_blocks"]}
+                   if "conv3x3_small_row_blocks" in sp[0][name] else {}),
+            } for name in SPATIAL_MODELS},
+            "gate_train_staged_per_step": {k: sp[0]["gate_train_staged"][k] for k in
+                                           ("ms", "plain_ms", "bound_ms", "bound_by", "err")},
+            "predictor": sp[0]["predictor"],
+            "cli": {k: sp[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
+            "launches": launches["spatial"],
+            "rank_phase_s": [r["phase_s"] for r in sp],
+        }
+    if "model" in phases:
+        mx = [rec["model_axis"] for rec in recs]
+        launches["model_axis"] = {name: sum(r["launches"][name] for r in mx)
+                                  for name in kernels.KERNELS}
+        for r in mx:
+            share = r["mtan"]["bytes"]["share"]
+            if not abs(share - 0.536) <= 0.01:
+                fail(f"model-axis mtan: a rank holds {share} of one process's parameter and "
+                     "moment bytes, not 53.6% +- 1%")
+        lines["model_axis"] = {
+            "mesh": mx[0]["mesh"], "ranks": world, "backend": recs[0]["backend"],
+            "replica_ranks": mx[0]["replica_ranks"],
+            **{name: {
+                "sharded_leaves": mx[0][name]["sharded_leaves"],
+                "bytes_per_rank": [r[name]["bytes"] for r in mx],
+                "f32_step": {**held(f"model-axis {name}", f"model_axis_{name}_f32_grads.pt",
+                                    name),
+                             "launches_per_rank": mx[0][name]["f32"]["launches"]},
+                "model_group_collectives_per_step":
+                    mx[0][name]["model_group_collectives_per_step"],
+                "bf16_steps": {"steps": mx[0][name]["bf16"]["steps"],
+                               "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in mx],
+                               "step_ms_p50_one_process": one_process_p50[name],
+                               "losses": mx[0][name]["bf16"]["losses"],
+                               "launches_per_rank": mx[0][name]["bf16"]["launches"],
+                               "replicated_equal_across_ranks": True,
+                               "sharded_equal_across_data_ranks":
+                                   mx[0][name]["bf16"]["sharded_equal_across_data_ranks"]},
+            } for name in MODEL_MODELS},
+            "predictor": mx[0]["predictor"],
+            "cli": {k: mx[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths",
+                                                  "checkpoint")},
+            "gates_dec0_w1_gathered": mx[0]["gates_dec0_w1_gathered"],
+            "launches": launches["model_axis"],
+            "rank_phase_s": [r["phase_s"] for r in mx],
+        }
+    return lines, launches
 
 
 def main(argv: list) -> int:
-    kernels_only, parallel_only = argv == ["--kernels"], argv == ["--parallel"]
-    if argv and not (kernels_only or parallel_only):
-        print(f"chip_smoke: unknown arguments {argv}; takes none, --kernels or --parallel",
-              file=sys.stderr)
+    kernels_only = argv == ["--kernels"]
+    parallel_only = argv[:1] == ["--parallel"]
+    rank_phases = tuple(argv[1:]) or PARALLEL_PHASES
+    if argv and not (kernels_only or parallel_only) or \
+            not set(rank_phases) <= set(PARALLEL_PHASES):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, --kernels or --parallel "
+              f"[{' '.join(PARALLEL_PHASES)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -3872,10 +4310,9 @@ def main(argv: list) -> int:
             f32 = check_train_step_against_cpu(name, cfg, build_model, dev)
             limits[name] = {k: f32[k] for k in ("rel_l2_limit", "leaf_limit")}
             p50[name] = train_model(name, cfg, build_model, dev, kernels)["step_ms_p50"]
-        parallel_line, _, spatial_line, _ = parallel_phase(cfg, kernels, dev, build_model,
-                                                           limits, p50)
-        print(json.dumps({"parallel": parallel_line}), flush=True)
-        print(json.dumps({"spatial": spatial_line}), flush=True)
+        lines, _ = parallel_phase(cfg, kernels, dev, build_model, limits, p50, rank_phases)
+        for name, line in lines.items():
+            print(json.dumps({name: line}), flush=True)
         print(smi, flush=True)
         return 0
     gate_rows, gate = check_gate(dev, fused_gate)
@@ -4033,14 +4470,15 @@ def main(argv: list) -> int:
     print(json.dumps({"interop": interop_line}), flush=True)
     print(json.dumps({"options": options_line}), flush=True)
     # last: the rank processes use the card after every profiled phase
-    parallel_line, parallel_launches, spatial_line, spatial_launches = parallel_phase(
+    lines, rank_launches = parallel_phase(
         cfg, kernels, dev, build_model,
         {name: {k: f32[k] for k in ("rel_l2_limit", "leaf_limit")}
          for name, f32 in (("mtan", mtan_f32), ("basic", basic_f32))},
         {"mtan": mtan_training["step_ms_p50"], "basic": basic_training["step_ms_p50"]})
-    print(json.dumps({"parallel": parallel_line}), flush=True)
-    print(json.dumps({"spatial": spatial_line}), flush=True)
-    phases += [parallel_launches, spatial_launches]
+    for name, line in lines.items():
+        print(json.dumps({name: line}), flush=True)
+    phases += list(rank_launches.values())
+    parallel_line = lines["parallel"]
 
     launches = {name: sum(p[name] for p in phases) for name in kernels.KERNELS}
     # B3's entry: one bf16 train step of the basic model and one of CSNet

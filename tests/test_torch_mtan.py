@@ -91,7 +91,7 @@ def _port(variables):
 
 def test_mtan_forward_matches_jax(small_mtan):
     jmodel, variables, x = small_mtan
-    want = jmodel.apply(variables, jnp.asarray(x), train=False)
+    want = jax.jit(lambda v, a: jmodel.apply(v, a, train=False))(variables, jnp.asarray(x))
     model = _port(variables)
     with torch.no_grad():
         got = model(torch.from_numpy(x))

@@ -90,21 +90,34 @@ def test_parse_mesh_shape_matches_jax(spec, n):
 
 
 def test_unported_axes_are_refused_naming_a10b():
-    """``model`` above 1 is refused (ROADMAP A10c; ``spatial``, A10b, is
-    ported); size 1 is accepted."""
+    """Every axis is ported now (``spatial`` A10b, ``model`` A10c): the specs
+    with a ``model`` axis that were refused are accepted by ``create_mesh``
+    over four thread ranks, with its model and replica groups; size 1 is
+    accepted as before."""
     comm = multihost.Comm(0, 4)
-    for spec in ("data:2,model:2", "spatial:2,model:2", "model:-1"):
-        with pytest.raises(SystemExit, match=r"ROADMAP\.md A10c"):
-            mesh.create_mesh(spec, comm)
+    for spec, groups in (("data:2,model:2", (2, 2)), ("spatial:2,model:2", (2, 2)),
+                         ("model:-1", (4, None))):
+        got = on_ranks(lambda c: mesh.create_mesh(spec, c), 4)
+        for r, m in enumerate(got):
+            assert isinstance(m, mesh.Mesh), m
+            assert m.shape == mesh.parse_mesh_shape(spec, 4)
+            assert (m.model_comm.world, getattr(m.replica_comm, "world", None)) == groups
+            assert m.model_comm.rank == m.coords()["model"]
     m = mesh.create_mesh("data:-1,spatial:1,model:1", comm)
     assert m.shape == {"data": 4, "spatial": 1, "model": 1}
     assert mesh.process_spanning_axes(m) == ("data",)
     assert mesh.process_spanning_axes(mesh.create_mesh("data:1", multihost.Comm(0, 1))) == ()
     # row-sliced loading needs data to be the one axis across processes;
-    # spatial takes the full-batch mode, model neither
-    configure_host_sharded_loading(None, m)
-    with pytest.raises(ValueError, match="model.*A10c"):
-        configure_host_sharded_loading(None, mesh.Mesh({"data": 2, "model": 2}, comm))
+    # spatial and model take the full-batch mode
+
+    class _DM:
+        shard_rows = True
+
+    dm = _DM()
+    configure_host_sharded_loading(dm, m)
+    assert dm.shard_rows is True
+    configure_host_sharded_loading(dm, mesh.Mesh({"data": 2, "model": 2}, comm))
+    assert dm.shard_rows is False
 
 
 def test_process_index_range_matches_jax():
@@ -247,16 +260,31 @@ def test_logger_rendezvous_over_ranks(tmp_path, monkeypatch):
 
 def test_cli_refuses_unported_mesh_and_odd_batch(monkeypatch):
     """Under ``--device cpu:2`` the launcher checks the mesh and the batch
-    before it starts a rank: the model axis names ROADMAP A10c, an odd
-    batch gets JAX's message."""
-    monkeypatch.setattr(multihost, "launch_local_ranks", None)  # no rank may start
+    before it starts a rank: a model axis that fits the two ranks is
+    accepted and reaches the launch, one that does not gets JAX's
+    ``parse_mesh_shape`` error, ``--fold_tasks`` beside it names ROADMAP
+    A10d, an odd batch gets JAX's message."""
+    launched = []
+
+    def launch(module, argv, world):
+        launched.append((module, list(argv), world))
+        raise SystemExit("launched")
+
+    monkeypatch.setattr(multihost, "launch_local_ranks", launch)
     argv = ["--device", "cpu:2", "--dataset_name", "synthetic"]
-    with pytest.raises(SystemExit, match=r"model axis .*ROADMAP\.md A10c"):
+    with pytest.raises(SystemExit, match="launched"):
+        training.main(argv + ["--mesh_shape", "data:1,model:2", "--model_name", "mtan"])
+    assert launched == [("vision_mtl_tpu_torch.training",
+                         argv + ["--mesh_shape", "data:1,model:2", "--model_name", "mtan"], 2)]
+    with pytest.raises(ValueError, match="uses 4 devices, have 2"):
         training.main(argv + ["--mesh_shape", "data:2,model:2"])
+    with pytest.raises(SystemExit, match=r"fold_tasks .*ROADMAP\.md A10d"):
+        training.main(argv + ["--mesh_shape", "model:2", "--model_name", "mtan", "--fold_tasks"])
     with pytest.raises(SystemExit) as e:
         training.main(argv + ["--batch_size", "3"])
     assert str(e.value) == ("--batch_size 3 must be divisible by the mesh data axis (2); "
                             "pick a multiple or adjust --mesh_shape.")
+    assert len(launched) == 1
 
 
 def _bn_case():

@@ -73,7 +73,8 @@ def test_gradients_match_jax(rng, c, o):
     def jloss(x, k, b):
         return jnp.sum(jax_small_conv.conv3x3_small(x, k, b) * cot)
 
-    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bv))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jnp.asarray(x), jnp.asarray(k),
+                                                       jnp.asarray(bv))
     leaves = [torch.from_numpy(a).requires_grad_() for a in (x, k, bv)]
     (conv3x3_small(*leaves) * torch.from_numpy(cot)).sum().backward()
     for name, leaf, w in zip(("dx", "dw", "db"), leaves, want):

@@ -481,20 +481,27 @@ def test_gate_train_plain_split_over_data_and_spatial():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh_shape", "data:2,model:2"], r"model axis .*ROADMAP\.md A10c"),
+    (["--mesh_shape", "data:2,model:2", "--model_name", "mtan", "--fold_tasks"],
+     r"fold_tasks .*ROADMAP\.md A10d"),
     (["--mesh_shape", "spatial:4", "--model_name", "basic"],
      r"height 64 .*spatial x 32 = 128"),
 ])
 def test_cli_refuses_the_model_axis_and_heights_that_do_not_split(monkeypatch, argv, match):
     """Under ``--device cpu:4`` the launcher checks the mesh before it
-    starts a rank: a ``model`` axis names ROADMAP A10c; the synthetic set's
-    64 rows do not split over ``spatial:4`` for basic (stride 32), which is
-    refused naming the rule; ``create_mesh`` refuses ``model`` too."""
+    starts a rank: a ``model`` axis runs (A10c), but not beside
+    ``--fold_tasks``, which names ROADMAP A10d; the synthetic set's 64 rows
+    do not split over ``spatial:4`` for basic (stride 32), which is refused
+    naming the rule; ``create_mesh`` takes ``spatial:2,model:2``, each rank
+    in a spatial group and a model group of two, its replica group the
+    spatial one."""
     monkeypatch.setattr(multihost, "launch_local_ranks", None)  # no rank may start
     with pytest.raises(SystemExit, match=match):
         training.main(["--device", "cpu:4", "--dataset_name", "synthetic"] + argv)
-    with pytest.raises(SystemExit, match=r"ROADMAP\.md A10c"):
-        mesh.create_mesh("spatial:2,model:2", multihost.Comm(0, 4))
+    for m in on_mesh(lambda m: mesh.create_mesh("spatial:2,model:2", m.comm),
+                     "spatial:2,model:2"):
+        c = m.coords()
+        assert (m.spatial_comm.rank, m.model_comm.rank) == (c["spatial"], c["model"])
+        assert (m.spatial_comm.world, m.model_comm.world, m.replica_comm.world) == (2, 2, 2)
     assert {m: row_stride(m) for m in ("mtan", "basic", "csnet")} == {
         "mtan": 16, "basic": 32, "csnet": 32}
 

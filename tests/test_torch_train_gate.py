@@ -85,7 +85,7 @@ def test_gate_gradients_match_jax_grad(rng):
         )
         return jnp.sum(out * cot)
 
-    gp, gx, gs = jax.grad(loss, argnums=(0, 1, 2))(
+    gp, gx, gs = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
         variables["params"], jnp.asarray(arrays[0]), jnp.asarray(arrays[1])
     )
     want = {"x": gx, "shared": gs, **gp}

@@ -5,8 +5,8 @@ The split is a seeded permutation (``default_rng(seed)``, 0.8 train).
 ``do_overfit`` makes train = val = test = predict the first batch. Test
 and predict read the "val" stage for Cityscapes and "test" for the others.
 Under several ranks each loader decodes its rank's rows of every global
-batch, or under the mesh's ``spatial`` axis the whole batch, of which each
-rank keeps its block (:func:`configure_host_sharded_loading`).
+batch, or under the mesh's ``spatial`` or ``model`` axis the whole batch,
+of which each rank keeps its block (:func:`configure_host_sharded_loading`).
 """
 
 from __future__ import annotations
@@ -41,17 +41,12 @@ def configure_host_sharded_loading(datamodule: t.Any, mesh: t.Any) -> None:
     row-sliced (each rank decodes its rows of every global batch) when
     ``data`` is the one axis that spans processes; full-batch
     (``shard_rows`` False: every rank decodes the whole global batch and
-    keeps its block, ``parallel.mesh.local_batches``) when ``spatial`` spans
-    them too. ``model`` is refused before a mesh exists (ROADMAP.md A10c).
-    A no-op without a mesh."""
+    keeps its block, ``parallel.mesh.local_batches``) when ``spatial`` or
+    ``model`` spans them too (the ranks of a model group need the same
+    block). A no-op without a mesh."""
     from vision_mtl_tpu_torch.parallel.mesh import process_spanning_axes
 
     spanning = set(process_spanning_axes(mesh)) - {"data"}
-    if spanning - {"spatial"}:
-        raise ValueError(
-            f"mesh axes {sorted(spanning - {'spatial'})} span processes: neither loading mode "
-            "expresses their shards (ROADMAP.md A10c)"
-        )
     if datamodule is not None:
         datamodule.shard_rows = not spanning
 

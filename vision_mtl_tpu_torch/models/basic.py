@@ -8,7 +8,8 @@ dtype: ``{"segm": (B, H, W, classes), "depth": (B, H, W, 1)}``.
 With ``merge_heads`` (the default) both heads run as one conv on their
 concatenated kernels and biases, through kernel B3 when it takes the
 channels (33 -> 20 at the trained width); the parameters stay at the heads'
-own paths. At the trained width a forward launches B3 four times (three
+own paths. A head kernel sharded over the mesh's ``model`` axis is gathered
+whole for the merged conv. At the trained width a forward launches B3 four times (three
 decoder convs and the merged head), a backward four more (their dx).
 
 Options (none changes a parameter): ``fold_tail`` runs the last decoder
@@ -28,7 +29,7 @@ import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.kernels.small_conv import fits as small_conv_fits
-from vision_mtl_tpu_torch.models.blocks import conv_nhwc, init_weights
+from vision_mtl_tpu_torch.models.blocks import conv_nhwc, init_weights, whole_param
 from vision_mtl_tpu_torch.models.mobilenetv3 import ENCODER_STRIDE, MobileNetV3Encoder
 from vision_mtl_tpu_torch.ops.fold import depth_to_space
 from vision_mtl_tpu_torch.models.unet_decoder import (
@@ -105,7 +106,8 @@ class BasicMTLModel(nn.Module):
             return {"segm": self.segm_head(x), "depth": self.depth_head(x)}
         s, d = self.segm_head.Conv_0, self.depth_head.Conv_0
         merged = conv_nhwc(
-            x, torch.cat([s.weight, d.weight]), torch.cat([s.bias, d.bias]), self.dtype,
+            x, torch.cat([whole_param(s, "weight"), whole_param(d, "weight")]),
+            torch.cat([s.bias, d.bias]), self.dtype,
             small_conv=self.merged_head_small_conv,
         )
         return {"segm": merged[..., : self.segm_classes], "depth": merged[..., self.segm_classes :]}

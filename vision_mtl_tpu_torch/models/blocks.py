@@ -26,6 +26,22 @@ it needs (:class:`GlobalBatchNorm`). Inside ``parallel.halo.spatial_rows``
 :func:`conv_nhwc` takes the rows its conv reads from the neighbouring ranks
 and the squeeze-excite mean sums over them; the BatchNorms stay as they
 are, their statistics global over data x spatial.
+
+A block whose weight ``parallel/mesh.shard_model`` sharded by output
+channel over the mesh's ``model`` axis (its ``slices`` dict names the
+parameter) computes on this rank only its slice of the output channels,
+with its slice of the kernel: ``multihost.copy_in`` on the input, the conv
+(a depthwise conv on the input channels of its slice), and
+``multihost.gather_out`` of the output on the channel dim, so every rank of
+the model group goes on with the whole map. The bias, a replicated leaf,
+is added to the whole map in the conv's dtype (as flax's ``nn.Conv`` adds
+it after the conv), so its gradient is the whole one on every rank. The
+spatial axis's halo is taken inside the conv, as without the model axis.
+Inside ``global_batch`` the BatchNorms then normalise the whole map with
+the statistics of the rank's replica group (the ranks of one model
+slice).
+A layer that needs a sharded leaf whole (the attention gate's ``w1``, the
+merged heads, the stitch units) gathers it with :func:`whole_param`.
 """
 
 from __future__ import annotations
@@ -51,6 +67,8 @@ from vision_mtl_tpu_torch.parallel.multihost import (
     all_reduce_sum,
     batch_comm,
     combine_moments,
+    copy_in,
+    gather_out,
     global_batch,
 )
 
@@ -200,6 +218,25 @@ def conv_nhwc(
     return _to_nhwc(y)
 
 
+def model_slice(module: nn.Module, name: str) -> t.Any:
+    """The ``parallel.mesh.Slice`` of ``module``'s parameter ``name`` when
+    it is sharded over the mesh's ``model`` axis, else None."""
+    return module.__dict__.get("slices", {}).get(name)
+
+
+def whole_param(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name``, gathered whole over the model group
+    when it is sharded (its gradient then flows back to this rank's slice
+    only: every rank of the group computes the same function of it)."""
+    p = getattr(module, name)
+    sl = model_slice(module, name)
+    return p if sl is None else gather_out(p, sl.comm, sl.dim)
+
+
+def _add_bias(y: torch.Tensor, bias: t.Optional[torch.Tensor]) -> torch.Tensor:
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 class Conv(nn.Module):
     """Conv2d on NHWC with torch padding ``(k-1)//2``; weight OIHW, (O, C /
     groups, kh, kw) (depthwise: (O, 1, kh, kw)).
@@ -238,9 +275,18 @@ class Conv(nn.Module):
             _uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nhwc(
-            x, self.weight, self.bias, self.dtype, self.strides, self.groups, self.small_conv
-        )
+        sl = model_slice(self, "weight")
+        if sl is None:
+            return conv_nhwc(
+                x, self.weight, self.bias, self.dtype, self.strides, self.groups, self.small_conv
+            )
+        x, groups = copy_in(x, sl.comm), self.groups
+        if groups > 1:  # grouped: this slice's outputs read its groups' inputs
+            if groups % sl.count:
+                raise ValueError(f"{groups} groups do not split over {sl.count} model ranks")
+            x, groups = sl.of(x, -1), groups // sl.count
+        y = conv_nhwc(x, self.weight, None, self.dtype, self.strides, groups, self.small_conv)
+        return _add_bias(gather_out(y, sl.comm), self.bias)
 
 
 class ConvTranspose(nn.Module):
@@ -259,11 +305,15 @@ class ConvTranspose(nn.Module):
         _uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(
-            _to_nchw(x).to(self.dtype), self.weight.to(self.dtype),
-            self.bias.to(self.dtype), stride=2,
-        )
-        return _to_nhwc(y)
+        sl = model_slice(self, "weight")  # sharded on its out dim (1)
+        if sl is None:
+            return _to_nhwc(F.conv_transpose2d(
+                _to_nchw(x).to(self.dtype), self.weight.to(self.dtype),
+                self.bias.to(self.dtype), stride=2,
+            ))
+        y = _to_nhwc(F.conv_transpose2d(
+            _to_nchw(copy_in(x, sl.comm)).to(self.dtype), self.weight.to(self.dtype), stride=2))
+        return _add_bias(gather_out(y, sl.comm), self.bias)
 
 
 class BatchNorm(nn.Module):

@@ -40,7 +40,7 @@ import typing as t
 import torch
 from torch import nn
 
-from vision_mtl_tpu_torch.models.blocks import checkpointed, init_weights
+from vision_mtl_tpu_torch.models.blocks import checkpointed, init_weights, whole_param
 from vision_mtl_tpu_torch.models.mobilenetv3 import (
     CONV_HEAD_CH,
     ENCODER_STRIDE,
@@ -71,7 +71,8 @@ class CrossStitchLayer(nn.Module):
 
     By default task t's map is scaled by ``W[t, t(, c)]``; ``full_mix``
     gives ``y[a] = sum_b W[a, b(, c)] x[b]``. Computes in f32 (f64 for f64)
-    and returns each map in its input's dtype."""
+    and returns each map in its input's dtype. Weights sharded over the
+    mesh's ``model`` axis are gathered whole."""
 
     def __init__(
         self, num_tasks: int, num_channels: t.Optional[int] = None, full_mix: bool = False
@@ -87,7 +88,7 @@ class CrossStitchLayer(nn.Module):
 
     def forward(self, feats: t.Sequence[torch.Tensor]) -> t.List[torch.Tensor]:
         cd = torch.promote_types(feats[0].dtype, torch.float32)
-        w = self.weights.to(cd)
+        w = whole_param(self, "weights").to(cd)
         xs = [f.to(cd) for f in feats]
         if self.full_mix:
             out = []

@@ -57,6 +57,7 @@ from vision_mtl_tpu_torch.models.blocks import (
     init_weights,
     max_pool_2x,
     update_running_stats,
+    whole_param,
 )
 from vision_mtl_tpu_torch.ops.interpolate import pad_concat, resize_bilinear_align_corners
 from vision_mtl_tpu_torch.parallel.multihost import batch_comm
@@ -100,11 +101,12 @@ class GateChain(nn.Module):
     def forward(self, x: torch.Tensor, shared: torch.Tensor) -> torch.Tensor:
         x = x.to(shared.dtype).contiguous()
         shared = shared.contiguous()
+        w1, w2 = whole_param(self, "w1"), whole_param(self, "w2")
         if self.training:
             comm = batch_comm()
             out, mean1, var1, mean2, var2 = fused_attention_gate_train(
-                x, shared, self.w1, self.b1, self.scale1, self.bias1,
-                self.w2, self.b2, self.scale2, self.bias2, self.eps, comm=comm,
+                x, shared, w1, self.b1, self.scale1, self.bias1,
+                w2, self.b2, self.scale2, self.bias2, self.eps, comm=comm,
             )
             n = x.numel() // x.shape[-1] * (comm.world if comm is not None else 1)
             update_running_stats(self.mean1, self.var1, mean1, var1, n)
@@ -112,7 +114,7 @@ class GateChain(nn.Module):
             return out
         s1, c1 = fold_bn(self.b1, self.scale1, self.bias1, self.mean1, self.var1, self.eps)
         s2, c2 = fold_bn(self.b2, self.scale2, self.bias2, self.mean2, self.var2, self.eps)
-        return fused_attention_gate(x, shared, self.w1 * s1, c1, self.w2 * s2, c2)
+        return fused_attention_gate(x, shared, w1 * s1, c1, w2 * s2, c2)
 
 
 def _stack_tasks(module: nn.Module, one_task: nn.Module, n_tasks: int) -> None:

@@ -22,7 +22,13 @@ joins the process group before any other work, and the run's
   * host-side agreement over CPU integers (:func:`all_processes_agree`, the
     preemption poll) and object broadcasts (the logger's run dir);
   * :meth:`Comm.split`: the group of some of the ranks (the mesh's
-    spatial groups, where ``parallel/halo.py`` exchanges rows).
+    spatial groups, where ``parallel/halo.py`` exchanges rows; its model
+    groups and the replica groups of each model slice);
+  * :func:`copy_in` and :func:`gather_out`, the two sides of a layer whose
+    weight is sharded by output channel over the mesh's ``model`` axis:
+    the input as it is (its gradient summed over the model group), and
+    the ranks' output slices gathered on the channel dim (its gradient cut
+    back to the rank's slice).
 
 Every rank computes the global loss, so every rank back-propagates ``1 /
 world`` of it and the parameter gradients are summed across the ranks
@@ -86,6 +92,11 @@ class Comm:
         self.host_group = host_group
         self.group = group
         self._calls: t.Dict[str, t.Iterator[int]] = {}
+
+    def __deepcopy__(self, memo: t.Dict[int, t.Any]) -> "Comm":
+        # a handle on a group of ranks: a copy of a model whose leaves are
+        # sharded over the group (``Predictor``'s snapshot) shares it
+        return self
 
     def next_call(self, kind: str) -> int:
         """This rank's count of its earlier calls of ``kind`` (0, 1, ...):
@@ -405,6 +416,46 @@ def all_gather_exact(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     buf = torch.zeros((comm.world, *x.shape), dtype=x.dtype, device=x.device)
     buf[comm.rank] = x.detach()
     return comm.all_reduce_(buf)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, comm: Comm) -> torch.Tensor:
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> t.Tuple[torch.Tensor, None]:
+        return ctx.comm.all_reduce_(grad.contiguous().clone()), None
+
+
+def copy_in(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``x``, which every rank of the model group ``comm`` holds the same,
+    as the input of a layer that computes one slice of its output channels
+    on each rank: the identity, whose backward sums the gradient over the
+    group (each rank's layer gives its slice's share of it)."""
+    return _CopyIn.apply(x, comm)
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, comm: Comm) -> torch.Tensor:
+        ctx.meta = (dim, comm.rank, x.shape[dim])
+        return torch.cat(all_gather_exact(x.contiguous(), comm).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> t.Tuple[torch.Tensor, None, None]:
+        dim, rank, size = ctx.meta
+        return grad.narrow(dim, rank * size, size).contiguous(), None, None
+
+
+def gather_out(x: torch.Tensor, comm: Comm, dim: int = -1) -> torch.Tensor:
+    """The whole tensor from the ranks' equal slices of it along ``dim``, in
+    rank order, the same bits on every rank of ``comm`` (an exact
+    all-gather). Its backward is this rank's slice of the gradient, with no
+    communication: everything downstream runs the same on every rank of the
+    group. Collective over ``comm``."""
+    return _GatherOut.apply(x, dim, comm)
 
 
 _BATCH_COMM: "contextvars.ContextVar[t.Optional[Comm]]" = contextvars.ContextVar(

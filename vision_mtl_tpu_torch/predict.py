@@ -6,10 +6,12 @@ predictions (``vis.plot_preds``) to the experiment; ``save_preds`` writes
 the predictions.
 
 Under a ``mesh`` of several ranks each rank runs its block of every batch
-(its rows, and under ``spatial`` its image rows of them); the ranks'
-predictions are gathered exactly and put back whole (``Mesh.gather``, as
-JAX's ``replicate_gather``) and the metrics reduced, so every rank returns
-the whole sweep's; rank 0 writes ``preds.npz`` (``training.py``)."""
+(its rows, and under ``spatial`` its image rows of them; the ranks of a
+``model`` group share a block and gather their sharded layers' outputs);
+the ranks' predictions are gathered exactly and put back whole
+(``Mesh.gather``, as JAX's ``replicate_gather``) and the metrics reduced
+over the replica group, so every rank returns the whole sweep's; rank 0
+writes ``preds.npz`` (``training.py``)."""
 
 from __future__ import annotations
 
@@ -48,9 +50,9 @@ def predict(
     flight). With ``do_plot_preds`` each batch's plot goes to ``exp`` (and
     to the screen with ``do_show_preds``); a failed plot is printed and the
     sweep goes on. Under a ``mesh`` (several ranks) ``batches`` yields this
-    rank's rows, or under ``spatial`` whole batches of which the rank keeps
-    its block (``mesh.local_batches``); ``device`` is its device, and only
-    rank 0 plots.
+    rank's rows, or under ``spatial`` or ``model`` whole batches of which
+    the rank keeps its block (``mesh.local_batches``); ``device`` is its
+    device, and only rank 0 plots.
     """
     comm = mesh.comm if mesh is not None and mesh.world > 1 else None
     dev = mesh.device if mesh is not None else resolve_device(device)
@@ -92,7 +94,7 @@ def predict(
                 print("plot failed:", e)
     if float(mstate.num_steps) == 0.0:
         return preds, {}
-    mstate = reduce_metrics(mstate, comm)
+    mstate = reduce_metrics(mstate, mesh.replica_comm if comm is not None else None)
     predict_metrics = {f"predict/{k}": float(v) for k, v in compute_metrics(mstate).items()}
     return preds, predict_metrics
 

@@ -17,7 +17,12 @@ newest epoch checkpoint.
 
 Under several ranks every rank holds the same state: rank 0 writes each
 checkpoint, then every rank passes a barrier, so no rank goes on (or
-restores) before the files are complete. Every rank restores.
+restores) before the files are complete. Every rank restores. Under the
+mesh's ``model`` axis each rank holds its slice of the sharded leaves and
+of their Adam moments: every rank first gathers each whole
+(``parallel/mesh.full_state_dict``), so the files are a one-process run's,
+and a restore cuts them again (``load_full_state_dict``): a checkpoint
+resumes with or without the axis.
 
 The names ``model_{e}.pt`` and ``session_{e}.pt`` belong to the reference
 PyTorch code's checkpoints (and to the JAX package's export of its runs):
@@ -43,6 +48,13 @@ import typing as t
 import torch
 
 from vision_mtl_tpu_torch.metrics import MetricState
+from vision_mtl_tpu_torch.parallel.mesh import (
+    full_optimizer_state_dict,
+    full_state_dict,
+    load_full_optimizer_state_dict,
+    load_full_state_dict,
+    model_slices,
+)
 from vision_mtl_tpu_torch.parallel.multihost import current, process_info
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
 from vision_mtl_tpu_torch.train.state import TrainState, get_lr, set_lr
@@ -78,6 +90,19 @@ def _save_dir_atomic(obj: t.Any, path: str, filename: str) -> None:
         raise
 
 
+def _host_state(state: TrainState) -> t.Tuple[t.Callable[[], t.Any], t.Callable[[], t.Any]]:
+    """Two callables giving the model's and the optimizer's state_dicts on
+    the CPU, whole: for a model sharded over the mesh's ``model`` axis the
+    leaves are gathered here, on every rank (collective), for a
+    replicated one on the rank that calls them."""
+    if not model_slices(state.model):
+        return (lambda: _to_cpu(state.model.state_dict()),
+                lambda: _to_cpu(state.optimizer.state_dict()))
+    model_sd = full_state_dict(state.model)
+    optimizer_sd = full_optimizer_state_dict(state.optimizer, state.model)
+    return lambda: model_sd, lambda: optimizer_sd
+
+
 def _rank0_writes(write: t.Callable[[], None]) -> None:
     """``write()`` on rank 0 (the only rank in one process), then a barrier
     of every rank."""
@@ -97,17 +122,19 @@ def save_ckpt(
     both are on disk. Collective under several ranks (rank 0 writes)."""
     model_path = os.path.abspath(os.path.join(save_dir, f"model_{epoch}"))
     session_path = os.path.abspath(os.path.join(save_dir, f"session_{epoch}"))
-    _rank0_writes(lambda: _write_ckpt(state, scheduler, epoch, save_dir, exp, model_path,
+    host = _host_state(state)
+    _rank0_writes(lambda: _write_ckpt(state, host, scheduler, epoch, save_dir, exp, model_path,
                                       session_path))
     return model_path, session_path
 
 
-def _write_ckpt(state: TrainState, scheduler: ReduceLROnPlateau, epoch: int, save_dir: str,
+def _write_ckpt(state: TrainState, host: t.Tuple[t.Callable[[], t.Any], ...],
+                scheduler: ReduceLROnPlateau, epoch: int, save_dir: str,
                 exp: t.Any, model_path: str, session_path: str) -> None:
     os.makedirs(save_dir, exist_ok=True)
-    _save_dir_atomic(_to_cpu(state.model.state_dict()), model_path, MODEL_FILE)
+    _save_dir_atomic(host[0](), model_path, MODEL_FILE)
     session = {
-        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "optimizer": host[1](),
         "lr": get_lr(state),
         "scheduler": scheduler.state_dict(),
         "epoch": epoch,
@@ -202,7 +229,7 @@ def restore_model(
         import_model(model, reference_sd if reference_sd is not None
                      else load_state_dict_file(ref_pt))
         return
-    model.load_state_dict(load_ckpt_model(ckpt_dir, epoch))
+    load_full_state_dict(model, load_ckpt_model(ckpt_dir, epoch))
 
 
 def restore_state(state: TrainState, ckpt_dir: str, epoch: t.Optional[int] = None) -> TrainState:
@@ -262,7 +289,7 @@ def restore_session(
         epoch = _latest_common_epoch(ckpt_dir)
     state = restore_state(state, ckpt_dir, epoch)
     session = load_ckpt_session(ckpt_dir, epoch)
-    state.optimizer.load_state_dict(session["optimizer"])
+    load_full_optimizer_state_dict(state.optimizer, state.model, session["optimizer"])
     state = set_lr(state, float(session["lr"]))
     state.step = int(session["step"])
     scheduler.load_state_dict(session["scheduler"])
@@ -293,19 +320,21 @@ def save_preempt_ckpt(
     several ranks (rank 0 writes)."""
     model_path = os.path.abspath(os.path.join(save_dir, PREEMPT_MODEL))
     session_path = os.path.abspath(os.path.join(save_dir, PREEMPT_SESSION))
+    host = _host_state(state)
     _rank0_writes(lambda: _write_preempt_ckpt(
-        state, scheduler, epoch, batch_in_epoch, train_mstate, val_step, save_dir, model_path,
-        session_path))
+        state, host, scheduler, epoch, batch_in_epoch, train_mstate, val_step, save_dir,
+        model_path, session_path))
     return model_path, session_path
 
 
-def _write_preempt_ckpt(state: TrainState, scheduler: ReduceLROnPlateau, epoch: int,
+def _write_preempt_ckpt(state: TrainState, host: t.Tuple[t.Callable[[], t.Any], ...],
+                        scheduler: ReduceLROnPlateau, epoch: int,
                         batch_in_epoch: int, train_mstate: MetricState, val_step: int,
                         save_dir: str, model_path: str, session_path: str) -> None:
     os.makedirs(save_dir, exist_ok=True)
-    _save_dir_atomic(_to_cpu(state.model.state_dict()), model_path, MODEL_FILE)
+    _save_dir_atomic(host[0](), model_path, MODEL_FILE)
     session = {
-        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "optimizer": host[1](),
         "lr": get_lr(state),
         "scheduler": scheduler.state_dict(),
         "epoch": epoch,
@@ -380,10 +409,10 @@ def restore_preempt(
     its batches already trained. The accumulators land on the model's
     device."""
     path = os.path.join(ckpt_dir, PREEMPT_MODEL, MODEL_FILE)
-    state.model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    load_full_state_dict(state.model, torch.load(path, map_location="cpu", weights_only=True))
     session = torch.load(os.path.join(ckpt_dir, PREEMPT_SESSION, SESSION_FILE),
                          map_location="cpu", weights_only=True)
-    state.optimizer.load_state_dict(session["optimizer"])
+    load_full_optimizer_state_dict(state.optimizer, state.model, session["optimizer"])
     state = set_lr(state, float(session["lr"]))
     state.step = int(session["step"])
     scheduler.load_state_dict(session["scheduler"])

@@ -21,11 +21,16 @@ writes a checkpoint and exits 143 (``_preempt_exit``).
 
 Under a ``mesh`` of several ranks every rank runs this loop in step with
 the others on its own block of each batch (its rows, decoded alone by the
-loader; under ``spatial`` its image rows of them, cut from the whole batch
-that every rank decodes: ``mesh.local_batches``) and device: the epoch's
-metrics are the ranks' reduced ones (``metrics.reduce_metrics``), rank 0
-writes the checkpoints and prunes old ones while the others wait at a
-barrier, and the benchmark batch is used only when every rank loaded it.
+loader; under ``spatial`` and ``model`` cut from the whole batch that every
+rank decodes: ``mesh.local_batches``) and device: the epoch's metrics are
+the reduced ones of the rank's replica group (``metrics.reduce_metrics``),
+rank 0 writes the checkpoints and prunes old ones while the others wait at
+a barrier, and the benchmark batch is used only when every rank loaded it.
+The state is placed on the mesh first (``mesh.shard_state``, as the JAX
+loop does): under ``model`` each rank then holds its slice of the sharded
+leaves and their Adam moments, every rank runs the benchmark batch's
+forward (its sharded layers gather over the model group) and rank 0 plots
+it, and the parameter histograms are taken of the leaves gathered whole.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from vision_mtl_tpu_torch.data.datamodule import MTLDataModule, configure_host_s
 from vision_mtl_tpu_torch.data.loader import prefetch_to_device
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import MetricState, compute_metrics, init_metrics, reduce_metrics
-from vision_mtl_tpu_torch.parallel.mesh import local_batches
+from vision_mtl_tpu_torch.parallel.mesh import local_batches, model_slices, shard_state
 from vision_mtl_tpu_torch.parallel.multihost import all_processes_agree
 from vision_mtl_tpu_torch.train.checkpoint import prune_old_ckpts, save_ckpt, save_preempt_ckpt
 from vision_mtl_tpu_torch.train.plateau import ReduceLROnPlateau
@@ -93,11 +98,15 @@ def _log_param_histograms(logger: t.Any, model: torch.nn.Module, step: int) -> N
     """One TensorBoard histogram per parameter, tagged with its flax path
     (``a/b/kernel``) in the JAX layout, as the JAX loop logs
     ``state.params``; the buffers (``batch_stats``) are not logged. A no-op
-    without a TensorBoard writer; the first failing write ends the call."""
+    without a TensorBoard writer; the first failing write ends the call.
+    Collective when the model is sharded over the mesh's ``model`` axis:
+    every rank gathers the leaves whole, whether or not it has a writer."""
+    from vision_mtl_tpu_torch.weights import jax_variables_from_model
+
     tb = getattr(logger, "_tb", None)
+    variables = jax_variables_from_model(model) if tb is not None or model_slices(model) else None
     if tb is None:
         return
-    from vision_mtl_tpu_torch.weights import jax_variables_from_model
 
     def leaves(tree: t.Mapping[str, t.Any], prefix: str) -> t.Iterator[t.Tuple[str, t.Any]]:
         for k in sorted(tree):
@@ -106,7 +115,7 @@ def _log_param_histograms(logger: t.Any, model: torch.nn.Module, step: int) -> N
             else:
                 yield prefix + k, tree[k]
 
-    for name, value in leaves(jax_variables_from_model(model)["params"], ""):
+    for name, value in leaves(variables["params"], ""):
         try:
             tb.add_histogram(name, value, step)
         except Exception:
@@ -177,11 +186,17 @@ def run_pipe(
     trained, and the epoch's accumulators go on from where they stopped.
 
     ``mesh`` (``parallel/mesh.py``, several ranks): this rank's part of a
-    run over the mesh's ``data`` and ``spatial`` axes on ``mesh.device``;
-    every rank calls ``run_pipe`` with the same arguments."""
+    run over the mesh's axes on ``mesh.device``; every rank calls
+    ``run_pipe`` with the same arguments. The state is placed on the mesh
+    here (``mesh.shard_state``; the returned state holds the slices)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     comm = mesh.comm if mesh is not None else None
+    replicas = mesh.replica_comm if mesh is not None else None
     rank0 = comm is None or comm.rank == 0
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    # a sharded model's forward is collective over its model group
+    sharded = bool(model_slices(state.model))
     configure_host_sharded_loading(datamodule, mesh)
     train_step = make_train_step(
         loss_segm_weight=args.loss_segm_weight,
@@ -208,6 +223,10 @@ def run_pipe(
         benchmark_batch = None
     if benchmark_batch is None:
         print("A batch for benchmarking is not found.")
+    # only rank 0 has a live experiment: a sharded forward needs every rank
+    want_benchmark = bool(exp) or getattr(args, "do_plot_preds", False)
+    if sharded:
+        want_benchmark = bool(comm.host_all_reduce([int(want_benchmark)], "max")[0])
 
     # a resumed run continues the step axis (restore_session set state.step)
     global_step = int(state.step)
@@ -240,7 +259,7 @@ def run_pipe(
             torch.cuda.synchronize(dev)
         if logger is not None:
             save_preempt_ckpt(state, scheduler, epoch, batch_in_epoch,
-                              reduce_metrics(mstate_, comm), val_step_, save_dir=logger.log_dir)
+                              reduce_metrics(mstate_, replicas), val_step_, save_dir=logger.log_dir)
         else:
             print("Preemption requested but run_pipe has no logger: no checkpoint dir to "
                   "write; exiting without saving.")
@@ -276,7 +295,7 @@ def run_pipe(
 
         # reading the metrics waits for the epoch's work: the epoch's time
         # is end to end (host decode, copies and steps)
-        train_metrics = _metrics_float(reduce_metrics(mstate, comm))
+        train_metrics = _metrics_float(reduce_metrics(mstate, replicas))
         epoch_dt = time.perf_counter() - epoch_t0
         imgs_seen = (batch_in_epoch - epoch_start_batch) * train_loader.batch_size
         if epoch_dt > 0 and imgs_seen > 0:
@@ -296,11 +315,11 @@ def run_pipe(
             exp.log_metrics({f"epoch/train/{k}": v for k, v in train_metrics.items()}, step=epoch)
 
         if (epoch + 1) % args.val_epoch_freq == 0:
-            want_benchmark = bool(exp) or getattr(args, "do_plot_preds", False)
-            if benchmark_batch is not None and want_benchmark and rank0:
+            if benchmark_batch is not None and want_benchmark and (rank0 or sharded):
                 # the eval-mode forward; only the plotting is best-effort
                 preds = predict_step(torch.from_numpy(benchmark_batch["img"]).to(dev))
-                _plot_benchmark(args, benchmark_batch, preds, exp, logger, epoch)
+                if rank0:
+                    _plot_benchmark(args, benchmark_batch, preds, exp, logger, epoch)
 
             val_mstate = init_metrics(num_classes, dev)
             val_log = _LaggedLossLog("step/val", logger, exp)
@@ -316,7 +335,7 @@ def run_pipe(
                     _preempt_exit(batches, epoch, batch_in_epoch, mstate, val_step0)
             val_log.flush()
 
-            val_mstate = reduce_metrics(val_mstate, comm)
+            val_mstate = reduce_metrics(val_mstate, replicas)
             val_metrics = _host_floats(
                 {**compute_metrics(val_mstate), "loss_sum": val_mstate.loss_sum}
             )

@@ -5,18 +5,22 @@ optimizer with a mutable learning rate (counterpart of
 Where the JAX state carries params, batch_stats and opt_state as values,
 the port's carries the ``nn.Module``, which holds the first two, and the
 ``torch.optim.Adam`` that holds the third. Both are updated in place by the
-train step.
+train step. ``parallel/mesh.shard_state`` places a state on the mesh's
+``model`` axis: the model then holds its rank's slice of each sharded leaf,
+and the optimizer is rebuilt over the slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing as t
 
 import torch
 from torch import nn
 
 from vision_mtl_tpu_torch.device import resolve_device
+from vision_mtl_tpu_torch.parallel.mesh import model_slices
 
 
 @dataclasses.dataclass
@@ -52,4 +56,8 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
 
 
 def param_count(state: TrainState) -> int:
-    return sum(p.numel() for p in state.model.parameters())
+    """The model's parameter count; a leaf sharded over the mesh's
+    ``model`` axis counts whole, as JAX's global arrays do."""
+    slices = model_slices(state.model)
+    return sum(math.prod(slices[k].shape) if k in slices else p.numel()
+               for k, p in state.model.named_parameters())

@@ -9,17 +9,27 @@ run under ``torch.inference_mode``. Each step sets the model's mode for its
 own forward and restores it after. Steps return without synchronising:
 reading a result on the host is the sync.
 
-Given a ``mesh`` of several ranks (``parallel/mesh.py``: the ``data`` and
-``spatial`` axes), each rank's step takes its own block of the global
-batch (its rows, and under ``spatial`` its image rows of them) and runs
-inside ``multihost.global_batch``: train-mode batch statistics and the
-losses are the global batch's. Under ``spatial`` the forward also runs
-inside ``halo.spatial_rows`` with the rank's spatial group, where the
-convolutions take their halo rows from the neighbouring ranks. The train
-step back-propagates ``1 / world`` of the global loss on every rank and
-then sums the gradients over the ranks, once per step, in one flat buffer,
-before Adam: every rank's parameters and Adam moments stay bit for bit
-equal. The metric states stay per rank until ``metrics.reduce_metrics``.
+Given a ``mesh`` of several ranks (``parallel/mesh.py``), each rank's step
+takes its own block of the global batch (its rows, and under ``spatial``
+its image rows of them) and runs inside ``multihost.global_batch`` with
+the rank's replica group (its data x spatial ranks): train-mode batch
+statistics and the losses are the global batch's. Under ``spatial`` the
+forward also runs inside ``halo.spatial_rows`` with the rank's spatial
+group, where the convolutions take their halo rows from the neighbouring
+ranks. Under ``model`` (the state placed by ``mesh.shard_state``) the
+sharded layers gather their output channels over the rank's model group,
+whose ranks hold the same block and compute the same global loss.
+
+The train step back-propagates ``1 / R`` of the global loss on every rank
+(R the replica group's size) and then, once per step, before Adam, sums
+each sharded leaf's gradient over the replica group, and each replicated
+leaf's over every rank divided by the ``model`` axis's size (one flat
+buffer a dtype for each). The ranks of a model group compute the same
+replicated gradients up to the order of the atomic adds of some CUDA
+backward kernels; taking their mean keeps every rank's replicated leaves
+and Adam moments bit for bit equal, as are the sharded ones across the
+ranks of a slice. The metric states stay per rank until
+``metrics.reduce_metrics`` over the replica group.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.losses import mtl_loss
 from vision_mtl_tpu_torch.metrics import MetricState, update_metrics
 from vision_mtl_tpu_torch.parallel.halo import spatial_rows
-from vision_mtl_tpu_torch.parallel.mesh import check_rows
+from vision_mtl_tpu_torch.parallel.mesh import check_rows, model_slices
 from vision_mtl_tpu_torch.parallel.multihost import Comm, global_batch
 from vision_mtl_tpu_torch.train.state import TrainState
 
@@ -120,8 +130,9 @@ def _update(mstate: MetricState, post: Batch, batch: Batch, losses: Losses) -> M
 
 
 def _comm(mesh: t.Any) -> t.Optional[Comm]:
-    """The mesh's ranks when there are several, else None."""
-    return mesh.comm if mesh is not None and mesh.world > 1 else None
+    """The mesh's replica group (the ranks of every batch-wide sum) when it
+    has several ranks, else None."""
+    return mesh.replica_comm if mesh is not None else None
 
 
 def _rows(mesh: t.Any, model: nn.Module, img: torch.Tensor) -> t.ContextManager[None]:
@@ -196,7 +207,8 @@ def make_train_step(
     The SILog depth loss is not linear in the batch, so the accumulated loss
     differs from the full-batch one. Under a ``mesh`` of several ranks,
     ``batch`` is this rank's rows and ``device`` its device; microbatch i is
-    every rank's i-th slice of its rows together.
+    every rank's i-th slice of its rows together. Under a ``model`` axis the
+    state must have been placed by ``parallel.mesh.shard_state``.
     """
     dev = resolve_device(device)
     if grad_accum_steps < 1:
@@ -243,8 +255,8 @@ def make_train_step(
                     loss_segm_sum=mstate.loss_segm_sum - losses["loss_segm"] * (k - 1),
                     loss_depth_sum=mstate.loss_depth_sum - losses["loss_depth"] * (k - 1),
                 )
-        if comm is not None:
-            all_reduce_grads(state.model, comm)
+        if mesh is not None and mesh.world > 1:
+            reduce_grads(state.model, mesh)
         state.optimizer.step()
         state.step += 1
         return state, mstate, losses
@@ -252,15 +264,35 @@ def make_train_step(
     return step
 
 
-def all_reduce_grads(model: nn.Module, comm: Comm) -> None:
-    """Sum every parameter's gradient over the ranks: one all-reduce of one
-    flat buffer per gradient dtype, in parameter order."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+def all_reduce_grads(grads: t.Sequence[torch.Tensor], comm: Comm, scale: float = 1.0) -> None:
+    """Sum ``grads`` over the ranks of ``comm`` in place, times ``scale``:
+    one all-reduce of one flat buffer per gradient dtype, in order."""
     for dtype in dict.fromkeys(g.dtype for g in grads):
         group = [g for g in grads if g.dtype == dtype]
         flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in group]))
+        if scale != 1.0:
+            flat.mul_(scale)
         for g, part in zip(group, flat.split([g.numel() for g in group])):
             g.copy_(part.view_as(g))
+
+
+def reduce_grads(model: nn.Module, mesh: t.Any) -> None:
+    """The step's gradient sums over the ranks of ``mesh``: each sharded
+    leaf's over its replica group, its slices never summed across slices;
+    each replicated leaf's over every rank times ``1 / model``, the mean of
+    its model group's equal copies (without a ``model`` axis, a sum over
+    the replica group, which is then every rank)."""
+    slices = model_slices(model)
+    sliced = {id(p) for k, p in model.named_parameters() if k in slices}
+    sharded, replicated = [], []
+    for p in model.parameters():
+        if p.grad is not None:
+            (sharded if id(p) in sliced else replicated).append(p.grad)
+    replica = mesh.replica_comm
+    if sharded and replica is not None:
+        all_reduce_grads(sharded, replica)
+    if replicated:
+        all_reduce_grads(replicated, mesh.comm, 1.0 / mesh.size("model"))
 
 
 def _split(batch: Batch, k: int) -> t.List[Batch]:

@@ -20,9 +20,12 @@ Data parallelism: launched by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), every process joins the
 process group before any other work and trains its rows of each global
 batch on ``cuda:(LOCAL_RANK % device_count)``; ``--mesh_shape`` (default
-``data:-1``) lays the ranks out over its ``data`` and ``spatial`` axes
-(``data:2,spatial:2``: each rank a quarter of every batch, half its
-rows of half its images); ``model`` above 1 is refused (ROADMAP.md A10c).
+``data:-1``) lays the ranks out over its ``data``, ``spatial`` and
+``model`` axes (``data:2,spatial:2``: each rank a quarter of every batch,
+half its rows of half its images; ``data:2,model:2``: each rank half of
+every batch and half the output channels of each large conv, its Adam
+moments with them). ``--fold_tasks`` and ``--fold_tail`` under ``model``
+above 1 are refused (ROADMAP.md A10d).
 ``--device cpu:N`` starts N ranks of this CLI on the CPU (gloo, one thread
 each) and returns rank 0's run dir; a rank that fails fails the run.
 """
@@ -100,10 +103,20 @@ def _launch_cpu_ranks(args: argparse.Namespace, argv: t.List[str], n_ranks: int)
 
 def check_mesh(args: argparse.Namespace, world: int) -> t.Dict[str, int]:
     """The mesh of ``--mesh_shape`` over ``world`` ranks; SystemExit when its
-    data axis does not divide ``--batch_size`` (JAX's message), or when the
+    data axis does not divide ``--batch_size`` (JAX's message), when the
     dataset's image height does not split over its spatial axis at every
-    level of the model (``parallel.mesh.check_rows``)."""
+    level of the model (``parallel.mesh.check_rows``), or when a model axis
+    above 1 meets ``--fold_tasks`` (mtan) or ``--fold_tail`` (basic),
+    which it does not lay out yet (ROADMAP.md A10d)."""
     axes = parse_mesh_shape(args.mesh_shape, world)
+    if axes.get("model", 1) > 1:
+        for flag, model in (("fold_tasks", "mtan"), ("fold_tail", "basic")):
+            if getattr(args, flag, False) and args.model_name == model:
+                raise SystemExit(
+                    f"--{flag} with --mesh_shape {args.mesh_shape}: the model axis under "
+                    f"{flag} is not ported to vision_mtl_tpu_torch yet (its task-stacked or "
+                    "folded leaves sharded on their last dim), see ROADMAP.md A10d"
+                )
     data_shards = axes.get("data", 1)
     if args.batch_size % data_shards:
         raise SystemExit(
@@ -187,7 +200,7 @@ def _main(args: argparse.Namespace) -> str:
                     state, scheduler, args.resume_dir, data_cfg.num_classes)
                 # the saved accumulators are the ranks' reduced ones
                 initial_train_mstate = rank_part(
-                    initial_train_mstate, mesh.comm if mesh is not None else None)
+                    initial_train_mstate, mesh.replica_comm if mesh is not None else None)
                 print(f"Resumed preempted run {args.resume_dir} at epoch {start_epoch} "
                       f"batch {start_batch}")
             else:

@@ -133,22 +133,14 @@ def update_args(args: argparse.Namespace, kv_map: t.Mapping[str, t.Any]) -> argp
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Refuse, with SystemExit, a flag whose feature is not ported, a mesh
-    axis the port does not run, and a ``--device`` it cannot run."""
+    """Refuse, with SystemExit, a flag whose feature is not ported and a
+    ``--device`` the port cannot run."""
     for flag, (default, item) in NOT_PORTED.items():
         if getattr(args, flag) != default:
             raise SystemExit(
                 f"--{flag} {getattr(args, flag)!r}: not ported to vision_mtl_tpu_torch "
                 f"yet, see ROADMAP.md {item}"
             )
-    from vision_mtl_tpu_torch.parallel.mesh import refuse_unported_axes
-
-    sizes: t.Dict[str, int] = {}
-    for part in args.mesh_shape.split(","):
-        name, _, size = part.strip().partition(":")
-        if size.lstrip("-").isdigit():
-            sizes[name] = int(size)
-    refuse_unported_axes(sizes, args.mesh_shape)
     cpu_ranks(args.device)
 
 

@@ -32,6 +32,13 @@ leaf it did not consume, and a port parameter or buffer it did not fill.
 
 ``jax_variables_from_model`` is its exact inverse: the same walk, each
 layout change undone, gives the JAX tree of a port module.
+
+On a model whose leaves are sharded over the mesh's ``model`` axis
+(``parallel/mesh.shard_model``) both work on whole leaves: the bridge cuts
+each sharded leaf to the rank's slice, and the inverse gathers each whole
+(collective over the model group). ``parallel/mesh.param_shardings`` reads
+the JAX shape of each leaf through :func:`leaf_layouts` and
+:func:`jax_shape`.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from torch import nn
 from vision_mtl_tpu_torch.models.blocks import BatchNorm, Conv, ConvTranspose, RawBatchNorm
 from vision_mtl_tpu_torch.models.cross_stitch import CrossStitchLayer
 from vision_mtl_tpu_torch.models.mtan import GateChain, TaskBatchNorm, TaskConv, TaskGateChain
+from vision_mtl_tpu_torch.parallel.mesh import full_state_dict, model_slices
 
 # layout of a leaf: (JAX -> port, port -> JAX)
 _LAYOUTS: t.Dict[str, t.Tuple[t.Callable[[np.ndarray], np.ndarray], ...]] = {
@@ -64,6 +72,10 @@ _LAYOUTS: t.Dict[str, t.Tuple[t.Callable[[np.ndarray], np.ndarray], ...]] = {
 _TASK_BLOCKS: t.Dict[type, type] = {
     TaskConv: Conv, TaskBatchNorm: BatchNorm, TaskGateChain: GateChain,
 }
+
+
+# the torch dim of a leaf's last JAX dim (its output channels), by layout
+_LAST_DIM = {"same": -1, "conv": 0, "convt": 1}
 
 
 def _layout(name: str, direction: int) -> t.Callable[[np.ndarray], np.ndarray]:
@@ -136,6 +148,27 @@ def _leaves(model: nn.Module) -> t.List[t.Tuple[str, str, str]]:
     return out
 
 
+def leaf_layouts(model: nn.Module) -> t.List[t.Tuple[str, str]]:
+    """(torch state key, layout name) of every tensor the walk reaches, in
+    module order; a layout name is a key of ``_LAYOUTS``, prefixed
+    ``task:`` for a task-axis block's leaf."""
+    return [(torch_key, layout) for torch_key, _, layout in _leaves(model)]
+
+
+def jax_shape(layout: str, shape: t.Sequence[int]) -> t.Tuple[int, ...]:
+    """The JAX shape of a port leaf of ``shape`` in ``layout``."""
+    return tuple(_layout(layout, 1)(np.broadcast_to(np.zeros((), bool), tuple(shape))).shape)
+
+
+def torch_dim_of_jax_last(layout: str, ndim: int) -> int:
+    """The torch dim that holds the last JAX dim of a leaf of ``ndim`` dims
+    in ``layout``: O of a conv's OIHW, out of a transposed conv's (in, out,
+    kh, kw), the last of a leaf kept as it is."""
+    if layout.startswith("task:"):  # a leading task axis on both sides
+        return 1 + torch_dim_of_jax_last(layout[len("task:"):], ndim - 1)
+    return _LAST_DIM[layout] % ndim
+
+
 def _flatten(tree: t.Mapping[str, t.Any], prefix: str, out: t.Dict[str, np.ndarray]) -> None:
     for k, v in tree.items():
         key = f"{prefix}/{k}"
@@ -147,13 +180,15 @@ def _flatten(tree: t.Mapping[str, t.Any], prefix: str, out: t.Dict[str, np.ndarr
 
 def port_tensors(model: nn.Module, variables: t.Mapping[str, t.Any]) -> t.Dict[str, np.ndarray]:
     """The JAX ``variables`` under ``model``'s state keys, each in the port's
-    layout (see the module docstring for the mapping). Raises
+    layout (see the module docstring for the mapping), a sharded leaf cut to
+    this rank's slice. Raises
     ``ValueError`` on any leaf or tensor left unmatched and on a shape that
     does not fit."""
     flat: t.Dict[str, np.ndarray] = {}
     for coll, tree in variables.items():
         _flatten(tree, coll, flat)
     state = model.state_dict(keep_vars=True)
+    slices = model_slices(model)
     out: t.Dict[str, np.ndarray] = {}
     missing: t.List[str] = []
     leaves = _leaves(model)
@@ -162,11 +197,16 @@ def port_tensors(model: nn.Module, variables: t.Mapping[str, t.Any]) -> t.Dict[s
             missing.append(key)
             continue
         value = _layout(layout, 0)(flat[key])
-        if tuple(value.shape) != tuple(state[torch_key].shape):
+        sl = slices.get(torch_key)
+        want = sl.shape if sl is not None else tuple(state[torch_key].shape)
+        if tuple(value.shape) != tuple(want):
             raise ValueError(
                 f"{key}: shape {value.shape} (after layout change) does not "
-                f"fit {torch_key} {tuple(state[torch_key].shape)}"
+                f"fit {torch_key} {tuple(want)}"
             )
+        if sl is not None:  # this rank's slice of the whole leaf
+            size = value.shape[sl.dim] // sl.count
+            value = np.take(value, range(sl.index * size, (sl.index + 1) * size), axis=sl.dim)
         out[torch_key] = np.ascontiguousarray(value)
     unconsumed = sorted(set(flat) - {key for _, key, _ in leaves})
     unfilled = sorted(set(state) - set(out))
@@ -199,8 +239,10 @@ def jax_variables_from_model(
     stands in for the module's own tensors where it has a key, so a
     parameter-shaped quantity, such as Adam's moments, takes the
     parameters' layout changes. Raises ``ValueError`` on a module tensor the
-    walk does not reach."""
-    state = model.state_dict()
+    walk does not reach. A sharded model's leaves are gathered whole
+    (collective over its model groups; ``tensors`` must then be whole
+    too)."""
+    state = full_state_dict(model) if model_slices(model) else model.state_dict()
     leaves = _leaves(model)
     unreached = sorted(set(state) - {torch_key for torch_key, _, _ in leaves})
     if unreached:
