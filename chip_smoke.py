@@ -150,8 +150,15 @@ basic's step gave it, against its plain version; B4's staged call at the
 blocks' gate shapes; MTAN's ``Predictor(8, mesh=)`` against the
 one-process answer, whole on every rank; the training CLI in process for
 one MTAN epoch over the mesh on the ``cli`` tree (every rank decodes whole
-batches and keeps its block). Launches are counted exactly per rank: B4's
-staged calls and B3's convs run on the row blocks.
+batches and keeps its block). Then two heights whose coarser levels do not
+split over the two spatial ranks, which run those levels whole on both:
+basic at 96 rows (3 rows at its stride 32) and MTAN at 112 (7 rows at its
+16), the first 96 or 112 rows of the same batches: each one f32 step held
+to the one-process step, 1 + 3 bf16 steps bit for bit on every rank, the
+spatial group's all-reduces of a step by kind (the row gathers into the
+whole levels among them), ``Predictor(8, mesh=)`` against the one-process
+answer at that height, and the levels that ran whole. Launches are counted
+exactly per rank: B4's staged calls and B3's convs run on the row blocks.
 
 The ``model`` phase (the mesh's ``model`` axis: large conv kernels
 sharded by output channel with their Adam moments, the output channels
@@ -171,7 +178,16 @@ checkpoint must hold the trained state gathered whole bit for bit and
 whose one-process f32 ``Predictor`` must answer as the same checkpoint
 sharded over the mesh does; both gates at MTAN's shapes with ``dec0``'s
 ``w1`` gathered (B4 staged over the replica group when it has several
-ranks). Launches are counted exactly per rank.
+ranks). Then MTAN with ``fold_tasks`` and basic with ``fold_tail`` over
+the same mesh, at the default ``min_size``, each as MTAN and basic above
+(the bytes, the f32 step held to the folded model's one-process step, the
+bf16 steps, the collectives by kind); the folded MTAN's ``Predictor(8,
+mesh=)`` against the one-process answer (its seeded weights are the
+unfolded ones, converted); B1 and B4 over the task axis at MTAN's shapes
+with every task-stacked ``w1`` and ``w2`` that the layout shards gathered
+over the model group inside the call. Launches are counted exactly per
+rank: 8 task-axis B1 launches a folded forward, 8 task-axis B4 calls a
+folded step.
 
 ``--parallel [phase ...]`` builds the kernels and runs the MTAN and basic f32 checks
 against the CPU (for their limits), their bf16 steps (for the one-process
@@ -3227,14 +3243,31 @@ PARALLEL_PHASES = ("parallel", "spatial", "model")
 # the spatial phase: the mesh's spatial axis over the same ranks, MTAN and
 # basic; 1 + SPATIAL_BF16_STEPS bf16 steps each
 SPATIAL_MODELS = ("mtan", "basic")
+# then heights whose coarser levels' rows do not split over 2 ranks (those
+# levels run whole on both): case -> (model, the batch's first rows)
+SPATIAL_UNEVEN = {"basic_h96": ("basic", 96), "mtan_h112": ("mtan", 112)}
 SPATIAL_BF16_STEPS = 3
 # a train step under ranks: MTAN's gates take B4's staged call, basic's 4 B3
 # convs (and their dx) run on row blocks with one halo row each side
 PER_SPATIAL_TRAIN_STEP = {"mtan": PER_RANK_TRAIN_STEP, "basic": PER_TRAIN_STEP["basic"]}
-# the model phase: the mesh's model axis over the same ranks, MTAN and basic;
-# 1 + MODEL_BF16_STEPS bf16 steps each
-MODEL_MODELS = ("mtan", "basic")
+# the model phase: the mesh's model axis over the same ranks, MTAN and basic,
+# then MTAN with fold_tasks and basic with fold_tail (model_variant); 1 +
+# MODEL_BF16_STEPS bf16 steps each
+MODEL_MODELS = ("mtan", "basic", "mtan_fold_tasks", "basic_fold_tail")
 MODEL_BF16_STEPS = 3
+
+
+def model_variant(name: str) -> tuple:
+    """(registry name, build options) of a rank phase's model:
+    ``mtan_fold_tasks`` is MTAN with ``fold_tasks``, ``basic_fold_tail``
+    basic with ``fold_tail``."""
+    base, _, option = name.partition("_")
+    return base, ({option: True} if option else {})
+
+
+def first_rows(batch: dict, rows: int) -> dict:
+    """A batch's first ``rows`` image rows (every leaf of three dims or more)."""
+    return {k: v[:, :rows] if v.dim() >= 3 else v for k, v in batch.items()}
 
 
 def spatial_spec(world: int) -> str:
@@ -3271,10 +3304,12 @@ def train_tensors(state) -> list:
     return params + moments
 
 
-def rank_gate_times(fused_gate_train, comm, dev, rows: int = 0, split_h: int = 1) -> tuple:
+def rank_gate_times(fused_gate_train, comm, dev, rows: int = 0, split_h: int = 1,
+                    height: int = 128) -> tuple:
     """B4's staged call at MTAN's 8 gate shapes on this rank's block of the
     batch (``rows`` images, ``BATCH / world`` by default, and ``1 /
-    split_h`` of their rows; bf16, as the main path): against the plain
+    split_h`` of their rows, the image ``height`` rows; bf16, as the main
+    path): against the plain
     version's split, timed with CUDA events around 10 calls (the gathers
     between the passes included). Per train step: two tasks a level."""
     gen = torch.Generator(device=dev).manual_seed(10 + comm.rank)
@@ -3282,7 +3317,7 @@ def rank_gate_times(fused_gate_train, comm, dev, rows: int = 0, split_h: int = 1
     rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
     for level, cin, c2, h, w in GATE_SHAPES:
-        h //= split_h
+        h = h * height // 128 // split_h
         def uniform(*shape, bound=1.0):
             return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
@@ -3402,13 +3437,17 @@ def spatial_rank(comm, out_dir: str) -> dict:
     the same parameters and Adam moments bit for bit, launches counted per
     rank; B3 timed on the row blocks basic's step gave it; MTAN's
     ``Predictor(8, mesh=)`` against the one-process answer; one MTAN epoch
-    of the training CLI over the mesh (:func:`rank_cli`). Returns the
+    of the training CLI over the mesh (:func:`rank_cli`). Then each case of
+    ``SPATIAL_UNEVEN`` (the batches' first rows: coarser levels that do not
+    split run whole): the f32 step, the bf16 steps, the collectives by kind,
+    ``Predictor(8, mesh=)``, B3 or B4 timed on its blocks. Returns the
     rank's record, its main-path launches under ``launches``."""
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
     from vision_mtl_tpu_torch.kernels import fused_gate_train, small_conv
     from vision_mtl_tpu_torch.metrics import init_metrics
     from vision_mtl_tpu_torch.models.registry import build_model
+    from vision_mtl_tpu_torch.parallel import halo
     from vision_mtl_tpu_torch.parallel.mesh import create_mesh
     from vision_mtl_tpu_torch.serving import Predictor
     from vision_mtl_tpu_torch.train.state import create_train_state
@@ -3533,6 +3572,112 @@ def spatial_rank(comm, out_dir: str) -> dict:
                                              rows=BATCH // mesh.size("data"),
                                              split_h=mesh.size("spatial"))
     out["gate_train_staged"] = {"rows": gate_rows, **gate_totals}
+
+    # heights whose coarser levels do not split over the spatial ranks
+    for case, (name, rows) in SPATIAL_UNEVEN.items():
+        t_case = time.perf_counter()
+        per = PER_SPATIAL_TRAIN_STEP[name]
+        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+        state = create_train_state(model, LR, device=dev)
+        kernels.reset_launch_counts()
+        _, _, losses = step(state, mesh.block(first_rows(batch, rows)),
+                            init_metrics(cfg.num_classes, dev))
+        torch.cuda.synchronize()
+        f32_counts = kernels.launch_counts()
+        add(f32_counts)
+        if f32_counts != expected(kernels, per, 1):
+            fail(f"spatial {case} f32 step rank {rank}: launches {f32_counts}")
+        if not same_on_every_rank(comm, [p.grad for p in model.parameters()]):
+            fail(f"spatial {case} f32 step: the all-reduced gradients differ between the ranks")
+        if rank == 0:
+            torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                        "loss": float(losses["loss"])},
+                       os.path.join(out_dir, f"spatial_{case}_f32_grads.pt"))
+        local = rows // mesh.size("spatial")
+        first = halo.first_whole_level(local)
+        levels = int(np.log2(model.row_stride))
+        del model, state
+
+        model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        state = create_train_state(model, LR, device=dev)
+        n_steps = 1 + SPATIAL_BF16_STEPS
+        blocks_ = [mesh.block(first_rows(b, rows))
+                   for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+        calls, real_b3 = [], small_conv.conv3x3_small
+
+        def recording(x, kernel, bias=None):
+            if len(calls) < per.get("conv3x3_small", 0):  # the first step's
+                calls.append((x.detach().clone(), kernel.detach().clone(),
+                              None if bias is None else bias.detach().clone()))
+            return real_b3(x, kernel, bias)
+
+        kernels.reset_launch_counts()
+        step_losses = []
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+        small_conv.conv3x3_small = recording
+        try:
+            events[0].record()
+            for i in range(n_steps):
+                state, _, ls = step(state, blocks_[i % TRAIN_BATCHES],
+                                    init_metrics(cfg.num_classes, dev))
+                events[i + 1].record()
+                step_losses.append(ls["loss"])
+            torch.cuda.synchronize()
+        finally:
+            small_conv.conv3x3_small = real_b3
+        counts = kernels.launch_counts()
+        add(counts)
+        if counts != expected(kernels, per, n_steps):
+            fail(f"spatial {case} bf16 steps rank {rank}: launches {counts}")
+        step_losses = [float(v) for v in step_losses]
+        if not all(np.isfinite(step_losses)):
+            fail(f"spatial {case} bf16 steps: losses {step_losses}")
+        if not same_on_every_rank(comm, train_tensors(state)):
+            fail(f"spatial {case} bf16 steps: parameters or Adam moments differ between the "
+                 f"ranks after {n_steps} steps")
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
+        exchanges = count_exchanges(mesh.spatial_comm, lambda: step(
+            state, blocks_[0], init_metrics(cfg.num_classes, dev)))
+        if not exchanges.get("gather_rows"):
+            fail(f"spatial {case}: no row gather into a whole level in a step ({exchanges})")
+        del model, state
+        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0).eval()
+        kernels.reset_launch_counts()
+        answer = Predictor(model, BATCH, rows, cfg.width, dtype=np.uint8,
+                           mesh=mesh)(np.ascontiguousarray(imgs[:, :rows]))
+        torch.cuda.synchronize()
+        pred_counts = kernels.launch_counts()
+        add(pred_counts)
+        if pred_counts != expected(kernels, PER_FORWARD[name], 1):
+            fail(f"spatial {case} Predictor rank {rank}: launches {pred_counts}")
+        want = np.load(os.path.join(out_dir, f"predictor_ref_{case}.npz"))
+        depth_err = float(np.abs(answer["depth"] - want["depth"]).max())
+        mismatch = float((answer["segm"] != want["segm"]).mean())
+        if answer["segm"].shape != want["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
+                or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
+            fail(f"spatial {case} Predictor rank {rank}: depth max |diff| {depth_err}, segm ids "
+                 f"differ on {mismatch} of the pixels, from the one-process Predictor")
+        del model
+        out[case] = {
+            "height": rows, "rows_per_rank": local,
+            "whole_levels": list(range(first, levels + 1)),
+            "f32": {"loss": float(losses["loss"]), "launches": f32_counts},
+            "all_reduces_per_step": exchanges,
+            "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
+                     "step_ms_p50": float(np.median(step_ms)), "launches": counts,
+                     "params_and_moments_equal_across_ranks": True},
+            "predictor": {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
+                          "launches": pred_counts},
+        }
+        comm.barrier()
+        if calls:  # B3 on this height's row blocks, forward and dx
+            out[case]["conv3x3_small_row_blocks"] = time_recorded(
+                calls, small_conv.conv3x3_small, small_conv.conv3x3_small_plain)
+        if name == "mtan":  # B4's staged call at this height's blocks
+            out[case]["gate_train_staged"] = rank_gate_times(
+                fused_gate_train, comm, dev, rows=BATCH // mesh.size("data"),
+                split_h=mesh.size("spatial"), height=rows)[1]
+        out[case]["case_s"] = time.perf_counter() - t_case
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t0
     return out
@@ -3645,7 +3790,7 @@ def count_model_collectives(comm, fn) -> dict:
     copy-in's backward (the input gradient summed over the group), the
     gather-out of a sharded layer's output channels, the gather of a whole
     weight (``blocks.whole_param``: the gate's ``w1`` and ``w2`` in
-    ``GateChain``), and the others (where the group is every rank: the
+    ``GateChain`` and ``TaskGateChain``), and the others (where the group is every rank: the
     replicated gradients' mean). One step's worth."""
     counts: dict = {}
     real = comm.all_reduce_
@@ -3659,8 +3804,9 @@ def count_model_collectives(comm, fn) -> dict:
         if "_CopyIn.backward" in names:
             kind = "copy_in"
         elif "_GatherOut.forward" in names:
-            kind = ("gate_weight" if "GateChain.forward" in names else "weight") \
-                if "whole_param" in names else "gather_out"
+            gate = any(n.endswith("GateChain.forward") for n in names)
+            kind = ("gate_weight" if gate else "weight") if "whole_param" in names \
+                else "gather_out"
         else:
             kind = "other"
         counts[kind] = counts.get(kind, 0) + 1
@@ -3749,6 +3895,88 @@ def model_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
     return totals
 
 
+def model_task_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
+    """B1 and B4 over the task axis (``fold_tasks``, T = 2) at MTAN's 8 gate
+    shapes on this rank's block of batch 8 (bf16, as the main path), each
+    task-stacked ``w1`` (T, Cin, 128) and ``w2`` (T, 128, C2) that JAX's
+    rule shards at the default ``min_size`` gathered over the model group
+    inside the call, as ``TaskGateChain`` does: B1 (row 1bm) with folded
+    weights, B4 (row 4bm) staged over the replica group when it has several
+    ranks, else the fused call. Each against its plain version on the same
+    inputs, CUDA-event ms of one folded forward's or step's 8 calls (the
+    gathers included), the bound of the gates' own work (both tasks)."""
+    from vision_mtl_tpu_torch.parallel.mesh import MIN_SHARD_SIZE
+    from vision_mtl_tpu_torch.parallel.multihost import gather_out
+
+    model_comm, replicas = mesh.model_comm, mesh.replica_comm
+    m = model_comm.world
+    per, n_tasks = BATCH // mesh.size("data"), 2
+    gen = torch.Generator(device=dev).manual_seed(30 + mesh.rank)
+    totals = {g: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "gathered": []}
+              for g in ("eval", "train")}
+    by_flops = by_bytes = 0.0
+    for level, cin, c2, h, w in GATE_SHAPES:
+        args = task_gate_args(gen, dev, n_tasks, cin, c2, h, w, torch.bfloat16, True)
+        x, shared = args[0][:, :per].contiguous(), args[1][:per].contiguous()
+        w1, b1, sc1, bi1, w2, b2, sc2, bi2 = args[2:]
+
+        def part(v, dim):  # this rank's slice, or the whole leaf when it is replicated
+            if v.numel() < MIN_SHARD_SIZE or v.shape[-1] % m:
+                return v, False
+            size = v.shape[dim] // m
+            return v.narrow(dim, model_comm.rank * size, size).contiguous(), True
+
+        (w1p, w1s), (w2p, w2s) = part(w1, 2), part(w2, 2)
+
+        def whole():
+            return (gather_out(w1p, model_comm) if w1s else w1p,
+                    gather_out(w2p, model_comm) if w2s else w2p)
+
+        zeros, ones = torch.zeros_like(b1), torch.ones_like(b1)
+        s1, c1 = fused_gate.fold_bn(b1, sc1, bi1, zeros, ones, 1e-5)
+        s2, c2v = fused_gate.fold_bn(b2, sc2, bi2, torch.zeros_like(b2), torch.ones_like(b2),
+                                     1e-5)
+
+        def eval_call(fn):
+            a, b_ = whole()
+            return fn(x, shared, a * s1[:, None, :], c1, b_ * s2[:, None, :], c2v)
+
+        def train_call(fn):
+            a, b_ = whole()
+            return fn(x, shared, a, b1, sc1, bi1, b_, b2, sc2, bi2, comm=replicas)[0]
+
+        calls = {
+            "eval": (lambda: eval_call(fused_gate.fused_attention_gate_tasks),
+                     lambda: eval_call(fused_gate.fused_attention_gate_tasks_plain)),
+            "train": (lambda: train_call(fused_gate_train.fused_attention_gate_train_tasks),
+                      lambda: train_call(
+                          fused_gate_train.fused_attention_gate_train_tasks_plain)),
+        }
+        with torch.no_grad():
+            for g, (kernel, plain) in calls.items():
+                err, ok = output_ok(kernel(), plain())
+                if not ok:
+                    fail(f"model-axis task-axis {g} gate {level} rank {mesh.rank}: max |diff| "
+                         f"{err} from its plain version")
+                mesh.comm.barrier()
+                totals[g]["ms"] += time_ms(kernel, iters=10, warmup=2)
+                mesh.comm.barrier()
+                totals[g]["plain_ms"] += time_ms(plain, iters=5, warmup=1)
+                totals[g]["err"] = max(totals[g]["err"], err)
+                totals[g]["gathered"] += [f"{level}.{k}" for k, on in (("w1", w1s), ("w2", w2s))
+                                          if on]
+        n = per * h * w
+        nbytes = n_tasks * (2 * n * (cin + c2) + 4 * (cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2
+                                                      + 3 * c2)) + 2 * n * c2
+        by_flops += n_tasks * tf32_flops(n, cin, c2, True) / TF32_TC_FLOPS_PER_S
+        by_bytes += nbytes / HBM_BYTES_PER_S
+    for g in totals.values():
+        g["bound_ms"] = max(by_flops, by_bytes) * 1e3
+        g["bound_by"] = "operations" if by_flops >= by_bytes else "bytes"
+    totals["train"]["staged"] = replicas is not None
+    return totals
+
+
 def model_rank(comm, out_dir: str) -> dict:
     """The ``model`` phase on one rank: the mesh of :func:`model_spec` over
     the ``parallel`` phase's ranks. Per model (MTAN, basic at 128x256,
@@ -3765,7 +3993,10 @@ def model_rank(comm, out_dir: str) -> dict:
     whose checkpoint holds the trained state gathered whole, bit for bit,
     and whose one-process f32 ``Predictor`` answers as the same checkpoint
     sharded over the mesh does; both gates with ``dec0``'s ``w1`` gathered
-    (rows 1m and 4m). Returns the rank's record, its main-path launches
+    (rows 1m and 4m). The same per model for MTAN ``fold_tasks`` and basic
+    ``fold_tail`` (``MODEL_MODELS``), the folded MTAN's ``Predictor(8,
+    mesh=)``, and both task-axis gates with their sharded weights gathered
+    (rows 1bm and 4bm). Returns the rank's record, its main-path launches
     under ``launches``."""
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
@@ -3797,7 +4028,11 @@ def model_rank(comm, out_dir: str) -> dict:
     launches = {name: 0 for name in kernels.KERNELS}
     b4 = "fused_attention_gate_train_ranks" if replicas is not None else \
         "fused_attention_gate_train"
-    per_step = {"mtan": {b4: 16, "confusion_matrix": 1}, "basic": PER_TRAIN_STEP["basic"]}
+    b4_tasks = "fused_attention_gate_train_ranks" if replicas is not None else \
+        "fused_attention_gate_train_tasks"
+    per_step = {"mtan": {b4: 16, "confusion_matrix": 1}, "basic": PER_TRAIN_STEP["basic"],
+                "mtan_fold_tasks": {b4_tasks: 8, "confusion_matrix": 1},
+                "basic_fold_tail": PER_TRAIN_STEP["basic_fold_tail"]}
 
     def add(counts):
         for k, v in counts.items():
@@ -3807,7 +4042,8 @@ def model_rank(comm, out_dir: str) -> dict:
     bf16_batches = [mesh.block(b) for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
     for name in MODEL_MODELS:
         per = per_step[name]
-        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+        base, options = model_variant(name)
+        model = build_model(base, cfg, dtype=torch.float32, device=dev, seed=0, **options)
         state = create_train_state(model, LR, device=dev)
         one_process_bytes = 3 * 4 * param_count(state)
         state = shard_state(state, mesh)
@@ -3830,7 +4066,7 @@ def model_rank(comm, out_dir: str) -> dict:
         rank_bytes = state_bytes(state)
         del model, state, grads
 
-        model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        model = build_model(base, cfg, dtype=torch.bfloat16, device=dev, seed=0, **options)
         state = shard_state(create_train_state(model, LR, device=dev), mesh)
         n_steps = 1 + MODEL_BF16_STEPS
         events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
@@ -3903,6 +4139,20 @@ def model_rank(comm, out_dir: str) -> dict:
         fail(f"model-axis Predictor rank {rank}: launches {pred_counts}")
     out["predictor"] = {**held_answer(answer, ref, "Predictor"), "launches": pred_counts}
     del model
+    # the same with fold_tasks: its seeded weights are the unfolded ones, so
+    # the one-process answer is the same
+    model = shard_model(build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0,
+                                    fold_tasks=True).eval(), mesh)
+    kernels.reset_launch_counts()
+    answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
+    torch.cuda.synchronize()
+    pred_counts = kernels.launch_counts()
+    add(pred_counts)
+    if pred_counts != expected(kernels, PER_FORWARD["mtan_folded"], 1):
+        fail(f"model-axis fold_tasks Predictor rank {rank}: launches {pred_counts}")
+    out["predictor_fold_tasks"] = {**held_answer(answer, ref, "fold_tasks Predictor"),
+                                   "launches": pred_counts}
+    del model
 
     # the training CLI over the mesh: its checkpoint is the trained state
     # gathered whole, and serves in one process as over the mesh
@@ -3936,6 +4186,8 @@ def model_rank(comm, out_dir: str) -> dict:
     out["cli"] = cli
     del one, sharded
     out["gates_dec0_w1_gathered"] = model_gate_times(fused_gate, fused_gate_train, mesh, dev)
+    out["task_gates_weights_gathered"] = model_task_gate_times(fused_gate, fused_gate_train,
+                                                               mesh, dev)
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t0
     return out
@@ -4110,22 +4362,28 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
     ref_loss = float(losses["loss"])
     del model, state
     refs = {"mtan": (ref_grads, ref_loss)}
-    for name in dict.fromkeys(SPATIAL_MODELS + MODEL_MODELS):
-        if name in refs:
+    cases = {**{name: (name, cfg.height) for name in SPATIAL_MODELS + MODEL_MODELS},
+             **SPATIAL_UNEVEN}
+    for case, (name, rows) in cases.items():
+        if case in refs:
             continue
-        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+        base, options = model_variant(name)
+        model = build_model(base, cfg, dtype=torch.float32, device=dev, seed=0, **options)
         state = create_train_state(model, LR, device=dev)
-        _, _, losses = make_train_step(device=dev)(state, batch,
+        _, _, losses = make_train_step(device=dev)(state, first_rows(batch, rows),
                                                    init_metrics(cfg.num_classes, dev))
-        refs[name] = ({k: p.grad.double().cpu() for k, p in model.named_parameters()},
+        refs[case] = ({k: p.grad.double().cpu() for k, p in model.named_parameters()},
                       float(losses["loss"]))
         del model, state
     # the seeded weights as built, as each rank builds them
-    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval()
     imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
-    ref_pred = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, device=dev)(imgs)
-    np.savez(os.path.join(PARALLEL_DIR, "predictor_ref.npz"), **ref_pred)
-    del model
+    for case, (name, rows) in {"": ("mtan", cfg.height), **SPATIAL_UNEVEN}.items():
+        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0).eval()
+        ref_pred = Predictor(model, BATCH, rows, cfg.width, dtype=np.uint8, device=dev)(
+            np.ascontiguousarray(imgs[:, :rows]))
+        np.savez(os.path.join(PARALLEL_DIR, f"predictor_ref{'_' if case else ''}{case}.npz"),
+                 **ref_pred)
+        del model
     ref_s = time.perf_counter() - t_start
 
     port, world = free_port(), parallel_world()
@@ -4160,8 +4418,12 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
     def held(tag: str, path: str, name: str) -> dict:
         got = torch.load(os.path.join(PARALLEL_DIR, path))
         want_grads, want_loss = refs[name]
-        limits = f32_limits[name]
-        whole, per_leaf = grad_distance(got["grads"], want_grads)
+        limits = f32_limits[cases[name][0].partition("_")[0]]
+
+        def tasked(grads):  # fold_tasks' leaves under ZERO_GRAD's per-task names
+            return {k.replace("_folded.", "_task0."): v for k, v in grads.items()}
+
+        whole, per_leaf = grad_distance(tasked(got["grads"]), tasked(want_grads))
         worst = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:3]
         if not whole <= limits["rel_l2_limit"] or not worst[0][1] <= limits["leaf_limit"]:
             fail(f"{tag} f32 step: gradients off the one-process step by {whole} (worst "
@@ -4222,6 +4484,21 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
             } for name in SPATIAL_MODELS},
             "gate_train_staged_per_step": {k: sp[0]["gate_train_staged"][k] for k in
                                            ("ms", "plain_ms", "bound_ms", "bound_by", "err")},
+            "levels_that_do_not_split": {case: {
+                **{k: sp[0][case][k] for k in ("height", "rows_per_rank", "whole_levels",
+                                               "all_reduces_per_step")},
+                "f32_step": {**held(f"spatial {case}", f"spatial_{case}_f32_grads.pt", case),
+                             "launches_per_rank": sp[0][case]["f32"]["launches"]},
+                "bf16_steps": {"steps": sp[0][case]["bf16"]["steps"],
+                               "step_ms_p50_ranks": [r[case]["bf16"]["step_ms_p50"] for r in sp],
+                               "losses": sp[0][case]["bf16"]["losses"],
+                               "launches_per_rank": sp[0][case]["bf16"]["launches"],
+                               "params_and_moments_equal_across_ranks": True},
+                "predictor_per_rank": [r[case]["predictor"] for r in sp],
+                **{k: sp[0][case][k] for k in ("conv3x3_small_row_blocks", "gate_train_staged")
+                   if k in sp[0][case]},
+                "case_s_per_rank": [r[case]["case_s"] for r in sp],
+            } for case in SPATIAL_UNEVEN},
             "predictor": sp[0]["predictor"],
             "cli": {k: sp[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
             "launches": launches["spatial"],
@@ -4249,7 +4526,7 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
                     mx[0][name]["model_group_collectives_per_step"],
                 "bf16_steps": {"steps": mx[0][name]["bf16"]["steps"],
                                "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in mx],
-                               "step_ms_p50_one_process": one_process_p50[name],
+                               "step_ms_p50_one_process": one_process_p50.get(name),
                                "losses": mx[0][name]["bf16"]["losses"],
                                "launches_per_rank": mx[0][name]["bf16"]["launches"],
                                "replicated_equal_across_ranks": True,
@@ -4257,9 +4534,11 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
                                    mx[0][name]["bf16"]["sharded_equal_across_data_ranks"]},
             } for name in MODEL_MODELS},
             "predictor": mx[0]["predictor"],
+            "predictor_fold_tasks": mx[0]["predictor_fold_tasks"],
             "cli": {k: mx[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths",
                                                   "checkpoint")},
             "gates_dec0_w1_gathered": mx[0]["gates_dec0_w1_gathered"],
+            "task_gates_weights_gathered": mx[0]["task_gates_weights_gathered"],
             "launches": launches["model_axis"],
             "rank_phase_s": [r["phase_s"] for r in mx],
         }

@@ -304,9 +304,9 @@ def test_unported_flags_exit_naming_their_roadmap_item(flag, monkeypatch):
     """A flag whose feature is not ported exits before anything is built.
     Every mesh axis is ported now: ``--mesh_shape`` with a model axis, and
     ``--device cpu:4`` with one beside the spatial axis, pass the CLI's
-    checks and reach the launch of the ranks; beside ``--fold_tasks``
-    (mtan) or ``--fold_tail`` (basic), whose leaves the model axis does not
-    lay out yet, they exit before any rank starts naming ROADMAP A10d."""
+    checks and reach the launch of the ranks, and so they do beside
+    ``--fold_tasks`` (mtan) or ``--fold_tail`` (basic), whose leaves the
+    model axis shards as JAX does."""
     values = {"backbone_weights": "imagenet", "remat_tail": "2",
               "mesh_shape": "model:2 --device cpu:2 --model_name mtan",
               "log_param_histograms_every": "25",
@@ -316,16 +316,15 @@ def test_unported_flags_exit_naming_their_roadmap_item(flag, monkeypatch):
     monkeypatch.setattr(training, "create_tools", None)  # nothing may be set up
     monkeypatch.setattr(training.multihost, "launch_local_ranks", None)
     if flag in folded:
-        with pytest.raises(SystemExit, match=r"ROADMAP\.md A10d"):
-            training.main(argv + [folded[flag], "--dataset_name", "synthetic"])
 
         def launch(module, launched_argv, world):
             raise SystemExit(f"launched {world} ranks")
 
         monkeypatch.setattr(training.multihost, "launch_local_ranks", launch)
         world = 2 if flag == "mesh_shape" else 4
-        with pytest.raises(SystemExit, match=f"launched {world} ranks"):
-            training.main(argv + ["--dataset_name", "synthetic"])
+        for extra in ([folded[flag]], []):
+            with pytest.raises(SystemExit, match=f"launched {world} ranks"):
+                training.main(argv + extra + ["--dataset_name", "synthetic"])
         return
     with pytest.raises(SystemExit, match=r"ROADMAP\.md A\d+"):
         training.main(argv + ["--dataset_name", "synthetic"])

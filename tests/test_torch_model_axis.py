@@ -27,7 +27,12 @@ one torch thread, f32, tiny shapes. Held here:
     restored into one process and back under ``model:2``;
   * ``run_pipe``, the predict sweep, ``Predictor`` and
     ``BatchingServer(mesh=)`` under ``data:1,model:2`` against one process;
-  * the refusals of ``fold_tasks`` and ``fold_tail`` (ROADMAP A10d).
+  * the options' layouts: ``fold_tasks`` (MTAN's task-stacked leaves) and
+    ``fold_tail`` (basic's folded tail) against JAX's at full width (29 and
+    21 leaves) and at ``min_size=0``; a sliced ``FoldedConv`` against the
+    whole one; their train steps under ``data:2,model:2``; MTAN
+    ``fold_tasks``' predict-eval against JAX's under the same mesh; their
+    checkpoints, ``fold_task_state_dict`` and ``Predictor(mesh=)``.
 """
 
 import argparse
@@ -45,7 +50,9 @@ import jax.numpy as jnp
 
 from vision_mtl_tpu.metrics import compute_metrics as jax_compute_metrics
 from vision_mtl_tpu.metrics import init_metrics as jax_init_metrics
+from vision_mtl_tpu.cfg import fetch_data_cfg as jax_data_cfg
 from vision_mtl_tpu.models.mtan import MTANMiniUnet as JaxMTAN
+from vision_mtl_tpu.models.registry import build_model as jax_build_model
 from vision_mtl_tpu.parallel import mesh as jax_mesh
 from vision_mtl_tpu.train.step import make_predict_eval_step as jax_predict_eval_step
 from vision_mtl_tpu_torch.cfg import fetch_data_cfg
@@ -53,7 +60,8 @@ from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics, reduce_m
 from vision_mtl_tpu_torch.models import blocks
 from vision_mtl_tpu_torch.models.basic import BasicMTLModel
 from vision_mtl_tpu_torch.models.cross_stitch import CSNet
-from vision_mtl_tpu_torch.models.mtan import GateChain, MTANMiniUnet
+from vision_mtl_tpu_torch.models.mtan import GateChain, MTANMiniUnet, fold_task_state_dict
+from vision_mtl_tpu_torch.ops import fold
 from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.parallel import mesh, multihost
 from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup, global_batch
@@ -160,12 +168,23 @@ def test_param_shardings_match_jax_at_full_width(name, size):
         assert "dec_attn_0_task0.GateChain_0.w1" in mesh.model_slices(model)
 
 
+#: basic's width under ``fold_tail``: its folded block's two kernels (2
+#: outputs) are sharded at ``min_size=0``
+FOLD_TAIL_WIDTH = 32
+
+
 def _tiny(name, dtype=torch.float32, **kw):
+    """The tests' tiny model ``name``; a name ``model_option`` (``mtan_fold_tasks``,
+    ``basic_fold_tail``) turns the option on."""
+    name, _, option = name.partition("_")
+    if option:
+        kw[option] = True
     if name == "mtan":
         model = MTANMiniUnet(TASKS, dtype=dtype, seed=0, **MTAN_KW, **kw)
     elif name == "basic":
-        model = BasicMTLModel(NC, decoder_first_channel=16, num_decoder_layers=5, dtype=dtype,
-                              seed=0, **kw)
+        width = FOLD_TAIL_WIDTH if kw.get("fold_tail") else 16
+        model = BasicMTLModel(NC, decoder_first_channel=width, num_decoder_layers=5,
+                              dtype=dtype, seed=0, **kw)
     else:
         model = CSNet(TASKS, decoder_first_channel=16, num_decoder_layers=5, dtype=dtype, seed=0,
                       **kw)
@@ -238,9 +257,16 @@ def _op_gate(train):
     return make
 
 
+def _op_folded_conv():  # fold_tail's conv: 4 outputs, its input two folded groups
+    conv = blocks.FoldedConv(6, 4, (3, 3), in_splits=(2, 4), dtype=torch.float32)
+    return conv, lambda m, x: m(torch.cat([fold.space_to_depth(x[..., :2]),
+                                           fold.space_to_depth(x[..., 2:])], -1))
+
+
 OPS = {"conv3x3": _op_conv3x3, "conv1x1": _op_conv1x1, "depthwise": _op_depthwise,
        "conv_transpose": _op_conv_transpose, "squeeze_excite": _op_squeeze_excite,
-       "b3_slice": _op_small_conv_slice, "gate_b1": _op_gate(False), "gate_b4": _op_gate(True)}
+       "b3_slice": _op_small_conv_slice, "gate_b1": _op_gate(False), "gate_b4": _op_gate(True),
+       "folded_conv": _op_folded_conv}
 
 
 @pytest.mark.parametrize("name", list(OPS))
@@ -284,6 +310,8 @@ def test_sharded_op_matches_unsharded(name, monkeypatch):
             _close(grads[k], g, k)
     if name == "b3_slice":
         assert sliced == {"weight": (10, 6, 3, 3)}
+    if name == "folded_conv":  # each rank folds 2 of the 4 outputs' kernels
+        assert sliced == {"weight": (2, 6, 3, 3)}
     if name.startswith("gate"):
         assert sliced == {"w1": (6, 4), "w2": (8, 3)}
 
@@ -325,8 +353,8 @@ def _eval_batch(rng, n=4, hw=(32, 16)):
     }
 
 
-def _predict_eval_on(m, variables, batch):
-    model = MTANMiniUnet(TASKS, dtype=torch.float32, **MTAN_KW)
+def _predict_eval_on(m, variables, batch, fold_tasks=False):
+    model = MTANMiniUnet(TASKS, dtype=torch.float32, fold_tasks=fold_tasks, **MTAN_KW)
     load_jax_variables(model, variables)
     if m is not None:
         mesh.shard_model(model, m, min_size=0)
@@ -391,7 +419,8 @@ def test_mtan_predict_eval_under_the_model_axis(spec):
 # ---- one train step of each model under data:2,model:2 ----------------------------
 
 #: model -> (global batch, H, W), as the spatial axis's tests take them
-TRAIN_CASES = {"mtan": (4, 16, 16), "basic": (4, 64, 32), "csnet": (4, 64, 16)}
+TRAIN_CASES = {"mtan": (4, 16, 16), "basic": (4, 64, 32), "csnet": (4, 64, 16),
+               "mtan_fold_tasks": (4, 16, 16), "basic_fold_tail": (4, 32, 32)}
 #: loss (relative), the gathered gradient (relative L2 over every leaf),
 #: the running statistics (absolute, against values about 1: rows counted
 #: twice would move a running variance by 0.1 var / 2n, 2e-5 for basic's
@@ -434,7 +463,10 @@ def test_train_step_over_data_and_model_matches_one_process(name):
     confusion counts reduced over the replica group. Every replicated leaf
     (parameters and Adam moments) holds the same bits on all four ranks;
     each sharded leaf and its moments the same bits on the two data ranks
-    of its slice, and its slices tile the one-process leaf's shape."""
+    of its slice, and its slices tile the one-process leaf's shape. Under
+    ``fold_tasks`` the task-stacked leaves are sharded one dim further on
+    and the (T, C) vectors are gathered whole; under ``fold_tail`` the
+    folded block's convs compute their slices of the folded outputs."""
     n, *hw = TRAIN_CASES[name]
     rng = np.random.default_rng(13)
     batch = {"img": torch.from_numpy(rng.uniform(size=(n, *hw, 3))),
@@ -648,17 +680,134 @@ def test_run_pipe_predict_and_serving_over_the_model_axis_match_one_process(monk
         np.testing.assert_allclose(answer["depth"], want[4]["depth"][i], rtol=0, atol=1e-6)
 
 
-# ---- the refusals ----------------------------------------------------------------------
+# ---- the model options: fold_tasks and fold_tail ----------------------------------
+
+#: option -> leaves JAX shards at Cityscapes' full width under model:2
+FOLDED_FULL_WIDTH = {"mtan_fold_tasks": 29, "basic_fold_tail": 21}
 
 
-@pytest.mark.parametrize("name,option", [("mtan", "fold_tasks"), ("basic", "fold_tail")])
-def test_folded_options_under_the_model_axis_are_refused(name, option):
-    """``fold_tasks`` (MTAN's task-stacked leaves) and ``fold_tail``
-    (basic's folded tail) under ``model:2`` exit naming ROADMAP A10d before
-    any leaf is cut; ``model:1`` places them as they are."""
-    model = _tiny(name, **{option: True})
-    with pytest.raises(SystemExit, match=rf"{option} .*ROADMAP\.md A10d"):
-        mesh.shard_model(model, mesh.Mesh({"model": 2}, multihost.Comm(0, 2)), 0)
-    assert not mesh.model_slices(model)
-    assert mesh.shard_model(model, mesh.Mesh({"data": 2, "model": 1},
-                                             multihost.Comm(0, 2)), 0) is model
+@pytest.mark.parametrize("name", list(FOLDED_FULL_WIDTH))
+def test_folded_options_are_placed_as_jax_places_them(name):
+    """``fold_tasks`` (MTAN) and ``fold_tail`` (basic) under the model axis:
+    at Cityscapes' full width the port shards exactly the leaves that JAX's
+    ``param_shardings`` shards in JAX's own tree of the option
+    (``jax.eval_shape`` of its registry's model; 29 and 21 leaves at
+    ``model:2``); at the tests' tiny width with ``min_size=0``, at
+    ``model:2`` and ``model:4``, as JAX shards the bridge's tree (the
+    task-stacked (T, C) vectors and the folded block's kernels too); and
+    ``shard_model`` cuts each of them on that dim."""
+    model_name, _, option = name.partition("_")
+    args = argparse.Namespace(model_name=model_name, **{option: True})
+    jmodel = jax_build_model(args, jax_data_cfg("cityscapes"), dtype=jnp.float32)
+    # the leaves' shapes do not depend on the image's: trace a small one
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)),
+                                                train=False))
+    model = build_model(model_name, fetch_data_cfg("cityscapes"), dtype=torch.float32,
+                        device="cpu", **{option: True})
+    want = _jax_sharded(shapes["params"], 2)
+    assert _port_sharded(model, 2) == want and len(want) == FOLDED_FULL_WIDTH[name]
+    tiny = _tiny(name)
+    params = jax_variables_from_model(tiny)["params"]
+    for size in (2, 4):
+        assert _port_sharded(tiny, size, 0) == _jax_sharded(params, size, 0), size
+    layout = mesh.param_shardings(tiny, mesh.Mesh({"model": 2}, multihost.Comm(0, 2)), 0)
+    whole = {k: tuple(p.shape) for k, p in tiny.named_parameters()}
+    mesh.shard_model(tiny, mesh.Mesh({"model": 2}, multihost.Comm(1, 2)), 0)
+    slices = mesh.model_slices(tiny)
+    assert {k for k, d in layout.items() if d is not None} == set(slices)
+    for k, sl in slices.items():
+        assert sl.dim == layout[k] and sl.shape == whole[k]
+        assert tiny.get_parameter(k).shape[sl.dim] * 2 == whole[k][sl.dim]
+
+
+def _folded_state(name, m=None):
+    state = create_train_state(_tiny(name), 1e-3, device="cpu")
+    return mesh.shard_state(state, m, 0) if m is not None else state
+
+
+@pytest.mark.parametrize("name", list(FOLDED_FULL_WIDTH))
+def test_folded_checkpoints_and_serving_under_the_model_axis(name, tmp_path):
+    """A folded state after one Adam step, sharded under ``data:1,model:2``
+    (``min_size=0``): each rank's epoch checkpoint is the one-process
+    folded checkpoint bit for bit, and restores into one process; a sharded
+    eval copy answers through ``Predictor(mesh=)`` as one process's does
+    (ids exactly, depth within 1e-6). For ``fold_tasks`` an unfolded
+    model's weights, converted by ``fold_task_state_dict``, restore into
+    the sharded folded model as its slices, and gather back whole."""
+    from vision_mtl_tpu_torch.serving import Predictor
+
+    n, h, w = TRAIN_CASES[name]
+    rng = np.random.default_rng(4)
+    batch = {"img": torch.from_numpy(rng.uniform(size=(n, h, w, 3)).astype(np.float32)),
+             "mask": torch.from_numpy(rng.integers(0, NC, (n, h, w)).astype(np.int32)),
+             "depth": torch.from_numpy(rng.uniform(0.1, 1, (n, h, w, 1)).astype(np.float32))}
+    state = _folded_state(name)
+    make_train_step(device="cpu")(state, batch, init_metrics(NC, "cpu"))
+    sched = ReduceLROnPlateau(patience=2, factor=0.9)
+    one = str(tmp_path / "one")
+    checkpoint.save_ckpt(state, sched, 0, one)
+    want = _saved(one, "epoch")
+    imgs = batch["img"][:3].numpy()
+    served = Predictor(copy.deepcopy(state.model).eval(), 4, h, w, device="cpu")(imgs)
+    unfolded = _tiny(name.partition("_")[0]) if name == "mtan_fold_tasks" else None
+
+    def rank(m):
+        mine = str(tmp_path / f"rank{m.rank}")
+        sharded = mesh.shard_state(copy.deepcopy(state), m, 0)
+        checkpoint.save_ckpt(sharded, sched, 0, mine)
+        got = Predictor(copy.deepcopy(sharded.model).eval(), 4, h, w, mesh=m)(imgs)
+        converted = None
+        if unfolded is not None:
+            mesh.load_full_state_dict(sharded.model, fold_task_state_dict(
+                unfolded.state_dict(), len(TASKS)))
+            converted = mesh.full_state_dict(sharded.model)
+        return mine, len(mesh.model_slices(sharded.model)), got, converted
+
+    for mine, n_sliced, got, converted in on_mesh(rank, "data:1,model:2"):
+        assert n_sliced > 0
+        _same_tree(_saved(mine, "epoch"), want)
+        np.testing.assert_array_equal(got["segm"], served["segm"])
+        np.testing.assert_allclose(got["depth"], served["depth"], rtol=0, atol=1e-6)
+        if converted is not None:
+            _same_tree(converted, fold_task_state_dict(unfolded.state_dict(), len(TASKS)))
+    back = _folded_state(name)
+    checkpoint.restore_session(back, ReduceLROnPlateau(), str(tmp_path / "rank1"))
+    _same_tree(back.model.state_dict(), state.model.state_dict())
+    _same_tree(back.optimizer.state_dict(), state.optimizer.state_dict())
+
+
+def test_mtan_fold_tasks_predict_eval_under_the_model_axis_matches_jax():
+    """MTAN ``fold_tasks``' predict-eval step under ``data:2,model:2`` with
+    every leaf that JAX's rule shards at ``min_size=0`` sharded, against
+    JAX's ``fold_tasks`` step under ``create_mesh("data:2,model:2")`` with
+    its parameters placed by JAX's ``param_shardings(min_size=0)``, on
+    JAX's own ``eval_shape`` tree: the layout JAX's, predictions whole on
+    every rank (depth within 1e-5, ids equal), the confusion counts exact,
+    losses and metrics within 1e-5 relative."""
+    rng = np.random.default_rng(12)
+    batch = _eval_batch(rng)
+    jmodel = JaxMTAN(map_tasks_to_num_channels=TASKS, dtype=jnp.float32, fold_tasks=True,
+                     **MTAN_KW)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), jnp.asarray(batch["img"]),
+                                                train=False))
+    variables = {coll: _fill(tree, rng, coll) for coll, tree in shapes.items()}
+    assert _port_sharded(_tiny("mtan_fold_tasks"), 2, 0) == _jax_sharded(shapes["params"], 2, 0)
+    jm = jax_mesh.create_mesh("data:2,model:2", jax.devices()[:4])
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    params = jax.device_put(params, jax_mesh.param_shardings(jm, params, 0))
+    state = _State(params, jax.tree.map(jnp.asarray, variables["batch_stats"]))
+    jpreds, jmstate, jlosses = jax_predict_eval_step(jmodel, mesh=jm)(
+        state, jax_mesh.put_batch(batch, jm), jax_init_metrics(NC))
+    want_preds = {k: np.asarray(v) for k, v in jax.device_get(jpreds).items()}
+    want_metrics = {k: float(v) for k, v in jax_compute_metrics(jmstate).items()}
+    got = on_mesh(lambda m: _predict_eval_on(m, variables, batch, fold_tasks=True),
+                  "data:2,model:2")
+    for preds, mstate, losses in got:
+        np.testing.assert_array_equal(preds["segm"].numpy(), want_preds["segm"])
+        np.testing.assert_allclose(preds["depth"].numpy(), want_preds["depth"], rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(mstate.confmat.numpy(), np.asarray(jmstate.confmat))
+        for k, v in losses.items():
+            assert v == pytest.approx(float(jlosses[k]), rel=1e-5), k
+        for k, v in compute_metrics(mstate).items():
+            assert float(v) == pytest.approx(want_metrics[k], rel=1e-5, abs=1e-7), k

@@ -18,9 +18,14 @@ one torch thread, f32, tiny shapes. Held here:
     remat_attention, whose recompute runs the halo'd convs again) under
     ``data:2,spatial:2`` against the port's
     one-process step, with every rank's updated weights bit for bit equal;
-  * B4's plain split over data x spatial ranks, the refusals, the
-    full-batch loading mode against JAX's, and ``Predictor`` /
-    ``BatchingServer(mesh=)`` against one process;
+  * levels whose rows do not split, which run whole on every rank: tiny
+    MTAN at 12 rows under ``data:2,spatial:2`` (its bottleneck 3 rows)
+    against JAX's train-mode loss, gradients and metrics under the same
+    mesh; basic and CSNet at 32 rows (their coarsest level 1 row) and MTAN
+    ``fold_tasks`` beside the ``model`` axis, f64 steps against one process;
+  * B4's plain split over data x spatial ranks, the CLI's checks (JAX's
+    height rule), the full-batch loading mode against JAX's, and
+    ``Predictor`` / ``BatchingServer(mesh=)`` against one process;
   * the epoch loop and the predict sweep in process, then the CLI through
     its launcher as four processes (``--device cpu:4``): a preemption on
     one rank, its exit 143, and the resume.
@@ -45,9 +50,11 @@ from vision_mtl_tpu.data import loader as jax_loader
 from vision_mtl_tpu.data.synthetic import SyntheticMTLDataset as JaxSynthetic
 from vision_mtl_tpu.metrics import compute_metrics as jax_compute_metrics
 from vision_mtl_tpu.metrics import init_metrics as jax_init_metrics
+from vision_mtl_tpu.metrics import update_metrics as jax_update_metrics
 from vision_mtl_tpu.models.mtan import MTANMiniUnet as JaxMTAN
 from vision_mtl_tpu.parallel import mesh as jax_mesh
 from vision_mtl_tpu.parallel import multihost as jax_multihost
+from vision_mtl_tpu.train import step as jax_step
 from vision_mtl_tpu.train.step import make_predict_eval_step as jax_predict_eval_step
 from vision_mtl_tpu_torch import training
 from vision_mtl_tpu_torch.data import loader
@@ -59,7 +66,6 @@ from vision_mtl_tpu_torch.models import blocks
 from vision_mtl_tpu_torch.models.basic import BasicMTLModel
 from vision_mtl_tpu_torch.models.cross_stitch import CSNet
 from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
-from vision_mtl_tpu_torch.models.registry import row_stride
 from vision_mtl_tpu_torch.ops import fold, interpolate
 from vision_mtl_tpu_torch.parallel import halo, mesh, multihost
 from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup
@@ -372,15 +378,17 @@ def test_mtan_predict_eval_matches_jax_under_data_and_spatial():
 # ---- one train step of each model under data:2,spatial:2 --------------------------
 
 
-def _build(name: str):
+def _build(name: str, dtype: torch.dtype = torch.float32):
     if name.startswith("mtan"):
-        return MTANMiniUnet(TASKS, dtype=torch.float32, seed=0, fold_tasks="fold" in name,
-                            remat_attention="remat" in name, **MTAN_KW)
-    if name.startswith("basic"):
-        return BasicMTLModel(NC, decoder_first_channel=16, num_decoder_layers=5,
-                             fold_tail="fold" in name, dtype=torch.float32, seed=0)
-    return CSNet(TASKS, decoder_first_channel=16, num_decoder_layers=5, dtype=torch.float32,
-                 seed=0)
+        model = MTANMiniUnet(TASKS, dtype=dtype, seed=0, fold_tasks="fold" in name,
+                             remat_attention="remat" in name, **MTAN_KW)
+    elif name.startswith("basic"):
+        model = BasicMTLModel(NC, decoder_first_channel=16, num_decoder_layers=5,
+                              fold_tail="fold" in name, dtype=dtype, seed=0)
+    else:
+        model = CSNet(TASKS, decoder_first_channel=16, num_decoder_layers=5, dtype=dtype,
+                      seed=0)
+    return model.to(dtype)
 
 
 def _train_batch(n, hw):
@@ -435,6 +443,138 @@ def test_train_step_over_data_and_spatial_matches_one_process(name):
         assert torch.equal(weights.view(torch.int32), got[0][3].view(torch.int32))
 
 
+# ---- levels whose rows do not split -----------------------------------------------
+
+
+def test_mtan_step_over_levels_that_do_not_split_matches_jax():
+    """Tiny MTAN (two levels) at 12x16 under ``data:2,spatial:2``: level 0
+    holds 6 rows a rank, level 1 3, and the bottleneck's 3 rows do not split
+    over 2 ranks, so it runs whole on both ranks of each spatial group
+    (``halo.first_whole_level``). Against JAX's train-mode forward and
+    gradient (``value_and_grad`` of its step's ``_forward_and_losses``,
+    jitted) under ``create_mesh("data:2,spatial:2")`` on ``put_batch``'s
+    sharded batch, where GSPMD pads the bottleneck: the loss within 1e-4 and
+    the metrics within 1e-5 relative (``tests/test_spatial_sharding.py``),
+    each gradient leaf within ``GRAD_RTOL`` of its largest magnitude plus
+    ``GRAD_ATOL`` of the model's largest gradient, the running statistics
+    within 1e-5; every rank's weights after Adam bit for bit equal."""
+    jmodel = JaxMTAN(map_tasks_to_num_channels=TASKS, dtype=jnp.float32, **MTAN_KW)
+    rng = np.random.default_rng(17)
+    batch = {k: v for k, v in _eval_batch(rng, hw=(12, 16)).items() if k != "valid"}
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), jnp.asarray(batch["img"]),
+                                                train=False))
+    variables = {coll: _fill(tree, rng, coll) for coll, tree in shapes.items()}
+    assert halo.first_whole_level(12 // 2) == 2
+
+    def loss_fn(params, batch_stats, b):
+        losses, post, new_stats = jax_step._forward_and_losses(
+            jmodel, params, batch_stats, b, True, 1.0, 1.0)
+        return losses["loss"], (losses, post, new_stats)
+
+    @jax.jit
+    def reference(params, batch_stats, b):
+        (_, (losses, post, new_stats)), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            params, batch_stats, b)
+        mstate = jax_update_metrics(jax_init_metrics(NC), post["segm_predictions"], b["mask"],
+                                    post["depth_predictions"], b["depth"], losses)
+        return losses, grads, new_stats, jax_compute_metrics(mstate)
+
+    jm = jax_mesh.create_mesh("data:2,spatial:2", jax.devices()[:4])
+    jlosses, jgrads, jstats, jmetrics = reference(
+        variables["params"], variables["batch_stats"], jax_mesh.put_batch(batch, jm))
+    want_metrics = {k: float(v) for k, v in jmetrics.items()}
+
+    def twin(tree):
+        model = MTANMiniUnet(TASKS, dtype=torch.float32, **MTAN_KW)
+        load_jax_variables(model, jax.device_get(tree))
+        return model
+
+    want_grads = dict(twin({"params": jgrads, "batch_stats": jstats}).named_parameters())
+    want_stats = dict(twin({"params": variables["params"], "batch_stats": jstats}).named_buffers())
+
+    def rank(m):
+        model = twin(variables)
+        state = create_train_state(model, 1e-3, device="cpu")
+        block = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in m.block(batch).items()}
+        _, mstate, losses = make_train_step(device="cpu", mesh=m)(
+            state, block, init_metrics(NC, "cpu"))
+        mstate = reduce_metrics(mstate, m.comm)
+        return (float(losses["loss"]), {k: float(v) for k, v in compute_metrics(mstate).items()},
+                {k: p.grad for k, p in model.named_parameters()}, dict(model.named_buffers()),
+                torch.cat([p.detach().reshape(-1) for p in model.parameters()]))
+
+    got = on_mesh(rank, "data:2,spatial:2")
+    top = max(float(g.detach().abs().max()) for g in want_grads.values())
+    for loss, metrics_, grads, stats, weights in got:
+        assert loss == pytest.approx(float(jlosses["loss"]), rel=1e-4)
+        for k in ("accuracy", "jaccard_index", "fbeta_score", "mae"):
+            assert metrics_[k] == pytest.approx(want_metrics[k], rel=1e-5), k
+        for k, w in want_grads.items():
+            err = float((grads[k] - w.detach()).abs().max())
+            assert err <= GRAD_RTOL * float(w.detach().abs().max()) + GRAD_ATOL * top, (k, err)
+        for k, v in want_stats.items():
+            np.testing.assert_allclose(stats[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        assert torch.equal(weights.view(torch.int32), got[0][4].view(torch.int32))
+
+
+#: case -> (model, mesh, global batch, H, W): the first level that runs
+#: whole is level 2 for MTAN at 12 rows over 2 ranks (bottleneck), 5 for
+#: basic and CSNet at 32 rows (their 1-row coarsest level)
+UNEVEN_CASES = {
+    "basic-spatial:2": ("basic", "spatial:2", 4, 32, 32),
+    "mtan_fold_tasks-spatial:2,model:2": ("mtan_fold_tasks", "spatial:2,model:2", 4, 12, 16),
+    "csnet-spatial:2": ("csnet", "spatial:2", 4, 32, 16),
+}
+#: f64: loss (relative), the gathered gradient (relative L2 over every
+#: leaf), the running statistics (absolute; torch's n/(n-1) on, so a row
+#: count off by the group's size would show)
+UNEVEN_LOSS_RTOL, UNEVEN_GRAD_REL_L2, UNEVEN_STATS_ATOL = 1e-12, 1e-10, 1e-12
+
+
+def _uneven_step(name, batch, m=None):
+    model = _build(name, torch.float64)
+    state = create_train_state(model, 1e-3, device="cpu")
+    if m is not None:
+        state = mesh.shard_state(state, m, min_size=0)
+    block = m.block(batch) if m is not None else batch
+    _, _, losses = make_train_step(device="cpu", mesh=m)(state, block, init_metrics(NC, "cpu"))
+    slices = mesh.model_slices(model)
+    grads = torch.cat([(slices[k].gather(p.grad) if k in slices else p.grad).reshape(-1)
+                       for k, p in model.named_parameters()])
+    weights = torch.cat([v.reshape(-1) for v in mesh.full_state_dict(model).values()])
+    return float(losses["loss"]), grads, dict(model.named_buffers()), weights, len(slices)
+
+
+@pytest.mark.parametrize("case", list(UNEVEN_CASES))
+def test_step_over_levels_that_do_not_split_matches_one_process(case):
+    """One f64 train step where the coarser levels' rows do not split over
+    the spatial axis (they run whole on every rank of a spatial group, the
+    batch-wide sums there over the data group alone) against the port's
+    one-process step, with torch's unbiased running variance on: the loss,
+    the gradient (gathered whole beside the ``model`` axis, ``min_size=0``),
+    the running statistics; every rank's weights, gathered whole, bit for
+    bit equal."""
+    name, spec, n, h, w = UNEVEN_CASES[case]
+    rng = np.random.default_rng(13)
+    batch = {"img": torch.from_numpy(rng.uniform(size=(n, h, w, 3))),
+             "mask": torch.from_numpy(rng.integers(0, NC, (n, h, w)).astype(np.int32)),
+             "depth": torch.from_numpy(rng.uniform(0.1, 1.0, (n, h, w, 1)))}
+    blocks.set_torch_bn_running_var(True)
+    try:
+        want = _uneven_step(name, batch)
+        got = on_mesh(lambda m: _uneven_step(name, batch, m), spec)
+    finally:
+        blocks.set_torch_bn_running_var(False)
+    for loss, grads, stats, weights, n_sliced in got:
+        assert ("model" in spec) == (n_sliced > 0)
+        assert loss == pytest.approx(want[0], rel=UNEVEN_LOSS_RTOL)
+        assert float((grads - want[1]).norm() / want[1].norm()) <= UNEVEN_GRAD_REL_L2
+        for k, v in want[2].items():
+            assert float((stats[k] - v).abs().max()) <= UNEVEN_STATS_ATOL, k
+        assert torch.equal(weights.view(torch.int64), got[0][3].view(torch.int64))
+
+
 # ---- B4, the refusals, loading, serving ------------------------------------------
 
 
@@ -481,29 +621,40 @@ def test_gate_train_plain_split_over_data_and_spatial():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh_shape", "data:2,model:2", "--model_name", "mtan", "--fold_tasks"],
-     r"fold_tasks .*ROADMAP\.md A10d"),
-    (["--mesh_shape", "spatial:4", "--model_name", "basic"],
-     r"height 64 .*spatial x 32 = 128"),
+    (["--device", "cpu:4", "--mesh_shape", "data:2,model:2", "--model_name", "mtan",
+      "--fold_tasks", "--batch_size", "4"], "launched 4 ranks"),
+    (["--device", "cpu:4", "--mesh_shape", "spatial:4", "--model_name", "basic"],
+     "launched 4 ranks"),
+    (["--device", "cpu:3", "--mesh_shape", "spatial:3", "--model_name", "basic"],
+     r"image height 64 does not divide over the spatial axis of 3: .*divisible by 3 "
+     r"\(JAX's put_batch / device_put rule\)"),
 ])
 def test_cli_refuses_the_model_axis_and_heights_that_do_not_split(monkeypatch, argv, match):
-    """Under ``--device cpu:4`` the launcher checks the mesh before it
-    starts a rank: a ``model`` axis runs (A10c), but not beside
-    ``--fold_tasks``, which names ROADMAP A10d; the synthetic set's 64 rows
-    do not split over ``spatial:4`` for basic (stride 32), which is refused
-    naming the rule; ``create_mesh`` takes ``spatial:2,model:2``, each rank
-    in a spatial group and a model group of two, its replica group the
-    spatial one."""
-    monkeypatch.setattr(multihost, "launch_local_ranks", None)  # no rank may start
+    """Under ``--device cpu:N`` the launcher checks the mesh before it
+    starts a rank: a ``model`` axis runs beside ``--fold_tasks`` and reaches
+    the launch; the synthetic set's 64 rows over ``spatial:4`` leave basic's
+    coarsest levels rows that do not split (they run whole) and reach the
+    launch; a height that the spatial axis does not divide (64 over 3) is
+    refused naming JAX's rule. ``create_mesh`` takes ``spatial:2,model:2``,
+    each rank in a spatial group and a model group of two, its replica
+    group the spatial one, no data group; under ``data:2,spatial:2`` a
+    rank's data group is the ranks of its spatial index."""
+
+    def launch(module, launched_argv, world):
+        raise SystemExit(f"launched {world} ranks")
+
+    monkeypatch.setattr(multihost, "launch_local_ranks", launch)
     with pytest.raises(SystemExit, match=match):
-        training.main(["--device", "cpu:4", "--dataset_name", "synthetic"] + argv)
+        training.main(argv + ["--dataset_name", "synthetic"])
     for m in on_mesh(lambda m: mesh.create_mesh("spatial:2,model:2", m.comm),
                      "spatial:2,model:2"):
         c = m.coords()
         assert (m.spatial_comm.rank, m.model_comm.rank) == (c["spatial"], c["model"])
         assert (m.spatial_comm.world, m.model_comm.world, m.replica_comm.world) == (2, 2, 2)
-    assert {m: row_stride(m) for m in ("mtan", "basic", "csnet")} == {
-        "mtan": 16, "basic": 32, "csnet": 32}
+        assert m.data_comm is None
+    for m in on_mesh(lambda m: mesh.create_mesh("data:2,spatial:2", m.comm),
+                     "data:2,spatial:2"):
+        assert (m.data_comm.world, m.data_comm.rank) == (2, m.coords()["data"])
 
 
 @pytest.mark.parametrize("mode", ["train", "eval"])

@@ -19,6 +19,11 @@ heads unmerged, each unfolded by ``depth_to_space``; their convs are plain
 convolutions on 4C channels, so a forward launches B3 once (block 3's 67 ->
 67). ``remat_tail`` rematerialises the last N decoder blocks and
 ``remat_encoder`` every encoder block in the backward pass.
+
+Under the mesh's ``spatial`` axis the encoder and the decoder name their
+levels (``parallel.halo``); the heads run at level 0, or under
+``fold_tail`` at the folded maps' level 1, each unfolded map cut to the
+rank's rows where that level ran whole.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from vision_mtl_tpu_torch.models.unet_decoder import (
     UnetDecoder,
     decoder_channels,
 )
+from vision_mtl_tpu_torch.parallel.halo import from_coarser, image_levels
 
 
 class Backbone(nn.Module):
@@ -80,7 +86,7 @@ class BasicMTLModel(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.segm_classes = segm_classes
-        #: the encoder's stride at its coarsest level (see ``parallel/mesh.check_rows``)
+        #: the encoder's stride at its coarsest level (``parallel.halo``'s levels)
         self.row_stride = ENCODER_STRIDE
         # the decoder folds its last block only when it is skip-less (4
         # encoder skips): the heads' layout follows the map they take
@@ -100,8 +106,8 @@ class BasicMTLModel(nn.Module):
 
     def heads(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         if self.fold_tail:
-            return {"segm": depth_to_space(self.segm_head(x)),
-                    "depth": depth_to_space(self.depth_head(x))}
+            return {name: from_coarser(x, None, lambda v, _: depth_to_space(head(v)))
+                    for name, head in (("segm", self.segm_head), ("depth", self.depth_head))}
         if not self.merge_heads:
             return {"segm": self.segm_head(x), "depth": self.depth_head(x)}
         s, d = self.segm_head.Conv_0, self.depth_head.Conv_0
@@ -113,4 +119,5 @@ class BasicMTLModel(nn.Module):
         return {"segm": merged[..., : self.segm_classes], "depth": merged[..., self.segm_classes :]}
 
     def forward(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
-        return self.heads(self.backbone(x))
+        with image_levels(x):
+            return self.heads(self.backbone(x))

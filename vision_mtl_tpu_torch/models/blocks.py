@@ -60,7 +60,14 @@ from torch import nn
 from vision_mtl_tpu_torch.kernels import small_conv as small_conv_kernel
 from vision_mtl_tpu_torch.ops import fold as fold_ops
 from vision_mtl_tpu_torch.ops import small_conv as small_conv_op
-from vision_mtl_tpu_torch.parallel.halo import halo_rows, rows_comm, spatial_rows
+from vision_mtl_tpu_torch.parallel.halo import (
+    Rows,
+    gather_rows,
+    halo_rows,
+    restore_rows,
+    rows_comm,
+    rows_state,
+)
 from vision_mtl_tpu_torch.parallel.multihost import (
     Comm,
     all_gather_exact,
@@ -100,22 +107,23 @@ _recompute = threading.local()
 
 @contextlib.contextmanager
 def _recomputing(
-    comm: t.Optional[Comm] = None, rows: t.Optional[Comm] = None
+    comm: t.Optional[Comm] = None, rows: t.Optional[Rows] = None
 ) -> t.Iterator[None]:
     before = getattr(_recompute, "active", False)
     _recompute.active = True
     try:
         # the recompute runs in the backward pass, maybe on autograd's own
-        # thread: it takes the forward's ranks and spatial group, so that it
-        # calls the same collectives in the same order on every rank
-        with global_batch(comm), spatial_rows(rows):
+        # thread: it takes the forward's ranks and row layout (its spatial
+        # group and level), so that it calls the same collectives in the
+        # same order on every rank
+        with global_batch(comm), restore_rows(rows):
             yield
     finally:
         _recompute.active = before
 
 
 def _remat_contexts() -> t.Tuple[t.ContextManager[None], t.ContextManager[None]]:
-    return contextlib.nullcontext(), _recomputing(batch_comm(), rows_comm())
+    return contextlib.nullcontext(), _recomputing(batch_comm(), rows_state())
 
 
 def checkpointed(module: nn.Module, *args: t.Any) -> t.Any:
@@ -199,9 +207,12 @@ def conv_nhwc(
     same conv runs on them with no row padding, giving this rank's output
     rows. B3 pads one row itself: it runs on x with one halo row each side,
     and its first and last output rows, which that padding made wrong, are
-    dropped."""
+    dropped. A strided conv needs an even number of rows a rank (the map's
+    first level that does not split runs whole, ``parallel.halo``)."""
     kh, kw = weight.shape[2:]
     comm = rows_comm()
+    if comm is not None and x.shape[1] % strides[0]:
+        raise ValueError(f"a stride-{strides[0]} conv on a row block of {x.shape[1]} rows")
     if small_conv:
         k = weight.permute(2, 3, 1, 0)
         if comm is None:
@@ -467,7 +478,12 @@ class FoldedConv(Conv):
     the folded kernel built at each call. The weight keeps ``Conv``'s
     unfolded (O, C, kh, kw) shape and name, so fold on or off is
     checkpoint-identical. ``in_splits``: the input is separately folded
-    groups of these channel counts, concatenated."""
+    groups of these channel counts, concatenated.
+
+    With its weight sharded over the mesh's ``model`` axis the rank folds
+    its slice of the kernel (4 O / M output channels, phase-major) and the
+    gathered slices, in (rank, phase, o) order, are put back in the whole
+    folded kernel's (phase, rank, o) order before the folded bias."""
 
     def __init__(
         self,
@@ -482,10 +498,19 @@ class FoldedConv(Conv):
         self.in_splits = in_splits
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fold_ops.folded_conv(
-            x, self.weight.permute(2, 3, 1, 0), self.bias, in_splits=self.in_splits,
+        sl = model_slice(self, "weight")
+        if sl is None:
+            return fold_ops.folded_conv(
+                x, self.weight.permute(2, 3, 1, 0), self.bias, in_splits=self.in_splits,
+                dtype=self.dtype,
+            )
+        y = fold_ops.folded_conv(
+            copy_in(x, sl.comm), self.weight.permute(2, 3, 1, 0), in_splits=self.in_splits,
             dtype=self.dtype,
         )
+        y = gather_out(y, sl.comm).unflatten(-1, (sl.count, 4, -1)).transpose(-3, -2)
+        y = y.flatten(-3)
+        return y if self.bias is None else y + fold_ops.fold_vector(self.bias).to(y.dtype)
 
 
 class FoldedBatchNorm(BatchNorm):
@@ -558,7 +583,14 @@ class DoubleConv(nn.Module):
 
 
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool2d(kernel_size=2, stride=2) NHWC; odd sizes are floored."""
+    """MaxPool2d(kernel_size=2, stride=2) NHWC; odd sizes are floored.
+
+    Inside ``parallel.halo.spatial_rows`` a row block of odd rows is the
+    level above the first whole one: the map is gathered first
+    (``halo.gather_rows``) and the pooled map is whole on every rank."""
+    comm = rows_comm()
+    if comm is not None and x.shape[1] % 2:
+        x = gather_rows(x, comm)
     return _to_nhwc(F.max_pool2d(_to_nchw(x), 2))
 
 

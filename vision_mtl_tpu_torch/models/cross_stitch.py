@@ -28,6 +28,12 @@ in a backward.
 backward pass, ``remat_tail`` the last N decoder blocks of each task's
 decoder (``blocks.checkpointed``); neither changes a parameter.
 
+Under the mesh's ``spatial`` axis the encoders and the decoders name their
+levels (``parallel.halo``; decoder block d at level ``4 - d``): where a
+decoder level splits and the level above it ran whole, the merge and the
+last block's upsample are made on the whole map and cut to the rank's rows
+(``halo.from_coarser``).
+
 Submodule names are the flax names (``encoders_{t}``, ``decoders_{t}_{d}``,
 ``heads_{t}``, ``enc_stitches_{i}``, ``dec_stitches_{i}``), so
 ``weights.load_jax_variables`` walks both trees side by side.
@@ -55,6 +61,7 @@ from vision_mtl_tpu_torch.models.unet_decoder import (
     decoder_channels,
 )
 from vision_mtl_tpu_torch.ops.interpolate import pad_concat, upsample_nearest_2x
+from vision_mtl_tpu_torch.parallel.halo import at_level, from_coarser, image_levels
 
 
 def get_joint_layer_names(num_decoder_layers: int = 5) -> t.List[str]:
@@ -126,7 +133,7 @@ class CSNet(nn.Module):
         super().__init__()
         self.task_names = list(task_channels)
         self.num_decoder_layers = num_decoder_layers
-        #: the encoders' stride at their coarsest level (``parallel/mesh.check_rows``)
+        #: the encoders' stride at their coarsest level (``parallel.halo``'s levels)
         self.row_stride = ENCODER_STRIDE
         self.remat_tail = remat_tail
         self.upsample_skips = upsample_skips
@@ -171,10 +178,17 @@ class CSNet(nn.Module):
             # a size that is not a multiple of 32 leaves the upsample a pixel
             # off the skip (the strided encoder rounds up): crop any excess,
             # pad any deficit
-            h = upsample_nearest_2x(h)[:, : skip.shape[1], : skip.shape[2]]
+            h = from_coarser(h, skip.shape[1],
+                             lambda v, rows: upsample_nearest_2x(v)[:, :rows, : skip.shape[2]])
+        else:  # the centred pad of the rows is made on the whole map
+            h = from_coarser(h, skip.shape[1], lambda v, _: v)
         return pad_concat(h, skip.to(h.dtype))
 
     def forward(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        with image_levels(x):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         n = len(self.task_names)
         encoders = [getattr(self, f"encoders_{ti}") for ti in range(n)]
         feats = [enc.run_stem(x) for enc in encoders]
@@ -188,14 +202,16 @@ class CSNet(nn.Module):
         feats = [enc.run_head(f) for enc, f in zip(encoders, feats)]
 
         for d in range(self.num_decoder_layers):
-            merged = [
-                self._merge(h, skips[ti][-d - 1]) if d < len(skips[ti]) else upsample_nearest_2x(h)
-                for ti, h in enumerate(feats)
-            ]
-            merged = getattr(self, f"dec_stitches_{d}")(merged)
-            remat = d >= self.num_decoder_layers - self.remat_tail
-            blocks = [getattr(self, f"decoders_{ti}_{d}") for ti in range(n)]
-            feats = [checkpointed(b, m) if remat else b(m) for b, m in zip(blocks, merged)]
+            with at_level(len(skips[0]) - d):
+                merged = [
+                    self._merge(h, skips[ti][-d - 1]) if d < len(skips[ti]) else
+                    from_coarser(h, None, lambda v, _: upsample_nearest_2x(v))
+                    for ti, h in enumerate(feats)
+                ]
+                merged = getattr(self, f"dec_stitches_{d}")(merged)
+                remat = d >= self.num_decoder_layers - self.remat_tail
+                blocks = [getattr(self, f"decoders_{ti}_{d}") for ti in range(n)]
+                feats = [checkpointed(b, m) if remat else b(m) for b, m in zip(blocks, merged)]
 
         return {
             name: getattr(self, f"heads_{ti}")(feats[ti])

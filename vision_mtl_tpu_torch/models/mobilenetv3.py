@@ -16,6 +16,12 @@ Submodule names are the flax names (``conv_stem``, ``_stem_bn``,
 ``remat=True`` rematerialises each inverted-residual block in the backward
 pass (``blocks.checkpointed``): only the blocks' boundaries stay live for
 the gradient. The parameters are the same either way.
+
+Under the mesh's ``spatial`` axis each part runs at its level
+(``parallel.halo.at_level``: the stem's output is level 1, each strided
+block adds one, the head is at ``NUM_LEVELS``); a strided block that goes
+down into the first level that runs whole takes the whole map
+(``halo.from_finer``).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from vision_mtl_tpu_torch.models.blocks import (
     checkpointed,
     make_divisible,
 )
+from vision_mtl_tpu_torch.parallel.halo import at_level, from_finer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +92,16 @@ STAGE_OUT_CHANNELS: t.Tuple[int, ...] = tuple(s[-1].out_ch for s in MOBILENETV3_
 # encoder feature channels at strides (1, 2, 4, 8, 16, 32) for a depth-5 Unet
 ENCODER_OUT_CHANNELS: t.Tuple[int, ...] = (3, 16, 24, 40, 112, 960)
 #: the encoder's stride at its coarsest level: the stem's 2 times each stage's
-#: (32; ``parallel/mesh.check_rows``)
+#: (32)
 ENCODER_STRIDE = 2 * math.prod(s.stride for stage in MOBILENETV3_LARGE_SPECS for s in stage)
+#: the level (the times the rows have halved) of each stage's input: the
+#: stem's output is level 1, each strided block goes one level down
+STAGE_IN_LEVEL: t.Tuple[int, ...] = tuple(
+    1 + sum(s.stride == 2 for stage in MOBILENETV3_LARGE_SPECS[:i] for s in stage)
+    for i in range(len(MOBILENETV3_LARGE_SPECS))
+)
+#: the level of the conv head: the coarsest
+NUM_LEVELS = int(math.log2(ENCODER_STRIDE))
 # stages after which a pyramid tap is taken; the /32 tap is the conv head's
 FEATURE_TAP_AFTER_STAGE: t.Tuple[int, ...] = (0, 1, 2, 4)
 
@@ -156,16 +171,24 @@ class MobileNetV3Encoder(nn.Module):
         self._head_bn = RawBatchNorm(CONV_HEAD_CH)
 
     def run_stem(self, x: torch.Tensor) -> torch.Tensor:
-        return ACTIVATIONS["hardswish"](self._stem_bn(self.conv_stem(x)))
+        with at_level(1):
+            return ACTIVATIONS["hardswish"](self._stem_bn(self.conv_stem(from_finer(x))))
 
     def run_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        for j in range(len(MOBILENETV3_LARGE_SPECS[i])):
+        level = STAGE_IN_LEVEL[i]
+        for j, spec in enumerate(MOBILENETV3_LARGE_SPECS[i]):
             block = getattr(self, f"stages_{i}_{j}")
-            x = checkpointed(block, x) if self.remat else block(x)
+            if spec.stride == 2:
+                level += 1
+            with at_level(level):
+                if spec.stride == 2:
+                    x = from_finer(x)
+                x = checkpointed(block, x) if self.remat else block(x)
         return x
 
     def run_head(self, x: torch.Tensor) -> torch.Tensor:
-        return ACTIVATIONS["hardswish"](self._head_bn(self.conv_head(x)))
+        with at_level(NUM_LEVELS):
+            return ACTIVATIONS["hardswish"](self._head_bn(self.conv_head(x)))
 
     def forward(self, x: torch.Tensor) -> t.List[torch.Tensor]:
         feats = [x]

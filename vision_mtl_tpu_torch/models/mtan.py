@@ -24,7 +24,19 @@ and statistics are stacked on that axis under ``enc_attn_{i}_folded`` /
 task-axis launch (8 per forward instead of 16); the 3x3 convs and BNs
 run task by task (:func:`task_conv_bn_relu`). :func:`fold_task_state_dict`
 converts an unfolded model's weights; a folded model drawn from a seed has
-exactly the converted weights of the unfolded one from that seed.
+exactly the converted weights of the unfolded one from that seed. Under
+the mesh's ``model`` axis a task-stacked leaf is sharded on the dim that
+holds JAX's last one (a task conv's output channels, the gate's ``w1``
+and ``w2`` on their last): each task's conv computes its slice of the
+outputs and gathers them, as ``blocks.Conv`` does, and every other
+sharded task leaf is gathered whole before use (``blocks.whole_param``).
+
+Under the mesh's ``spatial`` axis the forward names its levels
+(``parallel.halo.at_level``: encoder level i, the bottleneck at
+``num_levels``, decoder level i at ``num_levels - 1 - i``); a level whose
+rows do not split runs whole, and the decoder comes back to the rank's
+rows where they split again (``halo.from_coarser``: the transposed conv's
+output and the attention decoder's resize).
 """
 
 from __future__ import annotations
@@ -50,17 +62,20 @@ from vision_mtl_tpu_torch.models.blocks import (
     Conv,
     ConvTranspose,
     DoubleConv,
+    _add_bias,
     _uniform_,
     batch_norm_nhwc,
     checkpointed,
     conv_nhwc,
     init_weights,
     max_pool_2x,
+    model_slice,
     update_running_stats,
     whole_param,
 )
 from vision_mtl_tpu_torch.ops.interpolate import pad_concat, resize_bilinear_align_corners
-from vision_mtl_tpu_torch.parallel.multihost import batch_comm
+from vision_mtl_tpu_torch.parallel.halo import at_level, from_coarser, image_levels
+from vision_mtl_tpu_torch.parallel.multihost import batch_comm, copy_in, gather_out
 
 
 class GateChain(nn.Module):
@@ -133,7 +148,8 @@ class TaskGateChain(nn.Module):
     """:class:`GateChain` of T tasks, each parameter and statistic with a
     leading task axis; x is (T, B, H, W, Cin), shared (B, H, W, C2) every
     task's. One task-axis launch of the eval gate (B1) or of the train gate
-    (B4) for all tasks."""
+    (B4) for all tasks. Leaves sharded over the mesh's ``model`` axis are
+    gathered whole first."""
 
     def __init__(
         self, n_tasks: int, in_ch: int, hidden: int, gate_features: int, eps: float = 1e-5
@@ -152,20 +168,21 @@ class TaskGateChain(nn.Module):
     def forward(self, x: torch.Tensor, shared: torch.Tensor) -> torch.Tensor:
         x = x.to(shared.dtype).contiguous()
         shared = shared.contiguous()
+        w1, b1, scale1, bias1, w2, b2, scale2, bias2 = (whole_param(self, n) for n in (
+            "w1", "b1", "scale1", "bias1", "w2", "b2", "scale2", "bias2"))
         if self.training:
             comm = batch_comm()
             out, mean1, var1, mean2, var2 = fused_attention_gate_train_tasks(
-                x, shared, self.w1, self.b1, self.scale1, self.bias1,
-                self.w2, self.b2, self.scale2, self.bias2, self.eps, comm=comm,
+                x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2, self.eps, comm=comm,
             )
             n = x[0].numel() // x.shape[-1] * (comm.world if comm is not None else 1)
             update_running_stats(self.mean1, self.var1, mean1, var1, n)
             update_running_stats(self.mean2, self.var2, mean2, var2, n)
             return out
-        s1, c1 = fold_bn(self.b1, self.scale1, self.bias1, self.mean1, self.var1, self.eps)
-        s2, c2 = fold_bn(self.b2, self.scale2, self.bias2, self.mean2, self.var2, self.eps)
+        s1, c1 = fold_bn(b1, scale1, bias1, self.mean1, self.var1, self.eps)
+        s2, c2 = fold_bn(b2, scale2, bias2, self.mean2, self.var2, self.eps)
         return fused_attention_gate_tasks(
-            x, shared, self.w1 * s1[:, None, :], c1, self.w2 * s2[:, None, :], c2
+            x, shared, w1 * s1[:, None, :], c1, w2 * s2[:, None, :], c2
         )
 
 
@@ -202,11 +219,27 @@ def task_conv_bn_relu(conv: TaskConv, bn: TaskBatchNorm, x: torch.Tensor) -> tor
     slice and tensors (a train-mode BN updates its task's statistics in
     place). On an H100 this took less device time than one grouped conv and
     one BN over the tasks' channels, which launch fewer kernels (PERF.md
-    §6; ``chip_smoke.py`` times both ways)."""
+    §6; ``chip_smoke.py`` times both ways).
+
+    With the conv's weight sharded over the mesh's ``model`` axis each
+    task's conv runs as ``blocks.Conv``'s sharded one: the task's input
+    through ``copy_in``, the rank's slice of its kernel, the outputs
+    gathered and the bias added after; sharded biases and BN parameters are
+    gathered whole."""
+    sl = model_slice(conv, "weight")
+    bias = whole_param(conv, "bias")
+    scale, shift = whole_param(bn, "weight"), whole_param(bn, "bias")
+
+    def task_conv(i: int) -> torch.Tensor:
+        if sl is None:
+            return conv_nhwc(x[i], conv.weight[i], bias[i], conv.dtype)
+        y = conv_nhwc(copy_in(x[i], sl.comm), conv.weight[i], None, conv.dtype)
+        return _add_bias(gather_out(y, sl.comm), bias[i])
+
     return torch.stack([
         torch.relu(batch_norm_nhwc(
-            conv_nhwc(x[i], conv.weight[i], conv.bias[i], conv.dtype), bn.weight[i], bn.bias[i],
-            bn.running_mean[i], bn.running_var[i], bn.eps, bn.training,
+            task_conv(i), scale[i], shift[i], bn.running_mean[i], bn.running_var[i], bn.eps,
+            bn.training,
         ))
         for i in range(x.shape[0])
     ])
@@ -286,8 +319,8 @@ class AttentionModuleDecoder(nn.Module):
         prev_layer_outs: torch.Tensor,
         conv2_shared: torch.Tensor,
     ) -> torch.Tensor:
-        p = torch.relu(self.BatchNorm_0(self.Conv_0(prev_layer_outs)))
-        p = resize_bilinear_align_corners(p, conv1_shared.shape[1], conv1_shared.shape[2])
+        p = from_coarser(prev_layer_outs, conv1_shared.shape[1], lambda v, rows: _resize(
+            torch.relu(self.BatchNorm_0(self.Conv_0(v))), rows, conv1_shared.shape[2]))
         merged = torch.cat([conv1_shared, p.to(conv1_shared.dtype)], dim=-1)
         g = self.GateChain_0(merged, conv2_shared)
         return torch.relu(self.BatchNorm_1(self.Conv_1(g)))
@@ -365,8 +398,9 @@ class TaskAttentionModuleDecoder(nn.Module):
         prev_layer_outs: torch.Tensor,
         conv2_shared: torch.Tensor,
     ) -> torch.Tensor:
-        p = _fold_batch(task_conv_bn_relu(self.Conv_0, self.BatchNorm_0, prev_layer_outs))
-        p = resize_bilinear_align_corners(p, conv1_shared.shape[1], conv1_shared.shape[2])
+        p = from_coarser(prev_layer_outs, conv1_shared.shape[1], lambda v, rows: _resize(
+            _fold_batch(task_conv_bn_relu(self.Conv_0, self.BatchNorm_0, v)), rows,
+            conv1_shared.shape[2]))
         merged = torch.cat([
             conv1_shared.expand(self.n_tasks, *conv1_shared.shape),
             p.reshape(self.n_tasks, -1, *p.shape[1:]).to(conv1_shared.dtype),
@@ -375,10 +409,8 @@ class TaskAttentionModuleDecoder(nn.Module):
         return task_conv_bn_relu(self.Conv_1, self.BatchNorm_1, g)
 
 
-def levels_row_stride(num_levels: int) -> int:
-    """The row stride of MTAN's coarsest level: each of its ``num_levels``
-    encoder levels halves the rows."""
-    return 2**num_levels
+def _resize(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return resize_bilinear_align_corners(x, rows, cols)
 
 
 class MTANMiniUnet(nn.Module):
@@ -404,9 +436,10 @@ class MTANMiniUnet(nn.Module):
         super().__init__()
         self.task_names = list(map_tasks_to_num_channels)
         self.num_levels = encoder_num_channels
-        #: the factor by which the coarsest level's rows are fewer (the
-        #: ``spatial`` axis needs H to divide by it times its size)
-        self.row_stride = levels_row_stride(encoder_num_channels)
+        #: the factor by which the coarsest level's rows are fewer than the
+        #: image's (under the ``spatial`` axis the levels whose rows do not
+        #: split run whole, ``parallel.halo``)
+        self.row_stride = 2**encoder_num_channels
         self.remat_attention = remat_attention
         self.remat_shared = remat_shared
         self.fold_tasks = fold_tasks
@@ -469,41 +502,50 @@ class MTANMiniUnet(nn.Module):
         return checkpointed(module, *args) if self.remat_attention else module(*args)
 
     def forward(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        with image_levels(x):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         n_tasks = len(self.task_names)
         shared = x
         # per task, or with fold_tasks one (T, B, H, W, C) tensor
         streams: t.Any = [None] * n_tasks
         features = []
         for i in range(self.num_levels):
-            level_in = shared
-            dconv_out = self._shared(f"enc_dconv_{i}", level_in)
-            if self.fold_tasks:
-                streams = self._attention(
-                    f"enc_attn_{i}_folded", level_in, dconv_out, streams if i else None
-                )
-            else:
-                streams = [
-                    self._attention(f"enc_attn_{i}_task{ti}", level_in, dconv_out, streams[ti])
-                    for ti in range(n_tasks)
-                ]
-            features.append(dconv_out)
-            shared = max_pool_2x(dconv_out)
+            with at_level(i):  # the pools gather a map whose next level runs whole
+                level_in = shared
+                dconv_out = self._shared(f"enc_dconv_{i}", level_in)
+                if self.fold_tasks:
+                    streams = self._attention(
+                        f"enc_attn_{i}_folded", level_in, dconv_out, streams if i else None
+                    )
+                else:
+                    streams = [
+                        self._attention(f"enc_attn_{i}_task{ti}", level_in, dconv_out, streams[ti])
+                        for ti in range(n_tasks)
+                    ]
+                features.append(dconv_out)
+                shared = max_pool_2x(dconv_out)
 
-        shared = self._shared("bottleneck", shared)
+        with at_level(self.num_levels):
+            shared = self._shared("bottleneck", shared)
 
         for i in range(self.num_levels):
-            up = getattr(self, f"dec_up_{i}")(shared)
-            skip = features[-(i + 1)]
-            merged = pad_concat(up, skip.to(up.dtype))
-            conv_out = self._shared(f"dec_dconv_{i}", merged)
-            if self.fold_tasks:
-                streams = self._attention(f"dec_attn_{i}_folded", merged, streams, conv_out)
-            else:
-                streams = [
-                    self._attention(f"dec_attn_{i}_task{ti}", merged, streams[ti], conv_out)
-                    for ti in range(n_tasks)
-                ]
-            shared = conv_out
+            level = self.num_levels - 1 - i
+            skip = features[level]
+            with at_level(level):
+                up_conv = getattr(self, f"dec_up_{i}")
+                up = from_coarser(shared, skip.shape[1], lambda v, _: up_conv(v))
+                merged = pad_concat(up, skip.to(up.dtype))
+                conv_out = self._shared(f"dec_dconv_{i}", merged)
+                if self.fold_tasks:
+                    streams = self._attention(f"dec_attn_{i}_folded", merged, streams, conv_out)
+                else:
+                    streams = [
+                        self._attention(f"dec_attn_{i}_task{ti}", merged, streams[ti], conv_out)
+                        for ti in range(n_tasks)
+                    ]
+                shared = conv_out
 
         return {
             name: getattr(self, f"head_{name}")(streams[ti])

@@ -25,21 +25,6 @@ from vision_mtl_tpu_torch.device import resolve_device
 MTAN_LEVELS = 4
 
 
-def row_stride(model_name: str) -> int:
-    """The ``row_stride`` of ``model_name`` as :func:`build_model` builds it:
-    its coarsest level has this many times fewer rows than the image
-    (``parallel/mesh.check_rows``); 1 for a name the registry does not know."""
-    if model_name == "mtan":
-        from vision_mtl_tpu_torch.models.mtan import levels_row_stride
-
-        return levels_row_stride(MTAN_LEVELS)
-    if model_name in ("basic", "csnet"):
-        from vision_mtl_tpu_torch.models.mobilenetv3 import ENCODER_STRIDE
-
-        return ENCODER_STRIDE
-    return 1
-
-
 def build_model(
     model_name: str,
     data_cfg: DataConfig,

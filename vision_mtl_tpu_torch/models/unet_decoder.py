@@ -14,6 +14,12 @@ folded layout (``ops/fold.py``) and returns a FOLDED map: its convs then
 have 4C channels, which B3 does not take, and are plain convolutions.
 ``remat_tail`` rematerialises the last N blocks in the backward pass
 (``blocks.checkpointed``). Neither changes a parameter.
+
+Under the mesh's ``spatial`` axis block i runs at level ``4 - i`` (its
+skip's; ``parallel.halo.at_level``), its upsample made on the whole map
+and cut to the rank's rows where the level below ran whole
+(``halo.from_coarser``). A folded block's maps have the rows of the level
+above (``tile_for_upsample``), so it runs at that level.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from vision_mtl_tpu_torch.models.blocks import (
 from vision_mtl_tpu_torch.models.mobilenetv3 import ENCODER_OUT_CHANNELS
 from vision_mtl_tpu_torch.ops.fold import tile_for_upsample
 from vision_mtl_tpu_torch.ops.interpolate import upsample_nearest_2x
+from vision_mtl_tpu_torch.parallel.halo import at_level, coarser_level, from_coarser
 
 
 def decoder_channels(decoder_first_channel: int = 256, num_decoder_layers: int = 5) -> t.List[int]:
@@ -70,9 +77,11 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: t.Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.fold:
-            return self.ConvBNAct_1(self.ConvBNAct_0(tile_for_upsample(x)))
+            with coarser_level():
+                return self.ConvBNAct_1(self.ConvBNAct_0(tile_for_upsample(x)))
         if self.upsample:
-            x = upsample_nearest_2x(x)
+            x = from_coarser(x, None if skip is None else skip.shape[1],
+                             lambda v, _: upsample_nearest_2x(v))
         if skip is not None:
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
         return self.ConvBNAct_1(self.ConvBNAct_0(x))
@@ -111,10 +120,11 @@ class UnetDecoder(nn.Module):
         for i in range(self.num_blocks):
             block = getattr(self, f"block_{i}")
             skip = skips[i] if i < len(skips) else None
-            if i >= self.num_blocks - self.remat_tail:
-                x = checkpointed(block, x, skip)
-            else:
-                x = block(x, skip)
+            with at_level(len(features) - 2 - i):
+                if i >= self.num_blocks - self.remat_tail:
+                    x = checkpointed(block, x, skip)
+                else:
+                    x = block(x, skip)
         return x
 
 

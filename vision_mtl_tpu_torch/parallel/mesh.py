@@ -15,9 +15,12 @@ in the spec's axis order, so rank r has the mesh coordinates
 image rows ``[s H/S, (s+1) H/S)``; the ranks that differ only in their
 ``model`` index hold the same block. The ranks that share a data (and
 model) index form the rank's spatial group (:attr:`Mesh.spatial_comm`):
-the halo exchanges of ``parallel/halo.py`` run in it. Every H that a
-model's levels see must split evenly: :func:`check_rows` refuses the others
-(GSPMD would pad them).
+the halo exchanges of ``parallel/halo.py`` run in it. The image's H must
+divide by the ``spatial`` axis (:func:`check_rows`, as JAX's ``put_batch``
+requires); a model's coarser levels whose rows do not split (where GSPMD
+pads) run whole on every rank of the spatial group, their batch-wide sums
+over the rank's data group (:attr:`Mesh.data_comm`, the ranks that share
+its spatial and model index).
 
 The ``model`` axis shards parameters (:func:`param_shardings`, JAX's rule:
 a leaf of two dims or more, of ``min_size`` values or more, whose last JAX
@@ -92,16 +95,17 @@ def parse_mesh_shape(spec: str, num_devices: t.Optional[int] = None) -> t.Dict[s
     return axes
 
 
-def check_rows(height: int, spatial: int, row_stride: int, what: str = "the model") -> None:
-    """SystemExit unless ``height`` divides by ``spatial * row_stride``:
-    the coarsest level of ``what`` (``row_stride`` times smaller than the
-    image) must leave every rank of the ``spatial`` axis the same whole
-    number of rows. A no-op for ``spatial`` 1."""
-    if spatial > 1 and height % (spatial * row_stride):
+def check_rows(height: int, spatial: int) -> None:
+    """SystemExit unless ``height`` divides by ``spatial``: JAX's rule, whose
+    ``put_batch`` shards a batch's H (dim 1) over the ``spatial`` axis and
+    whose ``device_put`` refuses a dim that the axis does not divide. Any
+    level of a model below the image may leave a remainder (it then runs
+    whole, ``parallel/halo.py``). A no-op for ``spatial`` 1."""
+    if spatial > 1 and height % spatial:
         raise SystemExit(
-            f"image height {height} does not split over the spatial axis of {spatial}: "
-            f"{what} downsamples rows by {row_stride}, so the height must divide by "
-            f"spatial x {row_stride} = {spatial * row_stride} (ROADMAP.md A10b)"
+            f"image height {height} does not divide over the spatial axis of {spatial}: "
+            "the batch's dim 1 (H) is sharded over spatial, so its global size must be "
+            f"divisible by {spatial} (JAX's put_batch / device_put rule)"
         )
 
 
@@ -181,6 +185,14 @@ class Mesh:
         return self._group("spatial", ("spatial",))
 
     @property
+    def data_comm(self) -> t.Optional[Comm]:
+        """The ranks that share this rank's spatial and model index, in data
+        order: the ranks that hold other images, the group of the
+        batch-wide sums at a level that runs whole (``parallel/halo.py``);
+        None without a ``data`` axis."""
+        return self._group("data", ("data",))
+
+    @property
     def model_comm(self) -> t.Optional[Comm]:
         """The ranks that share this rank's data and spatial index, in model
         order: this rank's model group, over which a sharded leaf's slices
@@ -244,6 +256,8 @@ def create_mesh(spec: str = "data:-1", comm: t.Optional[Comm] = None) -> Mesh:
     mesh = Mesh(parse_mesh_shape(spec, comm.world), comm)
     # the groups, made on every rank together and in the same order
     mesh.spatial_comm, mesh.model_comm, mesh.replica_comm  # noqa: B018
+    if mesh.spatial_comm is not None:
+        mesh.data_comm  # noqa: B018
     return mesh
 
 
@@ -326,18 +340,6 @@ def model_slices(model: torch.nn.Module) -> t.Dict[str, Slice]:
     return out
 
 
-def _refuse_folded(model: torch.nn.Module) -> None:
-    """SystemExit for the model options whose task-stacked or folded leaves
-    the model axis does not lay out yet (ROADMAP.md A10d)."""
-    for option in ("fold_tasks", "fold_tail"):
-        if getattr(model, option, False):
-            raise SystemExit(
-                f"{option} under a model axis above 1 is not ported to vision_mtl_tpu_torch "
-                "yet (its task-stacked or folded leaves sharded on their last dim), see "
-                "ROADMAP.md A10d"
-            )
-
-
 def param_shardings(model: torch.nn.Module, mesh: Mesh,
                     min_size: int = MIN_SHARD_SIZE) -> t.Dict[str, t.Optional[int]]:
     """JAX's tensor-parallel layout of ``model``'s parameters: the torch dim
@@ -348,7 +350,7 @@ def param_shardings(model: torch.nn.Module, mesh: Mesh,
     the last (output-channel) dim a multiple of the axis. A conv kernel is
     split on torch dim 0 (O of OIHW), a transposed conv's on dim 1 (its
     (in, out, kh, kw)), a matrix such as the gate's ``w1`` (cin, hidden) on
-    its last."""
+    its last; a task-stacked leaf (``fold_tasks``) one dim further on."""
     from vision_mtl_tpu_torch.weights import jax_shape, leaf_layouts, torch_dim_of_jax_last
 
     size = mesh.size("model")
@@ -372,12 +374,10 @@ def shard_model(model: torch.nn.Module, mesh: Mesh,
     rank's slice of it, in place (a no-op without a ``model`` axis, and for
     a leaf already sliced); returns ``model``. Every rank of the model group
     must hold the same whole leaves (built from one seed, or restored from
-    one checkpoint). ``fold_tasks`` and ``fold_tail`` are refused (ROADMAP
-    A10d)."""
+    one checkpoint)."""
     comm = mesh.model_comm
     if comm is None:
         return model
-    _refuse_folded(model)
     have = model_slices(model)
     for key, dim in param_shardings(model, mesh, min_size).items():
         if dim is None or key in have:

@@ -16,9 +16,10 @@ the rank's replica group (its data x spatial ranks): train-mode batch
 statistics and the losses are the global batch's. Under ``spatial`` the
 forward also runs inside ``halo.spatial_rows`` with the rank's spatial
 group, where the convolutions take their halo rows from the neighbouring
-ranks. Under ``model`` (the state placed by ``mesh.shard_state``) the
-sharded layers gather their output channels over the rank's model group,
-whose ranks hold the same block and compute the same global loss.
+ranks and the levels whose rows do not split run whole. Under ``model``
+(the state placed by ``mesh.shard_state``) the sharded layers gather their
+output channels over the rank's model group, whose ranks hold the same
+block and compute the same global loss.
 
 The train step back-propagates ``1 / R`` of the global loss on every rank
 (R the replica group's size) and then, once per step, before Adam, sums
@@ -45,7 +46,7 @@ from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.losses import mtl_loss
 from vision_mtl_tpu_torch.metrics import MetricState, update_metrics
 from vision_mtl_tpu_torch.parallel.halo import spatial_rows
-from vision_mtl_tpu_torch.parallel.mesh import check_rows, model_slices
+from vision_mtl_tpu_torch.parallel.mesh import model_slices
 from vision_mtl_tpu_torch.parallel.multihost import Comm, global_batch
 from vision_mtl_tpu_torch.train.state import TrainState
 
@@ -88,7 +89,7 @@ def make_predict_step(model: nn.Module, mesh: t.Any = None) -> t.Callable[[torch
 
     @torch.inference_mode()
     def step(img: torch.Tensor) -> Batch:
-        with _mode(model, False), _rows(mesh, model, img):
+        with _mode(model, False), _rows(mesh):
             return predict_outputs(model, img)
 
     return step
@@ -135,15 +136,12 @@ def _comm(mesh: t.Any) -> t.Optional[Comm]:
     return mesh.replica_comm if mesh is not None else None
 
 
-def _rows(mesh: t.Any, model: nn.Module, img: torch.Tensor) -> t.ContextManager[None]:
-    """The forward's ``spatial_rows`` context: the mesh's spatial group,
-    once the image's height (``img`` holds this rank's rows) is checked to
-    split over it at every level of ``model`` (``mesh.check_rows``)."""
-    rows = mesh.spatial_comm if mesh is not None else None
-    if rows is not None:
-        check_rows(img.shape[1] * rows.world, rows.world, model.row_stride,
-                   type(model).__name__)
-    return spatial_rows(rows)
+def _rows(mesh: t.Any) -> t.ContextManager[None]:
+    """The forward's ``spatial_rows`` context: the mesh's spatial group, and
+    its data group for the levels that run whole."""
+    if mesh is None or mesh.spatial_comm is None:
+        return spatial_rows(None)
+    return spatial_rows(mesh.spatial_comm, mesh.data_comm)
 
 
 def make_predict_eval_step(
@@ -161,7 +159,7 @@ def make_predict_eval_step(
     @torch.inference_mode()
     def step(batch: Batch, mstate: MetricState):
         batch = decode_batch(batch)
-        with _mode(model, False), _rows(mesh, model, batch["img"]):
+        with _mode(model, False), _rows(mesh):
             post = postprocess_raw_out(model(batch["img"]))
         preds = {"segm": post["segm_predictions"], "depth": post["depth_predictions"]}
         if "mask" not in batch or "depth" not in batch:
@@ -218,7 +216,7 @@ def make_train_step(
     seed = 1.0 / (grad_accum_steps * (comm.world if comm is not None else 1))
 
     def micro(model: nn.Module, mb: Batch, mstate: MetricState) -> t.Tuple[Losses, MetricState]:
-        with _rows(mesh, model, mb["img"]):
+        with _rows(mesh):
             post = postprocess_raw_out(model(mb["img"]))
         losses = _losses(post, mb, loss_segm_weight, loss_depth_weight)
         (losses["loss"] * seed).backward()
@@ -316,7 +314,7 @@ def make_eval_step(
     @torch.inference_mode()
     def step(state: TrainState, batch: Batch, mstate: MetricState):
         batch = _to_device(batch, dev)
-        with _mode(state.model, False), _rows(mesh, state.model, batch["img"]):
+        with _mode(state.model, False), _rows(mesh):
             post = postprocess_raw_out(state.model(batch["img"]))
         with global_batch(comm):
             losses = _losses(post, batch, loss_segm_weight, loss_depth_weight)

@@ -24,8 +24,8 @@ batch on ``cuda:(LOCAL_RANK % device_count)``; ``--mesh_shape`` (default
 ``model`` axes (``data:2,spatial:2``: each rank a quarter of every batch,
 half its rows of half its images; ``data:2,model:2``: each rank half of
 every batch and half the output channels of each large conv, its Adam
-moments with them). ``--fold_tasks`` and ``--fold_tail`` under ``model``
-above 1 are refused (ROADMAP.md A10d).
+moments with them; ``--fold_tasks`` and ``--fold_tail`` shard their
+task-stacked and folded leaves as JAX does).
 ``--device cpu:N`` starts N ranks of this CLI on the CPU (gloo, one thread
 each) and returns rank 0's run dir; a rank that fails fails the run.
 """
@@ -42,7 +42,6 @@ from vision_mtl_tpu_torch.cfg import cfg, fetch_data_cfg
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.metrics import rank_part
 from vision_mtl_tpu_torch.parallel import multihost
-from vision_mtl_tpu_torch.models.registry import row_stride
 from vision_mtl_tpu_torch.parallel.mesh import Mesh, check_rows, create_mesh, parse_mesh_shape
 from vision_mtl_tpu_torch.pipeline import create_main_components, create_tools
 from vision_mtl_tpu_torch.predict import predict, save_preds
@@ -103,20 +102,10 @@ def _launch_cpu_ranks(args: argparse.Namespace, argv: t.List[str], n_ranks: int)
 
 def check_mesh(args: argparse.Namespace, world: int) -> t.Dict[str, int]:
     """The mesh of ``--mesh_shape`` over ``world`` ranks; SystemExit when its
-    data axis does not divide ``--batch_size`` (JAX's message), when the
-    dataset's image height does not split over its spatial axis at every
-    level of the model (``parallel.mesh.check_rows``), or when a model axis
-    above 1 meets ``--fold_tasks`` (mtan) or ``--fold_tail`` (basic),
-    which it does not lay out yet (ROADMAP.md A10d)."""
+    data axis does not divide ``--batch_size`` (JAX's message) or when its
+    spatial axis does not divide the dataset's image height (JAX's rule,
+    ``parallel.mesh.check_rows``)."""
     axes = parse_mesh_shape(args.mesh_shape, world)
-    if axes.get("model", 1) > 1:
-        for flag, model in (("fold_tasks", "mtan"), ("fold_tail", "basic")):
-            if getattr(args, flag, False) and args.model_name == model:
-                raise SystemExit(
-                    f"--{flag} with --mesh_shape {args.mesh_shape}: the model axis under "
-                    f"{flag} is not ported to vision_mtl_tpu_torch yet (its task-stacked or "
-                    "folded leaves sharded on their last dim), see ROADMAP.md A10d"
-                )
     data_shards = axes.get("data", 1)
     if args.batch_size % data_shards:
         raise SystemExit(
@@ -126,8 +115,7 @@ def check_mesh(args: argparse.Namespace, world: int) -> t.Dict[str, int]:
         )
     data_cfg = fetch_data_cfg(args.dataset_name)
     height = (data_cfg.train_transform or data_cfg).height
-    check_rows(height, axes.get("spatial", 1), row_stride(args.model_name),
-               f"--model_name {args.model_name}")
+    check_rows(height, axes.get("spatial", 1))
     return axes
 
 
