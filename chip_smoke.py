@@ -485,7 +485,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times(fn, n: int = 10, launches: tuple = (), sessions: int = 3) -> dict:
+def device_times(fn, n: int = 10, launches: tuple = (), sessions: int = 2) -> dict:
     """Device time of one call by kernel name (and memset or memcpy), from
     torch.profiler over ``sessions`` sessions of ``n`` calls. Unlike
     :func:`time_ms` it does not read the host's time to launch them, which a
@@ -580,7 +580,8 @@ def tf32_flops(n: int, cin: int, c2: int, x_bf16: bool, first_products: int = 1)
     return 2.0 * n * (first_products * k1 * cin * HIDDEN + 3 * HIDDEN * c2)
 
 
-def check_gate(dev, fused_gate, shapes: list = GATE_SHAPES) -> tuple:
+def check_gate(dev, fused_gate, shapes: list = GATE_SHAPES,
+              dtypes: tuple = (torch.bfloat16, torch.float32)) -> tuple:
     """The eval gate against its plain version at the MTAN gate shapes:
     output and the same bits from a second launch; device times of the
     kernel and the plain version, the kernel's event time, and its bounds:
@@ -595,7 +596,7 @@ def check_gate(dev, fused_gate, shapes: list = GATE_SHAPES) -> tuple:
     by_flops = by_bytes = 0.0
     slower_than_plain = []
     for level, cin, c2, h, w in shapes:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x = torch.randn(BATCH, h, w, cin, generator=gen, device=dev).to(dtype)
             shared = torch.randn(BATCH, h, w, c2, generator=gen, device=dev).to(dtype)
             w1 = (torch.rand(cin, HIDDEN, generator=gen, device=dev) * 2 - 1) / cin**0.5
@@ -701,7 +702,8 @@ def check_gate_split(fused_gate_train, args: tuple, fused: tuple) -> dict:
 
 
 def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES,
-                     split: bool = False) -> tuple:
+                     split: bool = False,
+                     dtypes: tuple = (torch.bfloat16, torch.float32)) -> tuple:
     """The train-mode gate against its plain version at the MTAN gate
     shapes: output, the four statistics, and the same bits from a second
     launch; and the time of its backward (PyTorch ops). ``split``: also its
@@ -713,7 +715,7 @@ def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES,
     by_flops = by_bytes = 0.0
     slower_than_plain = []
     for level, cin, c2, h, w in shapes:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             def uniform(*shape, bound=1.0):
                 return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
@@ -2772,7 +2774,7 @@ PER_REMAT_STEP = {
     "basic": {"conv3x3_small": 11, "confusion_matrix": 1},
     "csnet": {"conv3x3_small": 32, "confusion_matrix": 1},
 }
-OPTION_STEPS = 5  # timed bf16 train steps per configuration, after one untimed
+OPTION_STEPS = 3  # timed bf16 train steps per configuration, after one untimed
 
 
 def task_gate_args(gen, dev, n_tasks: int, cin: int, c2: int, h: int, w: int, dtype, train):
@@ -2954,7 +2956,7 @@ def conv_way(way: str):
 
 
 FOLD_WAYS = ("unfolded", "per_task", "grouped")
-FOLD_ROUNDS = 3  # interleaved rounds of the p50s, each way in turn
+FOLD_ROUNDS = 2  # interleaved rounds of the p50s, each way in turn
 
 
 def check_fold_tasks(cfg, kernels, dev, build_model) -> tuple:
@@ -2966,8 +2968,8 @@ def check_fold_tasks(cfg, kernels, dev, build_model) -> tuple:
     BNs per task, the model's way) and the folded one with them grouped
     (:func:`grouped_conv_bn_relu`), each: its launches, the device time of
     a forward and of a train step by category (``torch.profiler``), peak
-    memory over 1 + 5 bf16 train steps; then ``FOLD_ROUNDS`` interleaved
-    rounds, each way in turn, of the ``Predictor(8)`` p50 and the p50 of 5
+    memory over 1 + 3 bf16 train steps; then ``FOLD_ROUNDS`` interleaved
+    rounds, each way in turn, of the ``Predictor(8)`` p50 and the p50 of 3
     train steps. One f32 train step at batch 2 against the unfolded step
     under deterministic algorithms: loss within 1e-5 relative, every
     gradient leaf but ``ZERO_GRAD`` within 1e-4 rel. L2 (``ZERO_GRAD``
@@ -3094,7 +3096,7 @@ def check_fold_tail(cfg, kernels, dev, build_model) -> tuple:
     batch of 8 against the unfolded model's (the same seeded weights; max
     |diff| within 1e-4 of the output's largest magnitude, ids agreeing on
     99.9%); B3 launches per bf16 forward (1: block 3's 67 -> 67) and per
-    bf16 train step (2: that conv and its dx), and 5 train steps with
+    bf16 train step (2: that conv and its dx), and 3 train steps with
     finite losses."""
     x = torch.from_numpy(np.random.default_rng(2).uniform(
         size=(BATCH, cfg.height, cfg.width, 3)).astype(np.float32)).to(dev)
@@ -3141,7 +3143,7 @@ def check_remat(cfg, kernels, dev, build_model) -> tuple:
     seeded model's step without remat on the same batch, the loss, every
     gradient and every buffer bit for bit (the recompute must not count the
     batch twice in the running statistics); then, for the model without
-    remat, each flag alone and all together, the step time (p50 of 5 after
+    remat, each flag alone and all together, the step time (p50 of 3 after
     one untimed) and the peak memory above what was live before the first
     step, with the exact launches."""
     out, launches = {}, []
@@ -3222,10 +3224,13 @@ def options_phase(cfg, kernels, dev, build_model, fused_gate, fused_gate_train) 
 PARALLEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
                             "parallel")
 
-PARALLEL_BF16_STEPS = 3  # timed two-rank bf16 steps, after one untimed
+PARALLEL_BF16_STEPS = 1  # timed two-rank bf16 steps, after one untimed
 PARALLEL_BATCH_SEED = 31
 PARALLEL_PREDICT_SEED = 41
 PARALLEL_TIMEOUT_S = 600
+# calls of a kernel, and of its plain version, timed with CUDA events in the
+# rank phases (after one untimed)
+RANK_TIMED_CALLS, RANK_PLAIN_CALLS = 5, 3
 # a train step of MTAN under ranks: its 16 gates take B4's staged call
 PER_RANK_TRAIN_STEP = {"fused_attention_gate_train_ranks": 16, "confusion_matrix": 1}
 # Predictor(8, mesh=) against the one-process Predictor(8), f32 weights: the
@@ -3239,22 +3244,49 @@ import chip_smoke
 sys.exit(chip_smoke.parallel_rank(sys.argv[1], sys.argv[2:]))
 """
 #: the phases the rank processes run, in order
-PARALLEL_PHASES = ("parallel", "spatial", "model")
-# the spatial phase: the mesh's spatial axis over the same ranks, MTAN and
-# basic; 1 + SPATIAL_BF16_STEPS bf16 steps each
-SPATIAL_MODELS = ("mtan", "basic")
+PARALLEL_PHASES = ("parallel", "spatial", "model", "spatial4")
+#: ranks of a phase that needs a number of its own (on one card a second
+#: launch of rank processes sharing it); the others take parallel_world()
+PHASE_WORLD = {"spatial4": 4}
+# the spatial phase: the mesh's spatial axis over the same ranks, MTAN,
+# basic and CSNet; 1 + SPATIAL_BF16_STEPS bf16 steps each
+SPATIAL_MODELS = ("mtan", "basic", "csnet")
 # then heights whose coarser levels' rows do not split over 2 ranks (those
 # levels run whole on both): case -> (model, the batch's first rows)
 SPATIAL_UNEVEN = {"basic_h96": ("basic", 96), "mtan_h112": ("mtan", 112)}
-SPATIAL_BF16_STEPS = 3
-# a train step under ranks: MTAN's gates take B4's staged call, basic's 4 B3
-# convs (and their dx) run on row blocks with one halo row each side
-PER_SPATIAL_TRAIN_STEP = {"mtan": PER_RANK_TRAIN_STEP, "basic": PER_TRAIN_STEP["basic"]}
-# the model phase: the mesh's model axis over the same ranks, MTAN and basic,
-# then MTAN with fold_tasks and basic with fold_tail (model_variant); 1 +
-# MODEL_BF16_STEPS bf16 steps each
-MODEL_MODELS = ("mtan", "basic", "mtan_fold_tasks", "basic_fold_tail")
-MODEL_BF16_STEPS = 3
+SPATIAL_BF16_STEPS = 1
+# a train step under ranks: MTAN's gates take B4's staged call, basic's 4
+# and CSNet's 12 B3 convs (and their dx) run on row blocks with one halo
+# row each side
+PER_SPATIAL_TRAIN_STEP = {"mtan": PER_RANK_TRAIN_STEP, "basic": PER_TRAIN_STEP["basic"],
+                          "csnet": PER_TRAIN_STEP["csnet"]}
+# the spatial4 phase: MTAN over spatial:4 (four ranks, each the whole batch
+# and a quarter of its rows): case -> (model, the batch's first rows). At
+# 112 rows (28 a rank) level 3 does not split and runs whole, its gates on
+# the whole 14x32 map; at 128 rows (32 a rank) every level splits
+SPATIAL4_CASES = {"mtan_h112": ("mtan", 112), "mtan_h128": ("mtan", 128)}
+# the level of each of MTAN's gates (GATE_SHAPES): encoder level i at i,
+# decoder level i at 3 - i
+GATE_LEVELS = {"enc0": 0, "enc1": 1, "enc2": 2, "enc3": 3,
+               "dec0": 3, "dec1": 2, "dec2": 1, "dec3": 0}
+# the model phase: the mesh's model axis over the same ranks, MTAN, basic
+# and CSNet, then MTAN with fold_tasks and basic with fold_tail
+# (model_variant); 1 + MODEL_BF16_STEPS bf16 steps each
+MODEL_MODELS = ("mtan", "basic", "csnet", "mtan_fold_tasks", "basic_fold_tail")
+MODEL_BF16_STEPS = 1
+# the share of one process's parameter and Adam-moment bytes a rank holds
+# under model:2 at the default min_size: the layout of
+# parallel/mesh.param_shardings at full width, counted on the CPU (31, 21,
+# 44, 29 and 21 sharded leaves)
+MODEL_BYTE_SHARES = {"mtan": 0.53604, "basic": 0.54386, "csnet": 0.54342,
+                     "mtan_fold_tasks": 0.51692, "basic_fold_tail": 0.54386}
+# the model axis with no data axis (one card): every rank sees the whole
+# batch and no batch statistic is combined, so the f32 step differs from one
+# process's only in the order of the model group's sums: measured 8.9e-7 to
+# 1.6e-6 relative L2 whole, worst leaves 1e-5 (MTAN) and 4.5e-3 to 7.7e-3
+# (basic's and CSNet's stage-1 BatchNorm weights, whose gradients nearly
+# cancel); the limits are about 60 and 4 times those
+MODEL_AXIS_F32_LIMITS = {"rel_l2_limit": 1e-4, "leaf_limit": 3e-2}
 
 
 def model_variant(name: str) -> tuple:
@@ -3272,7 +3304,9 @@ def first_rows(batch: dict, rows: int) -> dict:
 
 def spatial_spec(world: int) -> str:
     """The mesh of the ``spatial`` phase: two ranks (sharing one card) split
-    the image rows; four (a card each) split the batch and the rows."""
+    the image rows; four (a card each) split the batch and the rows. (The
+    ``spatial4`` phase splits the rows four ways over four ranks, on one
+    card or on four.)"""
     return "spatial:2" if world == 2 else f"data:{world // 2},spatial:2"
 
 
@@ -3346,9 +3380,9 @@ def rank_gate_times(fused_gate_train, comm, dev, rows: int = 0, split_h: int = 1
                     fail(f"staged fused_attention_gate_train {level}: a statistic is off the "
                          f"plain split's by {float((g - r).abs().max())}")
             comm.barrier()
-            ms = time_ms(kernel, iters=10, warmup=2)
+            ms = time_ms(kernel, iters=RANK_TIMED_CALLS, warmup=1)
             comm.barrier()
-            plain_ms = time_ms(plain, iters=5, warmup=1)
+            plain_ms = time_ms(plain, iters=RANK_PLAIN_CALLS, warmup=1)
         n = per * h * w
         nbytes = 2 * n * (cin + 2 * c2) + 4 * (
             cin * HIDDEN + 3 * HIDDEN + HIDDEN * c2 + 3 * c2 + 2 * (HIDDEN + c2))
@@ -3390,22 +3424,196 @@ def time_recorded(calls: list, fn, plain) -> dict:
             library_args.append((x.permute(0, 3, 1, 2), k.to(x.dtype).permute(3, 2, 0, 1)
                                  .contiguous(), None if bias is None else bias.to(x.dtype)))
 
-        ms = time_ms(lambda: [fn(*a) for a in calls], iters=10, warmup=2)
-        plain_ms = time_ms(lambda: [plain(*a) for a in calls], iters=5, warmup=1)
+        ms = time_ms(lambda: [fn(*a) for a in calls], iters=RANK_TIMED_CALLS, warmup=1)
+        plain_ms = time_ms(lambda: [plain(*a) for a in calls], iters=RANK_PLAIN_CALLS,
+                           warmup=1)
         library_ms = time_ms(lambda: [F.conv2d(x, w, b, padding=1) for x, w, b in library_args],
-                             iters=10, warmup=2)
+                             iters=RANK_TIMED_CALLS, warmup=1)
     bound_ms, bound_by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err, "calls": len(calls),
             "shapes": sorted({tuple(x.shape) for x, _, _ in calls})}
 
 
-def count_exchanges(comm, fn) -> dict:
-    """``fn()`` with every all-reduce of ``comm`` counted by what made it,
-    read from the call stack: the halo exchanges of ``parallel/halo.py``
-    (forward and backward), its row gathers, and the others (the group sums
-    of the SE means and the losses, the BN and B4 statistics, the gradient
-    all-reduce). One step's worth: the stack walk is not free."""
+def release_memory(comm) -> int:
+    """This process's cached device memory given back to the card, then a
+    barrier over ``comm``: the free bytes after. cuDNN picks a convolution's
+    algorithm at the first call of its shape in a process, among those whose
+    workspace fits in the memory then free, and keeps the pick: on the H100
+    basic's f32 step takes FFT algorithms with the card to itself and
+    others with 6 GB free, 8.5e-4 relative L2 apart (``chip_cudnn_memory.py``).
+    A rank phase's f32 step is held to the one-process step, taken with the
+    card to itself, so every rank calls this first."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    comm.barrier()
+    return torch.cuda.mem_get_info()[0]
+
+
+def predictor_ref(out_dir: str, name: str, rows: int) -> dict:
+    """The one-process Predictor(8)'s answer for ``name``'s seeded f32
+    weights on the batch's first ``rows`` rows (:func:`parallel_phase`
+    writes it before the ranks start)."""
+    return np.load(os.path.join(out_dir, f"predictor_ref_{name}_{rows}.npz"))
+
+
+def held_answer(comm, answer: dict, want: dict, what: str) -> dict:
+    """A ``Predictor(mesh=)`` answer against the one-process answer
+    ``want``: depth within ``PARALLEL_DEPTH_TOL``, the ids differing on at
+    most ``PARALLEL_SEGM_MISMATCH_TOL`` of the pixels, and the same bits on
+    every rank of ``comm``."""
+    depth_err = float(np.abs(answer["depth"] - want["depth"]).max())
+    mismatch = float((answer["segm"] != want["segm"]).mean())
+    if answer["segm"].shape != want["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
+            or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
+        fail(f"{what} rank {comm.rank}: depth max |diff| {depth_err}, segm ids differ on "
+             f"{mismatch} of the pixels, from the one-process Predictor")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if not same_on_every_rank(comm, [torch.from_numpy(answer["depth"]).to(dev),
+                                     torch.from_numpy(answer["segm"]).to(dev).float()]):
+        fail(f"{what}: the ranks' answers differ")
+    return {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
+            "answers_equal_across_ranks": True}
+
+
+def spatial_gate_step(rows: int) -> dict:
+    """MTAN's launches in a train step over the spatial axis alone, each
+    rank ``rows`` image rows: the gates of a level that runs whole take
+    B4's fused call (its batch sums over the data group, here no rank
+    else), the others its staged call over the spatial group."""
+    from vision_mtl_tpu_torch.parallel.halo import first_whole_level
+
+    whole = 2 * sum(level >= first_whole_level(rows) for level in GATE_LEVELS.values())
+    return {"fused_attention_gate_train": whole,
+            "fused_attention_gate_train_ranks": 2 * len(GATE_LEVELS) - whole,
+            "confusion_matrix": 1}
+
+
+def spatial_case(mesh, step, tag: str, case: str, name: str, rows: int, per: dict,
+                 out_dir: str, batch: dict, imgs: np.ndarray, add) -> tuple:
+    """``name`` over ``mesh``'s spatial axis on the first ``rows`` image rows
+    of the batches: the f32 step on ``batch`` (the all-reduced gradients the
+    same on every rank; rank 0 saves them as ``{tag}_{case}_f32_grads.pt``
+    for :func:`parallel_phase`), 1 + ``SPATIAL_BF16_STEPS`` bf16 steps after
+    which every rank holds the same parameters and Adam moments bit for bit,
+    each run's launches exactly ``per`` a step (``add``-ed to the phase's),
+    the first, untimed, with the spatial group's all-reduces counted by kind
+    (row gathers whenever a level runs whole), ``Predictor(8, mesh=)`` on
+    ``imgs`` against the one-process answer. Returns (the case's record,
+    B3's inputs in the first bf16 step)."""
+    from vision_mtl_tpu_torch import kernels
+    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+    from vision_mtl_tpu_torch.kernels import small_conv
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.models.registry import build_model
+    from vision_mtl_tpu_torch.parallel import halo
+    from vision_mtl_tpu_torch.serving import Predictor
+    from vision_mtl_tpu_torch.train.state import create_train_state
+
+    cfg = fetch_data_cfg("cityscapes")
+    comm, dev, rank = mesh.comm, mesh.device, mesh.rank
+    model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
+    state = create_train_state(model, LR, device=dev)
+    free = release_memory(comm)
+    kernels.reset_launch_counts()
+    _, _, losses = step(state, mesh.block(first_rows(batch, rows)),
+                        init_metrics(cfg.num_classes, dev))
+    torch.cuda.synchronize()
+    f32_counts = kernels.launch_counts()
+    add(f32_counts)
+    if f32_counts != expected(kernels, per, 1):
+        fail(f"{tag} {case} f32 step rank {rank}: launches {f32_counts}")
+    if not same_on_every_rank(comm, [p.grad for p in model.parameters()]):
+        fail(f"{tag} {case} f32 step: the all-reduced gradients differ between the ranks")
+    if rank == 0:
+        torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                    "loss": float(losses["loss"])},
+                   os.path.join(out_dir, f"{tag}_{case}_f32_grads.pt"))
+    local = rows // mesh.size("spatial")
+    first = halo.first_whole_level(local)
+    levels = int(np.log2(model.row_stride))
+    del model, state
+
+    model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    state = create_train_state(model, LR, device=dev)
+    n_steps = 1 + SPATIAL_BF16_STEPS
+    blocks_ = [mesh.block(first_rows(b, rows))
+               for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+    calls, real_b3 = [], small_conv.conv3x3_small
+
+    def recording(x, kernel, bias=None):
+        if len(calls) < per.get("conv3x3_small", 0):  # the first step's
+            calls.append((x.detach().clone(), kernel.detach().clone(),
+                          None if bias is None else bias.detach().clone()))
+        return real_b3(x, kernel, bias)
+
+    kernels.reset_launch_counts()
+    step_losses = []
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    small_conv.conv3x3_small = recording
+    try:
+        events[0].record()
+        for i in range(n_steps):
+            def bf16_step():
+                return step(state, blocks_[i % TRAIN_BATCHES], init_metrics(cfg.num_classes, dev))
+
+            if i == 0:  # the untimed step: its collectives counted by what made them
+                exchanges, (state, _, ls) = count_exchanges(mesh.spatial_comm, bf16_step)
+            else:
+                state, _, ls = bf16_step()
+            events[i + 1].record()
+            step_losses.append(ls["loss"])
+        torch.cuda.synchronize()
+    finally:
+        small_conv.conv3x3_small = real_b3
+    counts = kernels.launch_counts()
+    add(counts)
+    if counts != expected(kernels, per, n_steps):
+        fail(f"{tag} {case} bf16 steps rank {rank}: launches {counts}")
+    step_losses = [float(v) for v in step_losses]
+    if not all(np.isfinite(step_losses)):
+        fail(f"{tag} {case} bf16 steps: losses {step_losses}")
+    if not same_on_every_rank(comm, train_tensors(state)):
+        fail(f"{tag} {case} bf16 steps: parameters or Adam moments differ between the "
+             f"ranks after {n_steps} steps")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
+    # rows are gathered into a level that runs whole, and by CSNet's merges
+    # (the coarse map centred in the skip's rows) at any height
+    if bool(exchanges.get("gather_rows")) != (first <= levels or name == "csnet"):
+        fail(f"{tag} {case}: {exchanges.get('gather_rows', 0)} row gathers in a step, levels "
+             f"{first} to {levels} whole")
+    del model, state
+    model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0).eval()
+    kernels.reset_launch_counts()
+    answer = Predictor(model, BATCH, rows, cfg.width, dtype=np.uint8,
+                       mesh=mesh)(np.ascontiguousarray(imgs[:, :rows]))
+    torch.cuda.synchronize()
+    pred_counts = kernels.launch_counts()
+    add(pred_counts)
+    if pred_counts != expected(kernels, PER_FORWARD[name], 1):
+        fail(f"{tag} {case} Predictor rank {rank}: launches {pred_counts}")
+    predictor = held_answer(comm, answer, predictor_ref(out_dir, name, rows),
+                            f"{tag} {case} Predictor")
+    del model
+    return {
+        "height": rows, "rows_per_rank": local,
+        "whole_levels": list(range(first, levels + 1)),
+        "f32": {"loss": float(losses["loss"]), "launches": f32_counts, "free_bytes": free},
+        "all_reduces_per_step": exchanges,
+        "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
+                 "step_ms_p50": float(np.median(step_ms)), "launches": counts,
+                 "params_and_moments_equal_across_ranks": True},
+        "predictor": {**predictor, "launches": pred_counts},
+    }, calls
+
+
+def count_exchanges(comm, fn) -> tuple:
+    """``(counts, fn())``: every all-reduce of ``comm`` in ``fn()`` counted
+    by what made it, read from the call stack: the halo exchanges of
+    ``parallel/halo.py`` (forward and backward), its row gathers, and the
+    others (the group sums of the SE means and the losses, the BN and B4
+    statistics, the gradient all-reduce). One step's worth, and an untimed
+    one: the stack walk is not free."""
     import traceback
 
     counts: dict = {}
@@ -3422,42 +3630,37 @@ def count_exchanges(comm, fn) -> dict:
 
     comm.all_reduce_ = counted
     try:
-        fn()
+        return counts, fn()
     finally:
         del comm.all_reduce_
-    return counts
 
 
 def spatial_rank(comm, out_dir: str) -> dict:
     """The ``spatial`` phase on one rank: the mesh of :func:`spatial_spec`
-    over the ``parallel`` phase's ranks. Per model (MTAN, basic at 128x256,
-    global batch 8, each rank its block): one f32 step (rank 0 saves its
+    over the ``parallel`` phase's ranks. Per model of ``SPATIAL_MODELS``
+    (MTAN, basic and CSNet at 128x256, global batch 8, each rank its block)
+    the checks of :func:`spatial_case`: the f32 step (rank 0 saves its
     gradients for :func:`parallel_phase` to hold to the one-process step),
-    then 1 + ``SPATIAL_BF16_STEPS`` bf16 steps after which every rank holds
-    the same parameters and Adam moments bit for bit, launches counted per
-    rank; B3 timed on the row blocks basic's step gave it; MTAN's
-    ``Predictor(8, mesh=)`` against the one-process answer; one MTAN epoch
-    of the training CLI over the mesh (:func:`rank_cli`). Then each case of
-    ``SPATIAL_UNEVEN`` (the batches' first rows: coarser levels that do not
-    split run whole): the f32 step, the bf16 steps, the collectives by kind,
-    ``Predictor(8, mesh=)``, B3 or B4 timed on its blocks. Returns the
+    the bf16 steps with every rank's parameters and Adam moments bit for
+    bit, launches counted per rank, the collectives by kind,
+    ``Predictor(8, mesh=)`` against the one-process answer; B3 timed on the
+    row blocks basic's and CSNet's steps gave it. Then one MTAN epoch of the
+    training CLI over the mesh (:func:`rank_cli`), B4's staged call on the
+    rank's blocks, and each case of ``SPATIAL_UNEVEN`` (the batches' first
+    rows: coarser levels that do not split run whole) through
+    :func:`spatial_case`, with B3 or B4 timed on its blocks. Returns the
     rank's record, its main-path launches under ``launches``."""
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
     from vision_mtl_tpu_torch.kernels import fused_gate_train, small_conv
-    from vision_mtl_tpu_torch.metrics import init_metrics
-    from vision_mtl_tpu_torch.models.registry import build_model
-    from vision_mtl_tpu_torch.parallel import halo
     from vision_mtl_tpu_torch.parallel.mesh import create_mesh
-    from vision_mtl_tpu_torch.serving import Predictor
-    from vision_mtl_tpu_torch.train.state import create_train_state
     from vision_mtl_tpu_torch.train.step import make_train_step
 
     t0 = time.perf_counter()
     cfg = fetch_data_cfg("cityscapes")
     spec = spatial_spec(comm.world)
     mesh = create_mesh(spec, comm)
-    dev, rank = mesh.device, comm.rank
+    dev = mesh.device
     step = make_train_step(device=dev, mesh=mesh)
     out = {"mesh": spec, "coords": mesh.coords(), "block": {
         "rows": str(mesh.batch_rows(BATCH)), "image_rows": str(mesh.image_rows(cfg.height))}}
@@ -3468,102 +3671,16 @@ def spatial_rank(comm, out_dir: str) -> dict:
             launches[k] += v
 
     (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
-    bf16_batches = [mesh.block(b) for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
+    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
     for name in SPATIAL_MODELS:
-        per = PER_SPATIAL_TRAIN_STEP[name]
-        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
-        state = create_train_state(model, LR, device=dev)
-        kernels.reset_launch_counts()
-        _, _, losses = step(state, mesh.block(batch), init_metrics(cfg.num_classes, dev))
-        torch.cuda.synchronize()
-        f32_counts = kernels.launch_counts()
-        add(f32_counts)
-        if f32_counts != expected(kernels, per, 1):
-            fail(f"spatial {name} f32 step rank {rank}: launches {f32_counts}")
-        if not same_on_every_rank(comm, [p.grad for p in model.parameters()]):
-            fail(f"spatial {name} f32 step: the all-reduced gradients differ between the ranks")
-        if rank == 0:
-            torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
-                        "loss": float(losses["loss"])},
-                       os.path.join(out_dir, f"spatial_{name}_f32_grads.pt"))
-        del model, state
-
-        model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
-        state = create_train_state(model, LR, device=dev)
-        n_steps = 1 + SPATIAL_BF16_STEPS
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
-        calls: list = []
-        real_b3 = small_conv.conv3x3_small
-
-        def recording(x, kernel, bias=None):
-            if len(calls) < per.get("conv3x3_small", 0):  # the first step's
-                calls.append((x.detach().clone(), kernel.detach().clone(),
-                              None if bias is None else bias.detach().clone()))
-            return real_b3(x, kernel, bias)
-
-        kernels.reset_launch_counts()
-        step_losses = []
-        small_conv.conv3x3_small = recording
-        try:
-            events[0].record()
-            for i in range(n_steps):
-                state, _, ls = step(state, bf16_batches[i % TRAIN_BATCHES],
-                                    init_metrics(cfg.num_classes, dev))
-                events[i + 1].record()
-                step_losses.append(ls["loss"])
-            torch.cuda.synchronize()
-        finally:
-            small_conv.conv3x3_small = real_b3
-        counts = kernels.launch_counts()
-        add(counts)
-        if counts != expected(kernels, per, n_steps):
-            fail(f"spatial {name} bf16 steps rank {rank}: launches {counts}")
-        step_losses = [float(v) for v in step_losses]
-        if not all(np.isfinite(step_losses)):
-            fail(f"spatial {name} bf16 steps: losses {step_losses}")
-        if not same_on_every_rank(comm, train_tensors(state)):
-            fail(f"spatial {name} bf16 steps: parameters or Adam moments differ between the "
-                 f"ranks after {n_steps} steps")
-        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
-        # one more step, its collectives counted by what made them (after
-        # the checks and counts above: it moves the weights on)
-        exchanges = count_exchanges(mesh.spatial_comm, lambda: step(
-            state, bf16_batches[0], init_metrics(cfg.num_classes, dev)))
-        kernels.reset_launch_counts()
-        out[name] = {"f32": {"loss": float(losses["loss"]), "launches": f32_counts},
-                     "all_reduces_per_step": exchanges,
-                     "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
-                              "step_ms_p50": float(np.median(step_ms)), "launches": counts,
-                              "params_and_moments_equal_across_ranks": True}}
+        t_case = time.perf_counter()
+        out[name], calls = spatial_case(mesh, step, "spatial", name, name, cfg.height,
+                                        PER_SPATIAL_TRAIN_STEP[name], out_dir, batch, imgs, add)
         if calls:  # B3 on this rank's row blocks, forward and dx
             comm.barrier()
             out[name]["conv3x3_small_row_blocks"] = time_recorded(
                 calls, small_conv.conv3x3_small, small_conv.conv3x3_small_plain)
-        del model, state
-
-    # MTAN's Predictor(8) over the ranks against the one-process Predictor(8)
-    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
-    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval()
-    kernels.reset_launch_counts()
-    answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
-    torch.cuda.synchronize()
-    pred_counts = kernels.launch_counts()
-    add(pred_counts)
-    if pred_counts != expected(kernels, PER_FORWARD["mtan"], 1):
-        fail(f"spatial Predictor rank {rank}: launches {pred_counts}")
-    ref = np.load(os.path.join(out_dir, "predictor_ref.npz"))
-    depth_err = float(np.abs(answer["depth"] - ref["depth"]).max())
-    mismatch = float((answer["segm"] != ref["segm"]).mean())
-    if answer["segm"].shape != ref["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
-            or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
-        fail(f"spatial Predictor rank {rank}: depth max |diff| {depth_err}, segm ids differ on "
-             f"{mismatch} of the pixels, from the one-process Predictor")
-    if not same_on_every_rank(comm, [torch.from_numpy(answer["depth"]).to(dev),
-                                     torch.from_numpy(answer["segm"]).to(dev).float()]):
-        fail("spatial Predictor: the ranks' answers differ")
-    out["predictor"] = {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
-                        "launches": pred_counts, "answers_equal_across_ranks": True}
-    del model
+        out[name]["case_s"] = time.perf_counter() - t_case
     # the training CLI over the same mesh: whole batches decoded, blocks kept
     out["cli"] = rank_cli(comm, out_dir, spec, "spatial_logs", "spatial")
     out["cli"].pop("state")
@@ -3576,99 +3693,8 @@ def spatial_rank(comm, out_dir: str) -> dict:
     # heights whose coarser levels do not split over the spatial ranks
     for case, (name, rows) in SPATIAL_UNEVEN.items():
         t_case = time.perf_counter()
-        per = PER_SPATIAL_TRAIN_STEP[name]
-        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0)
-        state = create_train_state(model, LR, device=dev)
-        kernels.reset_launch_counts()
-        _, _, losses = step(state, mesh.block(first_rows(batch, rows)),
-                            init_metrics(cfg.num_classes, dev))
-        torch.cuda.synchronize()
-        f32_counts = kernels.launch_counts()
-        add(f32_counts)
-        if f32_counts != expected(kernels, per, 1):
-            fail(f"spatial {case} f32 step rank {rank}: launches {f32_counts}")
-        if not same_on_every_rank(comm, [p.grad for p in model.parameters()]):
-            fail(f"spatial {case} f32 step: the all-reduced gradients differ between the ranks")
-        if rank == 0:
-            torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
-                        "loss": float(losses["loss"])},
-                       os.path.join(out_dir, f"spatial_{case}_f32_grads.pt"))
-        local = rows // mesh.size("spatial")
-        first = halo.first_whole_level(local)
-        levels = int(np.log2(model.row_stride))
-        del model, state
-
-        model = build_model(name, cfg, dtype=torch.bfloat16, device=dev, seed=0)
-        state = create_train_state(model, LR, device=dev)
-        n_steps = 1 + SPATIAL_BF16_STEPS
-        blocks_ = [mesh.block(first_rows(b, rows))
-                   for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
-        calls, real_b3 = [], small_conv.conv3x3_small
-
-        def recording(x, kernel, bias=None):
-            if len(calls) < per.get("conv3x3_small", 0):  # the first step's
-                calls.append((x.detach().clone(), kernel.detach().clone(),
-                              None if bias is None else bias.detach().clone()))
-            return real_b3(x, kernel, bias)
-
-        kernels.reset_launch_counts()
-        step_losses = []
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
-        small_conv.conv3x3_small = recording
-        try:
-            events[0].record()
-            for i in range(n_steps):
-                state, _, ls = step(state, blocks_[i % TRAIN_BATCHES],
-                                    init_metrics(cfg.num_classes, dev))
-                events[i + 1].record()
-                step_losses.append(ls["loss"])
-            torch.cuda.synchronize()
-        finally:
-            small_conv.conv3x3_small = real_b3
-        counts = kernels.launch_counts()
-        add(counts)
-        if counts != expected(kernels, per, n_steps):
-            fail(f"spatial {case} bf16 steps rank {rank}: launches {counts}")
-        step_losses = [float(v) for v in step_losses]
-        if not all(np.isfinite(step_losses)):
-            fail(f"spatial {case} bf16 steps: losses {step_losses}")
-        if not same_on_every_rank(comm, train_tensors(state)):
-            fail(f"spatial {case} bf16 steps: parameters or Adam moments differ between the "
-                 f"ranks after {n_steps} steps")
-        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
-        exchanges = count_exchanges(mesh.spatial_comm, lambda: step(
-            state, blocks_[0], init_metrics(cfg.num_classes, dev)))
-        if not exchanges.get("gather_rows"):
-            fail(f"spatial {case}: no row gather into a whole level in a step ({exchanges})")
-        del model, state
-        model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0).eval()
-        kernels.reset_launch_counts()
-        answer = Predictor(model, BATCH, rows, cfg.width, dtype=np.uint8,
-                           mesh=mesh)(np.ascontiguousarray(imgs[:, :rows]))
-        torch.cuda.synchronize()
-        pred_counts = kernels.launch_counts()
-        add(pred_counts)
-        if pred_counts != expected(kernels, PER_FORWARD[name], 1):
-            fail(f"spatial {case} Predictor rank {rank}: launches {pred_counts}")
-        want = np.load(os.path.join(out_dir, f"predictor_ref_{case}.npz"))
-        depth_err = float(np.abs(answer["depth"] - want["depth"]).max())
-        mismatch = float((answer["segm"] != want["segm"]).mean())
-        if answer["segm"].shape != want["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
-                or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
-            fail(f"spatial {case} Predictor rank {rank}: depth max |diff| {depth_err}, segm ids "
-                 f"differ on {mismatch} of the pixels, from the one-process Predictor")
-        del model
-        out[case] = {
-            "height": rows, "rows_per_rank": local,
-            "whole_levels": list(range(first, levels + 1)),
-            "f32": {"loss": float(losses["loss"]), "launches": f32_counts},
-            "all_reduces_per_step": exchanges,
-            "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
-                     "step_ms_p50": float(np.median(step_ms)), "launches": counts,
-                     "params_and_moments_equal_across_ranks": True},
-            "predictor": {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
-                          "launches": pred_counts},
-        }
+        out[case], calls = spatial_case(mesh, step, "spatial", case, name, rows,
+                                        PER_SPATIAL_TRAIN_STEP[name], out_dir, batch, imgs, add)
         comm.barrier()
         if calls:  # B3 on this height's row blocks, forward and dx
             out[case]["conv3x3_small_row_blocks"] = time_recorded(
@@ -3677,6 +3703,78 @@ def spatial_rank(comm, out_dir: str) -> dict:
             out[case]["gate_train_staged"] = rank_gate_times(
                 fused_gate_train, comm, dev, rows=BATCH // mesh.size("data"),
                 split_h=mesh.size("spatial"), height=rows)[1]
+        out[case]["case_s"] = time.perf_counter() - t_case
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def whole_level_gate_times(fused_gate, fused_gate_train, rows: int, level: int) -> dict:
+    """B1 and B4 at the gates of MTAN's ``level`` on its whole map at
+    ``rows`` image rows (batch 8, bf16 as the main path), the shapes of its
+    calls where that level runs whole over the spatial axis (B4's fused
+    call: no rank else holds other images): :func:`check_gate` and
+    :func:`check_gate_train` at those shapes, device times against their
+    plain versions', per forward or train step (two tasks a gate)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = [(name, cin, c2, h * rows // 128, w) for name, cin, c2, h, w in GATE_SHAPES
+              if GATE_LEVELS[name] == level]
+    bf16 = (torch.bfloat16,)
+    eval_rows, eval_totals = check_gate(dev, fused_gate, shapes, dtypes=bf16)
+    train_rows, train_totals = check_gate_train(dev, fused_gate_train, shapes, dtypes=bf16)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "err")
+    return {"level": level, "shapes": [list(sh) for sh in shapes],
+            "eval": {k: eval_totals[k] for k in keys}, "eval_rows": eval_rows,
+            "train": {k: train_totals[k] for k in keys}, "train_rows": train_rows}
+
+
+def spatial4_rank(comm, out_dir: str) -> dict:
+    """The ``spatial4`` phase on one rank of four (gloo ranks sharing one
+    card, or NCCL with a card each): MTAN at full width over ``spatial:4``,
+    each rank the whole global batch 8 and a quarter of its rows, at the
+    heights of ``SPATIAL4_CASES`` through :func:`spatial_case`. At 112 rows
+    (28 a rank) level 3 does not split and runs whole on every rank: its
+    four gates (enc3 and dec0, two tasks each) take B4's fused call on the
+    whole 14x32 map and the other twelve B4's staged call over the spatial
+    group; ``Predictor(8, mesh=)`` runs all 16 B1 calls, level 3's on the
+    whole map. At 128 rows (32 a rank) every level splits and all 16 gates
+    take the staged call. Then B1 and B4 at level 3's whole map against
+    their plain versions (:func:`whole_level_gate_times`, on rank 0 while
+    the others wait). Returns the rank's record, its main-path launches
+    under ``launches``."""
+    from vision_mtl_tpu_torch import kernels
+    from vision_mtl_tpu_torch.cfg import fetch_data_cfg
+    from vision_mtl_tpu_torch.kernels import fused_gate, fused_gate_train
+    from vision_mtl_tpu_torch.parallel.halo import first_whole_level
+    from vision_mtl_tpu_torch.parallel.mesh import create_mesh
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = fetch_data_cfg("cityscapes")
+    mesh = create_mesh("spatial:4", comm)
+    step = make_train_step(device=mesh.device, mesh=mesh)
+    out = {"mesh": "spatial:4", "coords": mesh.coords()}
+    launches = {name: 0 for name in kernels.KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
+    imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
+    for case, (name, rows) in SPATIAL4_CASES.items():
+        t_case = time.perf_counter()
+        per = spatial_gate_step(rows // 4)
+        out[case], _ = spatial_case(mesh, step, "spatial4", case, name, rows, per, out_dir,
+                                    batch, imgs, add)
+        out[case]["gates_per_step"] = per
+        first = first_whole_level(rows // 4)
+        if first <= max(GATE_LEVELS.values()):
+            comm.barrier()
+            if comm.rank == 0:
+                out[case]["gates_on_the_whole_level"] = whole_level_gate_times(
+                    fused_gate, fused_gate_train, rows, first)
+            comm.barrier()
         out[case]["case_s"] = time.perf_counter() - t_case
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t0
@@ -3784,14 +3882,14 @@ def state_bytes(state) -> int:
     return sum(t.numel() * t.element_size() for t in train_tensors(state))
 
 
-def count_model_collectives(comm, fn) -> dict:
-    """``fn()`` with every all-reduce of ``comm`` (the model group) counted
-    by what made it, read from the call stack's qualified names: the
-    copy-in's backward (the input gradient summed over the group), the
-    gather-out of a sharded layer's output channels, the gather of a whole
-    weight (``blocks.whole_param``: the gate's ``w1`` and ``w2`` in
-    ``GateChain`` and ``TaskGateChain``), and the others (where the group is every rank: the
-    replicated gradients' mean). One step's worth."""
+def count_model_collectives(comm, fn) -> tuple:
+    """``(counts, fn())``: every all-reduce of ``comm`` (the model group) in
+    ``fn()`` counted by what made it, read from the call stack's qualified
+    names: the copy-in's backward (the input gradient summed over the
+    group), the gather-out of a sharded layer's output channels, the gather
+    of a whole weight (``blocks.whole_param``: the gate's ``w1`` and ``w2``
+    in ``GateChain`` and ``TaskGateChain``), and the others (where the group
+    is every rank: the replicated gradients' mean). One step's worth."""
     counts: dict = {}
     real = comm.all_reduce_
 
@@ -3814,10 +3912,9 @@ def count_model_collectives(comm, fn) -> dict:
 
     comm.all_reduce_ = counted
     try:
-        fn()
+        return counts, fn()
     finally:
         del comm.all_reduce_
-    return counts
 
 
 def model_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
@@ -3877,9 +3974,9 @@ def model_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
                     fail(f"model-axis {g} gate {level} rank {mesh.rank}: max |diff| {err} from "
                          "its plain version")
                 mesh.comm.barrier()
-                totals[g]["ms"] += 2 * time_ms(kernel, iters=10, warmup=2)
+                totals[g]["ms"] += 2 * time_ms(kernel, iters=RANK_TIMED_CALLS, warmup=1)
                 mesh.comm.barrier()
-                totals[g]["plain_ms"] += 2 * time_ms(plain, iters=5, warmup=1)
+                totals[g]["plain_ms"] += 2 * time_ms(plain, iters=RANK_PLAIN_CALLS, warmup=1)
                 totals[g]["err"] = max(totals[g]["err"], err)
                 if sharded:
                     totals[g]["gathered_levels"].append(level)
@@ -3959,9 +4056,9 @@ def model_task_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
                     fail(f"model-axis task-axis {g} gate {level} rank {mesh.rank}: max |diff| "
                          f"{err} from its plain version")
                 mesh.comm.barrier()
-                totals[g]["ms"] += time_ms(kernel, iters=10, warmup=2)
+                totals[g]["ms"] += time_ms(kernel, iters=RANK_TIMED_CALLS, warmup=1)
                 mesh.comm.barrier()
-                totals[g]["plain_ms"] += time_ms(plain, iters=5, warmup=1)
+                totals[g]["plain_ms"] += time_ms(plain, iters=RANK_PLAIN_CALLS, warmup=1)
                 totals[g]["err"] = max(totals[g]["err"], err)
                 totals[g]["gathered"] += [f"{level}.{k}" for k, on in (("w1", w1s), ("w2", w2s))
                                           if on]
@@ -3979,25 +4076,24 @@ def model_task_gate_times(fused_gate, fused_gate_train, mesh, dev) -> dict:
 
 def model_rank(comm, out_dir: str) -> dict:
     """The ``model`` phase on one rank: the mesh of :func:`model_spec` over
-    the ``parallel`` phase's ranks. Per model (MTAN, basic at 128x256,
-    global batch 8, default ``min_size``): the state placed by
-    ``shard_state``, its parameter-and-moment bytes on this rank against
-    one process's; one f32 step (rank 0 saves the gradients, gathered
-    whole, for :func:`parallel_phase` to hold to the one-process step);
-    1 + ``MODEL_BF16_STEPS`` bf16 steps, after which every replicated leaf
-    and its moments hold the same bits on every rank and every sharded one
-    on the data ranks of its slice, launches counted per rank; one more
-    step with the model group's collectives counted by kind. Then MTAN's
-    ``Predictor(8, mesh=)`` of the sharded f32 model against the
-    one-process answer; one MTAN epoch of the training CLI over the mesh,
-    whose checkpoint holds the trained state gathered whole, bit for bit,
-    and whose one-process f32 ``Predictor`` answers as the same checkpoint
-    sharded over the mesh does; both gates with ``dec0``'s ``w1`` gathered
-    (rows 1m and 4m). The same per model for MTAN ``fold_tasks`` and basic
-    ``fold_tail`` (``MODEL_MODELS``), the folded MTAN's ``Predictor(8,
-    mesh=)``, and both task-axis gates with their sharded weights gathered
-    (rows 1bm and 4bm). Returns the rank's record, its main-path launches
-    under ``launches``."""
+    the ``parallel`` phase's ranks. Per model of ``MODEL_MODELS`` (MTAN,
+    basic and CSNet at 128x256, then MTAN ``fold_tasks`` and basic
+    ``fold_tail``; global batch 8, default ``min_size``): the state placed
+    by ``shard_state``, its parameter-and-moment bytes on this rank against
+    one process's; one f32 step after :func:`release_memory` (rank 0 saves
+    the gradients, gathered whole, for :func:`parallel_phase` to hold to the
+    one-process step); 1 + ``MODEL_BF16_STEPS`` bf16 steps, after which
+    every replicated leaf and its moments hold the same bits on every rank
+    and every sharded one on the data ranks of its slice, launches counted
+    per rank, the first step's model-group collectives counted by kind.
+    Then ``Predictor(8, mesh=)`` of the sharded f32 MTAN, CSNet and
+    folded MTAN against the one-process answers; one MTAN epoch of the
+    training CLI over the mesh, whose checkpoint holds the trained state
+    gathered whole, bit for bit, and whose one-process f32 ``Predictor``
+    answers as the same checkpoint sharded over the mesh does; both gates
+    with ``dec0``'s ``w1`` gathered (rows 1m and 4m) and both task-axis
+    gates with their sharded weights gathered (rows 1bm and 4bm). Returns
+    the rank's record, its main-path launches under ``launches``."""
     from vision_mtl_tpu_torch import kernels
     from vision_mtl_tpu_torch.cfg import fetch_data_cfg
     from vision_mtl_tpu_torch.kernels import fused_gate, fused_gate_train
@@ -4031,6 +4127,7 @@ def model_rank(comm, out_dir: str) -> dict:
     b4_tasks = "fused_attention_gate_train_ranks" if replicas is not None else \
         "fused_attention_gate_train_tasks"
     per_step = {"mtan": {b4: 16, "confusion_matrix": 1}, "basic": PER_TRAIN_STEP["basic"],
+                "csnet": PER_TRAIN_STEP["csnet"],
                 "mtan_fold_tasks": {b4_tasks: 8, "confusion_matrix": 1},
                 "basic_fold_tail": PER_TRAIN_STEP["basic_fold_tail"]}
 
@@ -4041,6 +4138,7 @@ def model_rank(comm, out_dir: str) -> dict:
     (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
     bf16_batches = [mesh.block(b) for b in train_batches(cfg, TRAIN_BATCHES, BATCH, seed=6)]
     for name in MODEL_MODELS:
+        t_case = time.perf_counter()
         per = per_step[name]
         base, options = model_variant(name)
         model = build_model(base, cfg, dtype=torch.float32, device=dev, seed=0, **options)
@@ -4048,6 +4146,7 @@ def model_rank(comm, out_dir: str) -> dict:
         one_process_bytes = 3 * 4 * param_count(state)
         state = shard_state(state, mesh)
         slices = model_slices(model)
+        free = release_memory(comm)
         kernels.reset_launch_counts()
         _, _, losses = step(state, mesh.block(batch), init_metrics(cfg.num_classes, dev))
         torch.cuda.synchronize()
@@ -4074,8 +4173,15 @@ def model_rank(comm, out_dir: str) -> dict:
         step_losses = []
         events[0].record()
         for i in range(n_steps):
-            state, _, ls = step(state, bf16_batches[i % TRAIN_BATCHES],
-                                init_metrics(cfg.num_classes, dev))
+            def bf16_step():
+                return step(state, bf16_batches[i % TRAIN_BATCHES],
+                            init_metrics(cfg.num_classes, dev))
+
+            if i == 0:  # the untimed step: the model group's collectives by kind
+                collectives, (state, _, ls) = count_model_collectives(mesh.model_comm,
+                                                                      bf16_step)
+            else:
+                state, _, ls = bf16_step()
             events[i + 1].record()
             step_losses.append(ls["loss"])
         torch.cuda.synchronize()
@@ -4094,65 +4200,41 @@ def model_rank(comm, out_dir: str) -> dict:
             fail(f"model-axis {name} bf16 steps: a slice's parameters or Adam moments differ "
                  f"between its data ranks after {n_steps} steps")
         step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, n_steps)]
-        # one more step, the model group's collectives counted by kind
-        collectives = count_model_collectives(mesh.model_comm, lambda: step(
-            state, bf16_batches[0], init_metrics(cfg.num_classes, dev)))
-        kernels.reset_launch_counts()
         out[name] = {
             "sharded_leaves": len(slices),
             "bytes": {"rank": rank_bytes, "one_process": one_process_bytes,
                       "share": rank_bytes / one_process_bytes},
-            "f32": {"loss": float(losses["loss"]), "launches": f32_counts},
+            "f32": {"loss": float(losses["loss"]), "launches": f32_counts, "free_bytes": free},
             "model_group_collectives_per_step": collectives,
             "bf16": {"steps": n_steps, "losses": step_losses, "step_ms": step_ms,
                      "step_ms_p50": float(np.median(step_ms)), "launches": counts,
                      "replicated_equal_across_ranks": True,
                      "sharded_equal_across_data_ranks": replicas is not None},
+            "case_s": time.perf_counter() - t_case,
         }
         del model, state
 
-    # MTAN's Predictor(8) of the sharded f32 model against one process's
+    # Predictor(8) of the sharded f32 models against one process's (fold_tasks:
+    # its seeded weights are the unfolded ones, so the one-process answer is
+    # the same)
     imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
-    ref = np.load(os.path.join(out_dir, "predictor_ref.npz"))
-
-    def held_answer(answer, want, what):
-        depth_err = float(np.abs(answer["depth"] - want["depth"]).max())
-        mismatch = float((answer["segm"] != want["segm"]).mean())
-        if answer["segm"].shape != want["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
-                or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
-            fail(f"model-axis {what} rank {rank}: depth max |diff| {depth_err}, segm ids differ "
-                 f"on {mismatch} of the pixels")
-        if not same_on_every_rank(comm, [torch.from_numpy(answer["depth"]).to(dev),
-                                         torch.from_numpy(answer["segm"]).to(dev).float()]):
-            fail(f"model-axis {what}: the ranks' answers differ")
-        return {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
-                "answers_equal_across_ranks": True}
-
-    model = shard_model(build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0).eval(),
-                        mesh)
-    kernels.reset_launch_counts()
-    answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
-    torch.cuda.synchronize()
-    pred_counts = kernels.launch_counts()
-    add(pred_counts)
-    if pred_counts != expected(kernels, PER_FORWARD["mtan"], 1):
-        fail(f"model-axis Predictor rank {rank}: launches {pred_counts}")
-    out["predictor"] = {**held_answer(answer, ref, "Predictor"), "launches": pred_counts}
-    del model
-    # the same with fold_tasks: its seeded weights are the unfolded ones, so
-    # the one-process answer is the same
-    model = shard_model(build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0,
-                                    fold_tasks=True).eval(), mesh)
-    kernels.reset_launch_counts()
-    answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
-    torch.cuda.synchronize()
-    pred_counts = kernels.launch_counts()
-    add(pred_counts)
-    if pred_counts != expected(kernels, PER_FORWARD["mtan_folded"], 1):
-        fail(f"model-axis fold_tasks Predictor rank {rank}: launches {pred_counts}")
-    out["predictor_fold_tasks"] = {**held_answer(answer, ref, "fold_tasks Predictor"),
-                                   "launches": pred_counts}
-    del model
+    for key, (name, options, per) in {
+            "predictor": ("mtan", {}, PER_FORWARD["mtan"]),
+            "predictor_csnet": ("csnet", {}, PER_FORWARD["csnet"]),
+            "predictor_fold_tasks": ("mtan", {"fold_tasks": True}, PER_FORWARD["mtan_folded"]),
+    }.items():
+        model = shard_model(build_model(name, cfg, dtype=torch.float32, device=dev, seed=0,
+                                        **options).eval(), mesh)
+        kernels.reset_launch_counts()
+        answer = Predictor(model, BATCH, cfg.height, cfg.width, dtype=np.uint8, mesh=mesh)(imgs)
+        torch.cuda.synchronize()
+        pred_counts = kernels.launch_counts()
+        add(pred_counts)
+        if pred_counts != expected(kernels, per, 1):
+            fail(f"model-axis {key} rank {rank}: launches {pred_counts}")
+        out[key] = {**held_answer(comm, answer, predictor_ref(out_dir, name, cfg.height),
+                                  f"model-axis {key}"), "launches": pred_counts}
+        del model
 
     # the training CLI over the mesh: its checkpoint is the trained state
     # gathered whole, and serves in one process as over the mesh
@@ -4182,7 +4264,8 @@ def model_rank(comm, out_dir: str) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     cli["checkpoint"] = {"holds_the_trained_state_bit_for_bit": True,
-                         "one_process_predictor": held_answer(got, want, "checkpoint Predictor")}
+                         "one_process_predictor": held_answer(comm, got, want,
+                                                            "model-axis checkpoint Predictor")}
     out["cli"] = cli
     del one, sharded
     out["gates_dec0_w1_gathered"] = model_gate_times(fused_gate, fused_gate_train, mesh, dev)
@@ -4199,8 +4282,9 @@ def parallel_rank(out_dir: str, phases=PARALLEL_PHASES) -> int:
     (``maybe_initialize_distributed``: gloo when the ranks share the one
     card, NCCL with a card each) and runs ``phases`` in order: ``parallel``
     (:func:`data_rank`), ``spatial`` (:func:`spatial_rank`), ``model``
-    (:func:`model_rank`); writes ``rank_{r}.json`` into ``out_dir`` and, on
-    rank 0, the f32 steps' gradients."""
+    (:func:`model_rank`), ``spatial4`` (:func:`spatial4_rank`, four ranks);
+    writes ``rank_{r}.json`` into ``out_dir`` and, on rank 0, the f32
+    steps' gradients."""
     import torch.distributed as dist
     from vision_mtl_tpu_torch.parallel import multihost
 
@@ -4217,6 +4301,8 @@ def parallel_rank(out_dir: str, phases=PARALLEL_PHASES) -> int:
         rec["spatial"] = spatial_rank(comm, out_dir)
     if "model" in phases:
         rec["model_axis"] = model_rank(comm, out_dir)
+    if "spatial4" in phases:
+        rec["spatial4"] = spatial4_rank(comm, out_dir)
     rec["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, f"rank_{comm.rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -4253,6 +4339,7 @@ def data_rank(comm, out_dir: str) -> dict:
     model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0)
     state = create_train_state(model, LR, device=dev)
     step = make_train_step(device=dev, mesh=mesh)
+    free = release_memory(comm)
     kernels.reset_launch_counts()
     _, _, losses = step(state, mine(batch), init_metrics(cfg.num_classes, dev))
     torch.cuda.synchronize()
@@ -4265,7 +4352,7 @@ def data_rank(comm, out_dir: str) -> dict:
         torch.save({"grads": {k: p.grad.double().cpu() for k, p in model.named_parameters()},
                     "loss": float(losses["loss"])}, os.path.join(out_dir, "f32_grads.pt"))
     rec["f32"] = {"loss": float(losses["loss"]), "launches": f32_counts,
-                  "grads_equal_across_ranks": True}
+                  "grads_equal_across_ranks": True, "free_bytes": free}
     del model, state
 
     # bf16 steps: every rank's parameters and Adam moments stay the same bits
@@ -4310,18 +4397,8 @@ def data_rank(comm, out_dir: str) -> dict:
     pred_counts = kernels.launch_counts()
     if pred_counts != expected(kernels, PER_FORWARD["mtan"], 1):
         fail(f"parallel Predictor rank {rank}: launches {pred_counts}")
-    ref = np.load(os.path.join(out_dir, "predictor_ref.npz"))
-    depth_err = float(np.abs(out["depth"] - ref["depth"]).max())
-    mismatch = float((out["segm"] != ref["segm"]).mean())
-    if out["segm"].shape != ref["segm"].shape or not depth_err <= PARALLEL_DEPTH_TOL \
-            or not mismatch <= PARALLEL_SEGM_MISMATCH_TOL:
-        fail(f"parallel Predictor rank {rank}: depth max |diff| {depth_err}, segm ids differ on "
-             f"{mismatch} of the pixels, from the one-process Predictor")
-    if not same_on_every_rank(comm, [torch.from_numpy(out["depth"]).to(dev),
-                                     torch.from_numpy(out["segm"]).to(dev).float()]):
-        fail("parallel Predictor: the ranks' answers differ")
-    rec["predictor"] = {"depth_max_abs_err": depth_err, "segm_mismatch_share": mismatch,
-                        "launches": pred_counts, "answers_equal_across_ranks": True}
+    rec["predictor"] = {**held_answer(comm, out, predictor_ref(out_dir, "mtan", cfg.height),
+                                      "parallel Predictor"), "launches": pred_counts}
     del model
 
     # the training CLI, in process, over the ranks
@@ -4332,17 +4409,25 @@ def data_rank(comm, out_dir: str) -> dict:
 
 def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
                    one_process_p50: dict, phases: tuple = PARALLEL_PHASES) -> tuple:
-    """The rank phases over :func:`parallel_world` ranks: the one-process
-    references first (the f32 steps of MTAN and basic on the global batch,
-    a ``Predictor(8)`` of the f32 MTAN), then the rank processes
-    (:func:`parallel_rank`) with torchrun's environment, which run
-    ``phases`` in order: ``parallel`` (the data axis), ``spatial`` and
-    ``model``. Each phase's f32 steps are held to the one-process step with
-    the limits of the f32 check against the CPU (``f32_limits``: per-leaf
-    and whole relative L2, ``ZERO_GRAD`` left out; ``f32_limits`` and
-    ``one_process_p50`` by model). Returns ``(lines, launches)``: each
+    """The rank phases: the one-process references first (the f32 step of
+    every model and height the phases train, on the global batch; the
+    ``Predictor(8)`` answer of each model's seeded f32 weights at each
+    height), then the rank processes (:func:`parallel_rank`) with
+    torchrun's environment, which run ``phases`` in order: ``parallel``
+    (the data axis), ``spatial``, ``model`` and ``spatial4``, over
+    :func:`parallel_world` ranks, a phase of ``PHASE_WORLD`` over its own
+    number (on one card a second launch after the first). Before each
+    launch this process gives its cached device memory back
+    (``torch.cuda.empty_cache``), so that the ranks' cuDNN finds the
+    workspace of its first choice of algorithm as the one-process steps
+    did. Each phase's f32 steps are held to the one-process step with the
+    limits of the f32 check against the CPU (``f32_limits``: per-leaf and
+    whole relative L2, ``ZERO_GRAD`` left out; ``f32_limits`` and
+    ``one_process_p50`` by model), the ``model`` phase's with no data axis
+    to ``MODEL_AXIS_F32_LIMITS``. Returns ``(lines, launches)``: each
     phase's JSON line and its ranks' main-path launches summed, keyed by
-    the line's name (``parallel``, ``spatial``, ``model_axis``)."""
+    the line's name (``parallel``, ``spatial``, ``model_axis``,
+    ``spatial4``)."""
     from vision_mtl_tpu_torch.metrics import init_metrics
     from vision_mtl_tpu_torch.parallel.multihost import free_port
     from vision_mtl_tpu_torch.serving import Predictor
@@ -4355,70 +4440,76 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
     if not os.path.isdir(os.path.join(CLI_DATA, "train")):
         write_cityscapes_tree(CLI_DATA, cfg)
     (batch,) = train_batches(cfg, 1, BATCH, seed=PARALLEL_BATCH_SEED)
-    model = build_model("mtan", cfg, dtype=torch.float32, device=dev, seed=0)
-    state = create_train_state(model, LR, device=dev)
-    _, _, losses = make_train_step(device=dev)(state, batch, init_metrics(cfg.num_classes, dev))
-    ref_grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
-    ref_loss = float(losses["loss"])
-    del model, state
-    refs = {"mtan": (ref_grads, ref_loss)}
+    # case -> (model, the batch's first rows) of every f32 step the phases hold
     cases = {**{name: (name, cfg.height) for name in SPATIAL_MODELS + MODEL_MODELS},
-             **SPATIAL_UNEVEN}
-    for case, (name, rows) in cases.items():
-        if case in refs:
-            continue
+             **SPATIAL_UNEVEN, **{f"spatial4_{c}": v for c, v in SPATIAL4_CASES.items()}}
+    steps: dict = {}
+    for name, rows in dict.fromkeys(cases.values()):
         base, options = model_variant(name)
         model = build_model(base, cfg, dtype=torch.float32, device=dev, seed=0, **options)
         state = create_train_state(model, LR, device=dev)
         _, _, losses = make_train_step(device=dev)(state, first_rows(batch, rows),
                                                    init_metrics(cfg.num_classes, dev))
-        refs[case] = ({k: p.grad.double().cpu() for k, p in model.named_parameters()},
-                      float(losses["loss"]))
+        steps[name, rows] = ({k: p.grad.double().cpu() for k, p in model.named_parameters()},
+                             float(losses["loss"]))
         del model, state
     # the seeded weights as built, as each rank builds them
     imgs = train_batches(cfg, 1, BATCH, seed=PARALLEL_PREDICT_SEED)[0]["img"].numpy()
-    for case, (name, rows) in {"": ("mtan", cfg.height), **SPATIAL_UNEVEN}.items():
+    for name, rows in dict.fromkeys(v for v in cases.values() if "_" not in v[0]):
         model = build_model(name, cfg, dtype=torch.float32, device=dev, seed=0).eval()
         ref_pred = Predictor(model, BATCH, rows, cfg.width, dtype=np.uint8, device=dev)(
             np.ascontiguousarray(imgs[:, :rows]))
-        np.savez(os.path.join(PARALLEL_DIR, f"predictor_ref{'_' if case else ''}{case}.npz"),
-                 **ref_pred)
+        np.savez(os.path.join(PARALLEL_DIR, f"predictor_ref_{name}_{rows}.npz"), **ref_pred)
         del model
     ref_s = time.perf_counter() - t_start
 
-    port, world = free_port(), parallel_world()
-    procs = []
-    for r in range(world):
-        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
-               "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
-               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
-        log = open(os.path.join(PARALLEL_DIR, f"rank_{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-c", PARALLEL_CODE, PARALLEL_DIR, *phases], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__))), log))
-    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
-    try:
-        while any(p.poll() is None for p, _ in procs) and time.monotonic() < deadline:
-            if any(p.poll() not in (None, 0) for p, _ in procs):
-                deadline = min(deadline, time.monotonic() + 30)  # the peer may be stuck
-            time.sleep(0.2)
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-            log.close()
-    codes = [p.returncode for p, _ in procs]
-    if any(codes):
-        tails = [open(os.path.join(PARALLEL_DIR, f"rank_{r}.log")).read()[-2500:]
-                 for r in range(world)]
-        fail(f"parallel: ranks exited {codes}: {tails}")
-    recs = [json.load(open(os.path.join(PARALLEL_DIR, f"rank_{r}.json")))
-            for r in range(world)]
-    def held(tag: str, path: str, name: str) -> dict:
+    released: dict = {}
+
+    def launch(world: int, group: list) -> list:
+        torch.cuda.synchronize()
+        released[world] = torch.cuda.memory_reserved()
+        torch.cuda.empty_cache()  # the ranks' cuDNN picks as this process did
+        port, procs = free_port(), []
+        for r in range(world):
+            env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
+                   "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+            log = open(os.path.join(PARALLEL_DIR, f"rank_{r}_of_{world}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", PARALLEL_CODE, PARALLEL_DIR, *group], env=env,
+                stdout=log, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))), log))
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p, _ in procs) and time.monotonic() < deadline:
+                if any(p.poll() not in (None, 0) for p, _ in procs):
+                    deadline = min(deadline, time.monotonic() + 30)  # the peer may be stuck
+                time.sleep(0.2)
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.close()
+        codes = [p.returncode for p, _ in procs]
+        if any(codes):
+            tails = [open(os.path.join(PARALLEL_DIR, f"rank_{r}_of_{world}.log")).read()[-2500:]
+                     for r in range(world)]
+            fail(f"parallel: {group} ranks exited {codes}: {tails}")
+        return [json.load(open(os.path.join(PARALLEL_DIR, f"rank_{r}.json")))
+                for r in range(world)]
+
+    world = parallel_world()
+    worlds = {phase: PHASE_WORLD.get(phase, world) for phase in phases}
+    recs_of: dict = {}
+    for n in dict.fromkeys(worlds.values()):
+        group = [phase for phase in phases if worlds[phase] == n]
+        recs_of.update(dict.fromkeys(group, launch(n, group)))
+
+    def held(tag: str, path: str, case: str, limits: dict = None) -> dict:
         got = torch.load(os.path.join(PARALLEL_DIR, path))
-        want_grads, want_loss = refs[name]
-        limits = f32_limits[cases[name][0].partition("_")[0]]
+        want_grads, want_loss = refs_of(case)
+        limits = limits or f32_limits[cases[case][0].partition("_")[0]]
 
         def tasked(grads):  # fold_tasks' leaves under ZERO_GRAD's per-task names
             return {k.replace("_folded.", "_task0."): v for k, v in grads.items()}
@@ -4433,9 +4524,19 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
         return {"loss_ranks": got["loss"], "loss_one_process": want_loss, "grad_rel_l2": whole,
                 "worst_leaves": worst, "limits": limits}
 
+    def refs_of(case: str) -> tuple:
+        return steps[cases[case]]
+
+    def bf16_line(recs_: list, rec: dict) -> dict:
+        return {"steps": rec["bf16"]["steps"], "losses": rec["bf16"]["losses"],
+                "step_ms_p50_ranks": [r["bf16"]["step_ms_p50"] for r in recs_],
+                "launches_per_rank": rec["bf16"]["launches"],
+                "params_and_moments_equal_across_ranks": True}
+
     lines: dict = {}
     launches: dict = {}
     if "parallel" in phases:
+        recs = recs_of["parallel"]
         f32_step = held("parallel", "f32_grads.pt", "mtan")
         launches["parallel"] = {name: sum(rec[path]["launches"][name] for rec in recs
                                           for path in ("f32", "bf16", "predictor", "cli"))
@@ -4459,28 +4560,28 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
                     for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
             "rank_init_s": [r["init_s"] for r in recs],
             "rank_total_s": [r["total_s"] for r in recs],
-            "references_s": ref_s, "launches": launches["parallel"],
+            "references_s": ref_s, "parent_bytes_released_before_launch": released,
+            "launches": launches["parallel"],
             "phase_s": time.perf_counter() - t_start,
         }
     if "spatial" in phases:
+        recs = recs_of["spatial"]
         launches["spatial"] = {name: sum(rec["spatial"]["launches"][name] for rec in recs)
                                for name in kernels.KERNELS}
         sp = [rec["spatial"] for rec in recs]
         lines["spatial"] = {
-            "mesh": sp[0]["mesh"], "ranks": world, "backend": recs[0]["backend"],
+            "mesh": sp[0]["mesh"], "ranks": len(recs), "backend": recs[0]["backend"],
             "blocks": [r["block"] for r in sp],
             **{name: {
                 "f32_step": {**held(f"spatial {name}", f"spatial_{name}_f32_grads.pt", name),
                              "launches_per_rank": sp[0][name]["f32"]["launches"]},
                 "all_reduces_per_step": sp[0][name]["all_reduces_per_step"],
-                "bf16_steps": {"steps": sp[0][name]["bf16"]["steps"],
-                               "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in sp],
-                               "step_ms_p50_one_process": one_process_p50[name],
-                               "losses": sp[0][name]["bf16"]["losses"],
-                               "launches_per_rank": sp[0][name]["bf16"]["launches"],
-                               "params_and_moments_equal_across_ranks": True},
+                "bf16_steps": {**bf16_line([r[name] for r in sp], sp[0][name]),
+                               "step_ms_p50_one_process": one_process_p50[name]},
+                "predictor_per_rank": [r[name]["predictor"] for r in sp],
                 **({"conv3x3_small_row_blocks_per_step": sp[0][name]["conv3x3_small_row_blocks"]}
                    if "conv3x3_small_row_blocks" in sp[0][name] else {}),
+                "case_s_per_rank": [r[name]["case_s"] for r in sp],
             } for name in SPATIAL_MODELS},
             "gate_train_staged_per_step": {k: sp[0]["gate_train_staged"][k] for k in
                                            ("ms", "plain_ms", "bound_ms", "bound_by", "err")},
@@ -4489,58 +4590,81 @@ def parallel_phase(cfg, kernels, dev, build_model, f32_limits: dict,
                                                "all_reduces_per_step")},
                 "f32_step": {**held(f"spatial {case}", f"spatial_{case}_f32_grads.pt", case),
                              "launches_per_rank": sp[0][case]["f32"]["launches"]},
-                "bf16_steps": {"steps": sp[0][case]["bf16"]["steps"],
-                               "step_ms_p50_ranks": [r[case]["bf16"]["step_ms_p50"] for r in sp],
-                               "losses": sp[0][case]["bf16"]["losses"],
-                               "launches_per_rank": sp[0][case]["bf16"]["launches"],
-                               "params_and_moments_equal_across_ranks": True},
+                "bf16_steps": bf16_line([r[case] for r in sp], sp[0][case]),
                 "predictor_per_rank": [r[case]["predictor"] for r in sp],
                 **{k: sp[0][case][k] for k in ("conv3x3_small_row_blocks", "gate_train_staged")
                    if k in sp[0][case]},
                 "case_s_per_rank": [r[case]["case_s"] for r in sp],
             } for case in SPATIAL_UNEVEN},
-            "predictor": sp[0]["predictor"],
             "cli": {k: sp[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths")},
             "launches": launches["spatial"],
             "rank_phase_s": [r["phase_s"] for r in sp],
         }
     if "model" in phases:
+        recs = recs_of["model"]
         mx = [rec["model_axis"] for rec in recs]
         launches["model_axis"] = {name: sum(r["launches"][name] for r in mx)
                                   for name in kernels.KERNELS}
         for r in mx:
-            share = r["mtan"]["bytes"]["share"]
-            if not abs(share - 0.536) <= 0.01:
-                fail(f"model-axis mtan: a rank holds {share} of one process's parameter and "
-                     "moment bytes, not 53.6% +- 1%")
+            for name in MODEL_MODELS:
+                share = r[name]["bytes"]["share"]
+                if not abs(share - MODEL_BYTE_SHARES[name]) <= 1e-3:
+                    fail(f"model-axis {name}: a rank holds {share} of one process's parameter "
+                         f"and moment bytes, not {MODEL_BYTE_SHARES[name]}")
+        # with no data axis no statistic is combined: the tight limits
+        limits = MODEL_AXIS_F32_LIMITS if mx[0]["replica_ranks"] == 1 else None
         lines["model_axis"] = {
-            "mesh": mx[0]["mesh"], "ranks": world, "backend": recs[0]["backend"],
+            "mesh": mx[0]["mesh"], "ranks": len(recs), "backend": recs[0]["backend"],
             "replica_ranks": mx[0]["replica_ranks"],
             **{name: {
                 "sharded_leaves": mx[0][name]["sharded_leaves"],
                 "bytes_per_rank": [r[name]["bytes"] for r in mx],
+                "bytes_share_expected": MODEL_BYTE_SHARES[name],
                 "f32_step": {**held(f"model-axis {name}", f"model_axis_{name}_f32_grads.pt",
-                                    name),
+                                    name, limits),
                              "launches_per_rank": mx[0][name]["f32"]["launches"]},
                 "model_group_collectives_per_step":
                     mx[0][name]["model_group_collectives_per_step"],
-                "bf16_steps": {"steps": mx[0][name]["bf16"]["steps"],
-                               "step_ms_p50_ranks": [r[name]["bf16"]["step_ms_p50"] for r in mx],
+                "bf16_steps": {**bf16_line([r[name] for r in mx], mx[0][name]),
                                "step_ms_p50_one_process": one_process_p50.get(name),
-                               "losses": mx[0][name]["bf16"]["losses"],
-                               "launches_per_rank": mx[0][name]["bf16"]["launches"],
-                               "replicated_equal_across_ranks": True,
                                "sharded_equal_across_data_ranks":
                                    mx[0][name]["bf16"]["sharded_equal_across_data_ranks"]},
+                "case_s_per_rank": [r[name]["case_s"] for r in mx],
             } for name in MODEL_MODELS},
-            "predictor": mx[0]["predictor"],
-            "predictor_fold_tasks": mx[0]["predictor_fold_tasks"],
+            **{k: mx[0][k] for k in ("predictor", "predictor_csnet", "predictor_fold_tasks")},
             "cli": {k: mx[0]["cli"][k] for k in ("argv", "wall_s", "run_dir", "loader_lengths",
                                                   "checkpoint")},
             "gates_dec0_w1_gathered": mx[0]["gates_dec0_w1_gathered"],
             "task_gates_weights_gathered": mx[0]["task_gates_weights_gathered"],
             "launches": launches["model_axis"],
             "rank_phase_s": [r["phase_s"] for r in mx],
+        }
+    if "spatial4" in phases:
+        recs = recs_of["spatial4"]
+        s4 = [rec["spatial4"] for rec in recs]
+        launches["spatial4"] = {name: sum(r["launches"][name] for r in s4)
+                                for name in kernels.KERNELS}
+        lines["spatial4"] = {
+            "mesh": s4[0]["mesh"], "ranks": len(recs), "backend": recs[0]["backend"],
+            "arrangement": (f"{len(recs)} ranks, one a card"
+                            if len(recs) <= torch.cuda.device_count()
+                            else f"{len(recs)} ranks sharing one card (not a scaling figure)"),
+            **{case: {
+                **{k: s4[0][case][k] for k in ("height", "rows_per_rank", "whole_levels",
+                                               "gates_per_step", "all_reduces_per_step")},
+                "f32_step": {**held(f"spatial4 {case}", f"spatial4_{case}_f32_grads.pt",
+                                    f"spatial4_{case}"),
+                             "launches_per_rank": s4[0][case]["f32"]["launches"]},
+                "bf16_steps": {**bf16_line([r[case] for r in s4], s4[0][case]),
+                               "step_ms_p50_one_process": one_process_p50["mtan"]},
+                "predictor_per_rank": [r[case]["predictor"] for r in s4],
+                **{k: s4[0][case][k] for k in ("gates_on_the_whole_level",)
+                   if k in s4[0][case]},
+                "case_s_per_rank": [r[case]["case_s"] for r in s4],
+            } for case in SPATIAL4_CASES},
+            "launches": launches["spatial4"],
+            "rank_phase_s": [r["phase_s"] for r in s4],
+            "rank_init_s": [r["init_s"] for r in recs],
         }
     return lines, launches
 
@@ -4585,7 +4709,7 @@ def main(argv: list) -> int:
     cfg = fetch_data_cfg("cityscapes")
     if parallel_only:
         limits, p50 = {}, {}
-        for name in SPATIAL_MODELS:
+        for name in ("mtan", "basic", "csnet"):
             f32 = check_train_step_against_cpu(name, cfg, build_model, dev)
             limits[name] = {k: f32[k] for k in ("rel_l2_limit", "leaf_limit")}
             p50[name] = train_model(name, cfg, build_model, dev, kernels)["step_ms_p50"]
@@ -4596,6 +4720,12 @@ def main(argv: list) -> int:
         return 0
     gate_rows, gate = check_gate(dev, fused_gate)
     print(json.dumps({"gate_shapes": gate_rows}), flush=True)
+    # seconds since the start at which each phase ended (the timing line)
+    done_at = {"build": build_s}
+
+    def done(phase: str) -> None:
+        done_at[phase] = time.perf_counter() - t_start
+
     if kernels_only:
         model = build_model("mtan", cfg, dtype=torch.bfloat16, device=dev, seed=0)
         main_ids = predict_eval("mtan", model, cfg, dev, kernels).pop("confmat_inputs")
@@ -4627,6 +4757,7 @@ def main(argv: list) -> int:
         "gate_per_forward": nyu_gate, "gate_train_per_step": nyu_gate_train,
         "small_conv_per_basic_step": nyu_conv, "small_conv_per_csnet_step": nyu_cs_conv}}),
         flush=True)
+    done("kernels")
 
     # the timed paths run first: after the CPU reference steps below, the
     # host launched the same train steps about 10% slower in this process
@@ -4653,17 +4784,23 @@ def main(argv: list) -> int:
     csnet_eval.pop("confmat_inputs")
     del model
     csnet_training = train_model("csnet", cfg, build_model, dev, kernels)
+    done("models")
     cli_lines, cli_launches, cli_run_dirs = cli_phase(cfg, kernels, dev, {
         "mtan": mtan_training["img_per_s"], "basic": basic_training["img_per_s"],
         "csnet": csnet_training["img_per_s"],
     })
+    done("cli")
     surface_line, surface_launches = surface_phase(cfg, kernels, dev, cli_run_dirs)
     print(json.dumps({"surface": surface_line}), flush=True)
+    done("surface")
     nyu_line, nyu_launches, nyu_ids = nyuv2_phase(
         kernels, dev, build_model, {k: cli_run_dirs[k] for k in ("mtan", "basic")})
+    done("nyuv2")
     interop_line, interop_launches = interop_phase(cfg, kernels, dev, build_model, fused_gate)
+    done("interop")
     options_line, task_gates, options_launches = options_phase(
         cfg, kernels, dev, build_model, fused_gate, fused_gate_train)
+    done("options")
     phases = cli_launches + [surface_launches] + nyu_launches + interop_launches + options_launches + [
         # every main-path run's launches
         serving["launches"], mtan_timing["launches"], mtan_eval["launches"],
@@ -4685,6 +4822,7 @@ def main(argv: list) -> int:
     nyu_mixes = check_confmat(confmat, nyu_classes,
                               confmat_mixes(dev, nyu_classes, nyu_ids, shape=tuple(nyu_ids[0].shape)))
     print(json.dumps({"confmat_mixes_nyuv2": nyu_mixes}), flush=True)
+    done("confmat")
 
     model_line = {
         "model": "mtan", "config": "cityscapes 128x256, 19 classes, bf16", "params": mtan_params,
@@ -4733,9 +4871,10 @@ def main(argv: list) -> int:
             cs_conv["fwd_ms"] / csnet_timing["forward_events_ms"],
     }
     print(json.dumps({"model": model_line}), flush=True)
+    csnet_f32 = check_train_step_against_cpu("csnet", cfg, build_model, dev)
     train_line = {
         "model": "csnet", "config": "cityscapes 128x256, 19 classes, bf16, batch 8, Adam lr 1e-3",
-        "reference_f32_step_vs_cpu": check_train_step_against_cpu("csnet", cfg, build_model, dev),
+        "reference_f32_step_vs_cpu": csnet_f32,
         **csnet_training,
         "small_conv_ms_per_step": cs_conv["ms"],
         "small_conv_bound_ms_per_step": cs_conv["bound_ms"],
@@ -4743,6 +4882,7 @@ def main(argv: list) -> int:
         "timed_paths_s": timed_s, "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"train": train_line}), flush=True)
+    done("f32_checks")
     for line in cli_lines:
         print(json.dumps({"cli": line}), flush=True)
     print(json.dumps({"nyuv2": nyu_line}), flush=True)
@@ -4752,10 +4892,12 @@ def main(argv: list) -> int:
     lines, rank_launches = parallel_phase(
         cfg, kernels, dev, build_model,
         {name: {k: f32[k] for k in ("rel_l2_limit", "leaf_limit")}
-         for name, f32 in (("mtan", mtan_f32), ("basic", basic_f32))},
-        {"mtan": mtan_training["step_ms_p50"], "basic": basic_training["step_ms_p50"]})
+         for name, f32 in (("mtan", mtan_f32), ("basic", basic_f32), ("csnet", csnet_f32))},
+        {"mtan": mtan_training["step_ms_p50"], "basic": basic_training["step_ms_p50"],
+         "csnet": csnet_training["step_ms_p50"]})
     for name, line in lines.items():
         print(json.dumps({name: line}), flush=True)
+    done("rank_phases")
     phases += list(rank_launches.values())
     parallel_line = lines["parallel"]
 
@@ -4860,8 +5002,8 @@ def main(argv: list) -> int:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on the main path")
     # the whole run's seconds, the kernels' build included
-    print(json.dumps({"timing": {"build_s": build_s, "total_s": time.perf_counter() - t_start}}),
-          flush=True)
+    print(json.dumps({"timing": {"build_s": build_s, "total_s": time.perf_counter() - t_start,
+                                 "phases_done_at_s": done_at}}), flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,9 @@ one torch thread, f32, tiny shapes. Held here:
     running variances with torch's n/(n-1), which counts the rows);
     replicated leaves bit for bit on all four ranks, sharded leaves and
     their Adam moments across the data ranks of a slice;
+  * the three axes at once: tiny MTAN under ``data:2,spatial:2,model:2``
+    (eight ranks) in f64 against one process, and each rank's groups
+    against JAX's device array for the same spec;
   * checkpoints written under the mesh against a one-process save, and
     restored into one process and back under ``model:2``;
   * ``run_pipe``, the predict sweep, ``Predictor`` and
@@ -518,6 +521,84 @@ def test_train_step_over_data_and_model_matches_one_process(name):
         assert torch.equal(_bits(a for i, a in enumerate(first[4]) if names[i // 2] in first[5]),
                            _bits(a for i, a in enumerate(second[4])
                                  if names[i // 2] in second[5]))
+
+
+# ---- the three axes at once ---------------------------------------------------------
+
+#: f64: loss (relative), the gathered gradient (relative L2 over every
+#: leaf), the running statistics (absolute, torch's n/(n-1) on)
+THREE_AXES_LOSS_RTOL, THREE_AXES_GRAD_REL_L2, THREE_AXES_STATS_ATOL = 1e-12, 1e-10, 1e-12
+
+
+def _members(comm, rank):
+    """The global ranks of ``comm`` in its order (``[rank]`` for None)."""
+    if comm is None:
+        return [rank]
+    return [v - 1 for v in comm.host_all_reduce(
+        [rank + 1 if i == comm.rank else 0 for i in range(comm.world)], "sum")]
+
+
+def _three_axes_step(batch, m=None):
+    model = _tiny("mtan", torch.float64)
+    state = create_train_state(model, 1e-3, device="cpu")
+    if m is not None:
+        state = mesh.shard_state(state, m, min_size=0)
+    block = m.block(batch) if m is not None else batch
+    _, _, losses = make_train_step(device="cpu", mesh=m)(state, block, init_metrics(NC, "cpu"))
+    slices = mesh.model_slices(model)
+    grads = torch.cat([(slices[k].gather(p.grad) if k in slices else p.grad).reshape(-1)
+                       for k, p in model.named_parameters()])
+    weights = torch.cat([v.reshape(-1) for v in mesh.full_state_dict(model).values()])
+    groups = None
+    if m is not None:
+        groups = {"coords": m.coords(), **{
+            axis: _members(getattr(m, f"{axis}_comm"), m.rank)
+            for axis in ("data", "spatial", "model", "replica")}}
+    return (float(losses["loss"]), grads, dict(model.named_buffers()), weights, len(slices),
+            groups)
+
+
+def test_three_axes_at_once_match_one_process():
+    """Tiny MTAN under ``data:2,spatial:2,model:2``: eight thread ranks,
+    each two of the batch's four images, half their rows (8 of 16: every
+    level splits) and half the output channels of every leaf that
+    ``shard_state(min_size=0)`` shards. One f64 train step against the
+    port's one-process step with torch's unbiased running variance on: the
+    loss, the gradient gathered whole, the running statistics, and every
+    rank's weights gathered whole, bit for bit. Each rank's groups hold the
+    ranks of JAX's ``create_mesh("data:2,spatial:2,model:2")`` device array
+    along their axes, in its order: ``spatial_comm`` and ``model_comm`` one
+    axis each, ``data_comm`` the data axis, ``replica_comm`` the data and
+    spatial axes (row-major)."""
+    spec = "data:2,spatial:2,model:2"
+    rng = np.random.default_rng(13)
+    n, h, w = 4, 16, 16
+    batch = {"img": torch.from_numpy(rng.uniform(size=(n, h, w, 3))),
+             "mask": torch.from_numpy(rng.integers(0, NC, (n, h, w)).astype(np.int32)),
+             "depth": torch.from_numpy(rng.uniform(0.1, 1.0, (n, h, w, 1)))}
+    blocks.set_torch_bn_running_var(True)
+    try:
+        want = _three_axes_step(batch)
+        got = on_mesh(lambda m: _three_axes_step(batch, m), spec)
+    finally:
+        blocks.set_torch_bn_running_var(False)
+    devices = jax.devices()[:8]
+    ids = np.vectorize(devices.index, otypes=[int])(
+        jax_mesh.create_mesh(spec, devices).devices)
+    assert ids.shape == (2, 2, 2)
+    for r, (loss, grads, stats, weights, n_sliced, groups) in enumerate(got):
+        assert n_sliced > 0
+        assert loss == pytest.approx(want[0], rel=THREE_AXES_LOSS_RTOL)
+        assert float((grads - want[1]).norm() / want[1].norm()) <= THREE_AXES_GRAD_REL_L2
+        for k, v in want[2].items():
+            assert float((stats[k] - v).abs().max()) <= THREE_AXES_STATS_ATOL, k
+        assert torch.equal(weights.view(torch.int64), got[0][3].view(torch.int64))
+        (d, s, m_), = np.argwhere(ids == r)
+        assert groups["coords"] == {"data": d, "spatial": s, "model": m_}
+        assert groups["data"] == ids[:, s, m_].tolist()
+        assert groups["spatial"] == ids[d, :, m_].tolist()
+        assert groups["model"] == ids[d, s, :].tolist()
+        assert groups["replica"] == ids[:, :, m_].reshape(-1).tolist()
 
 
 # ---- checkpoints -------------------------------------------------------------------

@@ -32,6 +32,8 @@ one torch thread, f32, tiny shapes. Held here:
 """
 
 import argparse
+import collections
+import functools
 import json
 import os
 import threading
@@ -65,6 +67,7 @@ from vision_mtl_tpu_torch.metrics import compute_metrics, init_metrics, reduce_m
 from vision_mtl_tpu_torch.models import blocks
 from vision_mtl_tpu_torch.models.basic import BasicMTLModel
 from vision_mtl_tpu_torch.models.cross_stitch import CSNet
+from vision_mtl_tpu_torch.models import mtan
 from vision_mtl_tpu_torch.models.mtan import MTANMiniUnet
 from vision_mtl_tpu_torch.ops import fold, interpolate
 from vision_mtl_tpu_torch.parallel import halo, mesh, multihost
@@ -458,13 +461,31 @@ def test_mtan_step_over_levels_that_do_not_split_matches_jax():
     each gradient leaf within ``GRAD_RTOL`` of its largest magnitude plus
     ``GRAD_ATOL`` of the model's largest gradient, the running statistics
     within 1e-5; every rank's weights after Adam bit for bit equal."""
+    _mtan_uneven_step_against_jax("data:2,spatial:2", 6, 2)
+
+
+def test_mtan_gates_on_a_whole_level_match_jax():
+    """Tiny MTAN at 12x16 under ``spatial:4``: a rank holds 3 rows of level
+    0, so level 1 (6 rows) does not split four ways and runs whole on every
+    rank, and with it the gates of level 1 (``enc_attn_1`` and
+    ``dec_attn_0``, two tasks each), which take B4's fused entry on the
+    whole 6x8 map (no rank holds other images); level 0's gates take the
+    staged entry over the four ranks. Against JAX's train-mode forward and
+    gradient under ``create_mesh("spatial:4")``, where GSPMD pads level 1,
+    as the test above holds ``data:2,spatial:2``."""
+    _mtan_uneven_step_against_jax("spatial:4", 3, 1)
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_uneven_setup():
+    """Tiny MTAN's JAX module, a seeded 12x16 batch and weights, and its
+    jitted train-mode reference (traced once for every mesh it runs on)."""
     jmodel = JaxMTAN(map_tasks_to_num_channels=TASKS, dtype=jnp.float32, **MTAN_KW)
     rng = np.random.default_rng(17)
     batch = {k: v for k, v in _eval_batch(rng, hw=(12, 16)).items() if k != "valid"}
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), jnp.asarray(batch["img"]),
                                                 train=False))
     variables = {coll: _fill(tree, rng, coll) for coll, tree in shapes.items()}
-    assert halo.first_whole_level(12 // 2) == 2
 
     def loss_fn(params, batch_stats, b):
         losses, post, new_stats = jax_step._forward_and_losses(
@@ -479,7 +500,17 @@ def test_mtan_step_over_levels_that_do_not_split_matches_jax():
                                     post["depth_predictions"], b["depth"], losses)
         return losses, grads, new_stats, jax_compute_metrics(mstate)
 
-    jm = jax_mesh.create_mesh("data:2,spatial:2", jax.devices()[:4])
+    return batch, variables, reference
+
+
+def _mtan_uneven_step_against_jax(spec, rows, first_whole):
+    """Tiny MTAN's f32 train step at 12x16 under ``spec`` (four ranks, each
+    ``rows`` image rows; level ``first_whole`` and up run whole) against
+    JAX's (``test_mtan_step_over_levels_that_do_not_split_matches_jax``)."""
+    batch, variables, reference = _jax_uneven_setup()
+    assert halo.first_whole_level(rows) == first_whole
+
+    jm = jax_mesh.create_mesh(spec, jax.devices()[:4])
     jlosses, jgrads, jstats, jmetrics = reference(
         variables["params"], variables["batch_stats"], jax_mesh.put_batch(batch, jm))
     want_metrics = {k: float(v) for k, v in jmetrics.items()}
@@ -503,7 +534,7 @@ def test_mtan_step_over_levels_that_do_not_split_matches_jax():
                 {k: p.grad for k, p in model.named_parameters()}, dict(model.named_buffers()),
                 torch.cat([p.detach().reshape(-1) for p in model.parameters()]))
 
-    got = on_mesh(rank, "data:2,spatial:2")
+    got = on_mesh(rank, spec)
     top = max(float(g.detach().abs().max()) for g in want_grads.values())
     for loss, metrics_, grads, stats, weights in got:
         assert loss == pytest.approx(float(jlosses["loss"]), rel=1e-4)
@@ -555,7 +586,12 @@ def test_step_over_levels_that_do_not_split_matches_one_process(case):
     the gradient (gathered whole beside the ``model`` axis, ``min_size=0``),
     the running statistics; every rank's weights, gathered whole, bit for
     bit equal."""
-    name, spec, n, h, w = UNEVEN_CASES[case]
+    _hold_uneven_step(*UNEVEN_CASES[case])
+
+
+def _hold_uneven_step(name, spec, n, h, w):
+    """``name``'s f64 train step under ``spec`` against the port's
+    one-process step (``test_step_over_levels_that_do_not_split_matches_one_process``)."""
     rng = np.random.default_rng(13)
     batch = {"img": torch.from_numpy(rng.uniform(size=(n, h, w, 3))),
              "mask": torch.from_numpy(rng.integers(0, NC, (n, h, w)).astype(np.int32)),
@@ -573,6 +609,49 @@ def test_step_over_levels_that_do_not_split_matches_one_process(case):
         for k, v in want[2].items():
             assert float((stats[k] - v).abs().max()) <= UNEVEN_STATS_ATOL, k
         assert torch.equal(weights.view(torch.int64), got[0][3].view(torch.int64))
+
+
+#: case -> (model, mesh, global batch, H, W, the replica group's ranks): at
+#: 12 rows over spatial:4 a rank holds 3 rows of level 0 and level 1's 6 rows
+#: do not split, so its gates run on the whole map
+GATED_WHOLE_CASES = {
+    "mtan_remat_attention-spatial:4": ("mtan_remat_attention", "spatial:4", 4, 12, 16, 4),
+    "mtan-data:2,spatial:4": ("mtan", "data:2,spatial:4", 4, 12, 16, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(GATED_WHOLE_CASES))
+def test_gates_on_a_level_that_does_not_split_match_one_process(case, monkeypatch):
+    """Tiny MTAN at 12x16: a rank of the four-way spatial group holds 3 rows
+    of level 0, so level 1 (6 rows) does not split and runs whole, and with
+    it level 1's gates (``enc_attn_1`` and ``dec_attn_0``, two tasks each),
+    B4 on the whole 6x8 map. Under ``spatial:4`` they take the fused entry
+    on every rank (``batch_comm()`` is None: no rank holds other images),
+    and ``remat_attention``'s recompute runs every gate twice; under
+    ``data:2,spatial:4`` (eight ranks) the staged entry over the data
+    group. Level 0's gates (``enc_attn_0``, ``dec_attn_1``) take the staged
+    entry over the replica group. Each gate call's rows and group are
+    recorded; the f64 step is held to the port's one-process step as
+    ``test_step_over_levels_that_do_not_split_matches_one_process`` holds
+    its cases (loss, gradient, running statistics with torch's n/(n-1),
+    every rank's weights bit for bit)."""
+    name, spec, n, h, w, replicas = GATED_WHOLE_CASES[case]
+    calls = []
+    real = mtan.fused_attention_gate_train
+
+    def recorded(x, *args, comm=None, **kw):
+        calls.append((x.shape[1], comm.world if comm is not None else 1))
+        return real(x, *args, comm=comm, **kw)
+
+    monkeypatch.setattr(mtan, "fused_attention_gate_train", recorded)
+    _hold_uneven_step(name, spec, n, h, w)
+    # four gates a level: the one-process step's on the whole 12- and 6-row
+    # maps, then each rank's (remat_attention: each gate twice)
+    k = 4 * (2 if "remat" in name else 1)
+    want = collections.Counter({(12, 1): k, (3, replicas): k * replicas})
+    want[6, 1] += k
+    want[6, replicas // 4] += k * replicas  # the data group at the whole level
+    assert collections.Counter(calls) == want
 
 
 # ---- B4, the refusals, loading, serving ------------------------------------------
