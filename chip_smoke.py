@@ -47,8 +47,9 @@ for bit the same across two bf16 train steps of that model, which stays
 in train mode, while a new ``Predictor`` answers otherwise;
 ``utils.profiling.trace`` around two more train steps, whose Chrome trace
 must hold B4's and B2's kernels (run once more if it came back empty),
-timed by ``StepTimer``; ``get_segm_preds`` on the card against the CPU on
-the model's logits (probabilities to 1e-6, ids exact). matplotlib and
+each step synchronised and timed by ``time.perf_counter``;
+``get_segm_preds`` on the card against the CPU on the model's logits
+(probabilities to 1e-6, ids exact). matplotlib and
 tensorboard are optional: the phase prints which are installed, and where
 one is absent its sink is the JAX package's best-effort no-op.
 
@@ -1720,8 +1721,9 @@ def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
     ``Predictor`` of the tuned model held bit for bit across two train steps
     of that model (it serves a snapshot); ``utils.profiling.trace`` around
     two more train steps, whose Chrome trace must hold B4's and B2's
-    kernels, timed by ``StepTimer``; ``get_segm_preds`` on the card against
-    the CPU on the model's own logits. matplotlib and tensorboard are
+    kernels, each step synchronised and timed by ``time.perf_counter``;
+    ``get_segm_preds`` on the card against the CPU on the model's own
+    logits. matplotlib and tensorboard are
     optional: where one is absent the plot or histogram sink is a no-op, as
     in JAX, and the line says so. Returns the ``surface`` line and its
     launches."""
@@ -1738,7 +1740,7 @@ def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
     from vision_mtl_tpu_torch.train.state import create_train_state
     from vision_mtl_tpu_torch.train.step import make_train_step
     from vision_mtl_tpu_torch.utils.inference import get_segm_preds
-    from vision_mtl_tpu_torch.utils.profiling import StepTimer, trace
+    from vision_mtl_tpu_torch.utils.profiling import trace
 
     present = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "tensorboard")}
     sinks = {
@@ -1869,23 +1871,22 @@ def surface_phase(cfg, kernels, dev, cli_run_dirs: dict) -> tuple:
     if c3_counts != want:
         fail(f"surface C3: launches {c3_counts}, want {want}")
 
-    # two train steps under utils.profiling.trace, timed by StepTimer
+    # two train steps under utils.profiling.trace, each synchronised and timed
     trace_dir = os.path.join(CLI_LOGS, "surface_trace")
     trace_runs = []
     mark = kernels.launch_counts()
     for attempt in range(2):
         shutil.rmtree(trace_dir, ignore_errors=True)
-        timer = StepTimer()
         with trace(trace_dir):
             torch.cuda.synchronize()
-            timer.tick(0)
+            start = time.perf_counter()
             for batch in batches[2:]:
                 state, mstate, losses = step(state, batch, mstate)
                 torch.cuda.synchronize()
-                timer.tick(BATCH)
+            elapsed = time.perf_counter() - start
         events = chrome_kernel_events(trace_dir)
         trace_runs.append({"kernel_events": sum(events.values()),
-                           "img_per_s": timer.images_per_sec})
+                           "img_per_s": len(batches[2:]) * BATCH / elapsed})
         if events:
             break
     b4 = sum(n for name, n in events.items() if "gate_train_kernel" in name)

@@ -1,14 +1,12 @@
 """The port's ``vis``, ``utils/inference``, ``utils/debug`` and
 ``utils/profiling`` against the JAX package's on the CPU: masks coloured
 exactly, figures rasterised pixel for pixel alike, ``get_segm_preds`` to
-1e-6 with exact ids, the debug helpers' lookups, errors and printout, the
-step timer under one clock, and a profiler trace that holds an annotated
-region."""
+1e-6 with exact ids, the debug helpers' lookups, errors and printout, and a
+profiler trace that holds a span's region."""
 
 import glob
 import json
 import os
-import time
 
 import matplotlib
 
@@ -22,7 +20,6 @@ import torch  # noqa: E402
 from vision_mtl_tpu import vis as jax_vis  # noqa: E402
 from vision_mtl_tpu.cfg import cityscapes_data_cfg  # noqa: E402
 from vision_mtl_tpu.utils import debug as jax_debug  # noqa: E402
-from vision_mtl_tpu.utils import profiling as jax_profiling  # noqa: E402
 from vision_mtl_tpu.utils.inference import get_segm_preds as jax_get_segm_preds  # noqa: E402
 from vision_mtl_tpu_torch import vis  # noqa: E402
 from vision_mtl_tpu_torch.cfg import cfg  # noqa: E402
@@ -139,25 +136,14 @@ def test_print_sample_stats_matches_jax(rng, capsys):
     assert capsys.readouterr().out == want
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    """Under one clock both timers report the same images per second,
-    windowed the same way."""
-    times = np.cumsum(np.random.default_rng(0).uniform(0.01, 0.2, size=20)).tolist()
-    port, want = profiling.StepTimer(window=5), jax_profiling.StepTimer(window=5)
-    assert port.images_per_sec == want.images_per_sec == 0.0
-    for i, now in enumerate(times):
-        monkeypatch.setattr(time, "perf_counter", lambda now=now: now)
-        port.tick(8 + i % 3)
-        want.tick(8 + i % 3)
-        assert port.images_per_sec == want.images_per_sec
-    assert port.images_per_sec > 0 and len(port._times) == 6
-
-
 def test_trace_writes_an_annotated_chrome_trace(tmp_path):
+    profiling.clear_spans()
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("vmtl_region"):
+        with profiling.span("vmtl_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = glob.glob(os.path.join(tmp_path, "*.json"))
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
     assert any(e.get("name") == "vmtl_region" for e in events)
+    assert [s.name for s in profiling.spans()] == ["vmtl_region"]
+    profiling.clear_spans()

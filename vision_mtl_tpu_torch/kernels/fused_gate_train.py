@@ -62,6 +62,7 @@ import torch
 from vision_mtl_tpu_torch.kernels._build import EntryPoint, LaunchCounter, load
 from vision_mtl_tpu_torch.kernels.fused_gate import check_gate_args, tf32_matmul
 from vision_mtl_tpu_torch.parallel.multihost import Comm, all_gather_exact, combine_moments
+from vision_mtl_tpu_torch.utils.profiling import span
 
 SOURCE = "gate_train"
 
@@ -314,6 +315,11 @@ class _FusedGateTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, *_):
+        with span("gate.backward", device_time=True):
+            return _FusedGateTrain._backward(ctx, dout)
+
+    @staticmethod
+    def _backward(ctx, dout):
         saved = ctx.saved_tensors
         x, shared = saved[:2]
         if x.dim() == 4:

@@ -45,6 +45,7 @@ from torch import nn
 
 from vision_mtl_tpu_torch.device import resolve_device
 from vision_mtl_tpu_torch.train.step import make_predict_step, predict_outputs
+from vision_mtl_tpu_torch.utils.profiling import span
 
 
 class Predictor:
@@ -172,7 +173,10 @@ class BatchingServer:
     a batch (asynchronous on the card) and hands the in-flight outputs to a
     fetch thread that copies them to the host and resolves the futures.
     ``max_in_flight`` bounds the dispatch-ahead depth so a slow fetch
-    backpressures the queue instead of piling device work.
+    backpressures the queue instead of piling device work. :meth:`stats`
+    times the worker's dispatches and its waits on that bound; while a
+    profiler session is on, each dispatch records a ``serve.dispatch`` span
+    (``utils/profiling.span``) with the batch's number.
 
     Thread-safe; use as a context manager or call :meth:`close`.
 
@@ -218,7 +222,12 @@ class BatchingServer:
             "batches": 0,
             "batched_images": 0,
             "padded_slots": 0,
+            "dispatch_s": 0.0,
+            "dispatch_cpu_s": 0.0,
+            "inflight_wait_s": 0.0,
         }
+        self._stats_since = time.perf_counter()
+        self._dispatched = 0  # batches the worker has taken: its spans' ``batch`` id
         # dispatched-but-unfetched batches; bounded so dispatch backpressures
         self._inflight: "queue.Queue[t.Optional[tuple]]" = queue.Queue(maxsize=max_in_flight)
         if self._comm is not None and self._comm.rank != 0:
@@ -269,14 +278,22 @@ class BatchingServer:
             pred.fetch(*pred.dispatch(dummy))
 
     def reset_stats(self) -> None:
-        """Zero the request/batch/occupancy counters (e.g. after warm-up)."""
+        """Zero the counters (e.g. after warm-up)."""
         with self._lock:
-            for k in self._stats:
-                self._stats[k] = 0
+            for k, v in self._stats.items():
+                self._stats[k] = type(v)()
+            self._stats_since = time.perf_counter()
 
     def stats(self) -> t.Dict[str, float]:
+        """The counters since construction or :meth:`reset_stats`: requests
+        taken; batches dispatched, the images they carried and their padded
+        slots; ``dispatch_s``, the worker's host seconds dispatching them
+        (stack, pad, pin, copy and the forward's launch);
+        ``inflight_wait_s``, its seconds blocked by ``max_in_flight``;
+        ``seconds`` since the counters started; ``mean_batch_occupancy``."""
         with self._lock:
             s = dict(self._stats)
+            s["seconds"] = time.perf_counter() - self._stats_since
         s["mean_batch_occupancy"] = s["batched_images"] / max(
             1, s["batched_images"] + s["padded_slots"]
         )
@@ -364,20 +381,31 @@ class BatchingServer:
         thread. Blocks only when ``max_in_flight`` batches are unfetched."""
         n = len(pending)
         bucket = next(b for b in self._buckets if b >= n)
-        imgs = np.stack([img for img, _ in pending], axis=0)
-        try:
-            if self._comm is not None:
-                self._comm.broadcast_object((bucket, imgs))
-            out, _ = self._predictors[bucket].dispatch(imgs)
-        except Exception as e:  # resolve, don't kill the worker
-            for _, fut in pending:
-                self._resolve(fut, exc=e)
-            return
+        self._dispatched += 1
+        start, start_cpu = time.perf_counter(), time.thread_time()
+        with span("serve.dispatch", batch=self._dispatched):
+            imgs = np.stack([img for img, _ in pending], axis=0)
+            try:
+                if self._comm is not None:
+                    self._comm.broadcast_object((bucket, imgs))
+                out, _ = self._predictors[bucket].dispatch(imgs)
+            except Exception as e:  # resolve, don't kill the worker
+                for _, fut in pending:
+                    self._resolve(fut, exc=e)
+                return
+        dispatch_cpu_s = time.thread_time() - start_cpu
+        dispatch_s = time.perf_counter() - start
         with self._lock:
             self._stats["batches"] += 1
             self._stats["batched_images"] += n
             self._stats["padded_slots"] += bucket - n
+            self._stats["dispatch_s"] += dispatch_s
+            self._stats["dispatch_cpu_s"] += dispatch_cpu_s
+        start = time.perf_counter()
         self._inflight.put((bucket, out, pending))
+        wait_s = time.perf_counter() - start
+        with self._lock:
+            self._stats["inflight_wait_s"] += wait_s
 
     def _run_fetch(self) -> None:
         while True:

@@ -7,7 +7,10 @@ decode -> train-mode forward -> postprocess -> losses -> backward -> Adam
 step -> metric update; it runs with autograd on. The eval and predict steps
 run under ``torch.inference_mode``. Each step sets the model's mode for its
 own forward and restores it after. Steps return without synchronising:
-reading a result on the host is the sync.
+reading a result on the host is the sync. While a profiler session is on,
+the train step records the spans ``train.step`` and, inside it,
+``train.forward`` (forward, postprocess, losses), ``train.backward`` and
+``train.optimizer`` (``utils/profiling.span``).
 
 Given a ``mesh`` of several ranks (``parallel/mesh.py``), each rank's step
 takes its own block of the global batch (its rows, and under ``spatial``
@@ -49,6 +52,7 @@ from vision_mtl_tpu_torch.parallel.halo import spatial_rows
 from vision_mtl_tpu_torch.parallel.mesh import model_slices
 from vision_mtl_tpu_torch.parallel.multihost import Comm, global_batch
 from vision_mtl_tpu_torch.train.state import TrainState
+from vision_mtl_tpu_torch.utils.profiling import span
 
 Batch = t.Dict[str, torch.Tensor]
 Losses = t.Dict[str, torch.Tensor]
@@ -216,15 +220,17 @@ def make_train_step(
     seed = 1.0 / (grad_accum_steps * (comm.world if comm is not None else 1))
 
     def micro(model: nn.Module, mb: Batch, mstate: MetricState) -> t.Tuple[Losses, MetricState]:
-        with _rows(mesh):
-            post = postprocess_raw_out(model(mb["img"]))
-        losses = _losses(post, mb, loss_segm_weight, loss_depth_weight)
-        (losses["loss"] * seed).backward()
+        with span("train.forward", device_time=True):
+            with _rows(mesh):
+                post = postprocess_raw_out(model(mb["img"]))
+            losses = _losses(post, mb, loss_segm_weight, loss_depth_weight)
+        with span("train.backward", device_time=True):
+            (losses["loss"] * seed).backward()
         with torch.no_grad():  # the metric state keeps no graph alive
             losses = {k: v.detach() for k, v in losses.items()}
             return losses, _update(mstate, post, mb, losses)
 
-    def step(state: TrainState, batch: Batch, mstate: MetricState):
+    def run(state: TrainState, batch: Batch, mstate: MetricState):
         batch = _to_device(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
         with _mode(state.model, True), global_batch(comm):
@@ -253,11 +259,16 @@ def make_train_step(
                     loss_segm_sum=mstate.loss_segm_sum - losses["loss_segm"] * (k - 1),
                     loss_depth_sum=mstate.loss_depth_sum - losses["loss_depth"] * (k - 1),
                 )
-        if mesh is not None and mesh.world > 1:
-            reduce_grads(state.model, mesh)
-        state.optimizer.step()
+        with span("train.optimizer", device_time=True):
+            if mesh is not None and mesh.world > 1:
+                reduce_grads(state.model, mesh)
+            state.optimizer.step()
         state.step += 1
         return state, mstate, losses
+
+    def step(state: TrainState, batch: Batch, mstate: MetricState):
+        with span("train.step"):
+            return run(state, batch, mstate)
 
     return step
 
