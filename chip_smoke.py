@@ -342,13 +342,16 @@ PER_FORWARD = {
     "mtan_folded_remat": {"fused_attention_gate_tasks": 8},
     "basic_fold_tail": {"conv3x3_small": 1},
 }
+BACKWARD = "fused_attention_gate_train_backward"  # B4's backward kernel: one call
+# per gate call of a step (a rematerialised gate's recompute adds none)
 PER_TRAIN_STEP = {
-    "mtan": {"fused_attention_gate_train": 16, "confusion_matrix": 1},
+    "mtan": {"fused_attention_gate_train": 16, BACKWARD: 16, "confusion_matrix": 1},
     "basic": {"conv3x3_small": 8, "confusion_matrix": 1},  # 4 forward, 4 dx
     "csnet": {"conv3x3_small": 24, "confusion_matrix": 1},  # 12 forward, 12 dx
-    "mtan_folded": {"fused_attention_gate_train_tasks": 8, "confusion_matrix": 1},
+    "mtan_folded": {"fused_attention_gate_train_tasks": 8, BACKWARD: 8, "confusion_matrix": 1},
     # remat_attention's recompute relaunches each level's gate
-    "mtan_folded_remat": {"fused_attention_gate_train_tasks": 16, "confusion_matrix": 1},
+    "mtan_folded_remat": {"fused_attention_gate_train_tasks": 16, BACKWARD: 8,
+                          "confusion_matrix": 1},
     "basic_fold_tail": {"conv3x3_small": 2, "confusion_matrix": 1},
 }
 LR = 1e-3
@@ -702,17 +705,35 @@ def check_gate_split(fused_gate_train, args: tuple, fused: tuple) -> dict:
             "halves_stats_max_abs_err": stat_err}
 
 
+def clear_of_the_kink(x, w1, b1, scale1, bias1, eps: float = 1e-5) -> None:
+    """Moves BN1's beta (``bias1``, in place) so that each channel's relu
+    threshold, h^ = -beta / gamma, lies mid-way in the widest gap of that
+    channel's h^ values (f64) within 0.5 of where it was: at a pixel within
+    rounding of the threshold two f32 computations of the gate's gradient
+    decide the relu apart, and the gradient jumps there. BN1's statistics do
+    not depend on beta."""
+    h = x.reshape(-1, x.shape[-1]).double() @ w1.double() + b1.double()
+    var, mean = torch.var_mean(h, 0, unbiased=False)
+    hhat = ((h - mean) / torch.sqrt(var + eps)).sort(0).values
+    target = -bias1.double() / scale1.double()
+    gaps, mids = hhat[1:] - hhat[:-1], (hhat[1:] + hhat[:-1]) / 2
+    best = torch.where((mids - target).abs() < 0.5, gaps, 0.0).argmax(0, keepdim=True)
+    bias1.copy_((-mids.gather(0, best)[0] * scale1.double()).float())
+
+
 def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES,
                      split: bool = False,
                      dtypes: tuple = (torch.bfloat16, torch.float32)) -> tuple:
     """The train-mode gate against its plain version at the MTAN gate
     shapes: output, the four statistics, and the same bits from a second
-    launch; and the time of its backward (PyTorch ops). ``split``: also its
-    staged call across ranks (:func:`check_gate_split`)."""
+    launch; its backward kernel's gradients against the plain backward's,
+    and the kernel's time beside that version's and its bound. ``split``:
+    also its staged call across ranks (:func:`check_gate_split`)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     rows = []
     totals = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "bound_f32_ms": 0.0, "bound_design_ms": 0.0, "backward_ms": 0.0, "err": 0.0}
+              "bound_f32_ms": 0.0, "bound_design_ms": 0.0, "backward_ms": 0.0,
+              "backward_plain_ms": 0.0, "backward_bound_ms": 0.0, "err": 0.0}
     by_flops = by_bytes = 0.0
     slower_than_plain = []
     for level, cin, c2, h, w in shapes:
@@ -728,6 +749,7 @@ def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES,
                 uniform(HIDDEN, c2, bound=HIDDEN**-0.5), uniform(c2, bound=HIDDEN**-0.5),
                 uniform(c2) * 0.5 + 1.0, uniform(c2, bound=0.3),
             )
+            clear_of_the_kink(*args[:1], *args[2:6])
             with torch.no_grad():
                 got = fused_gate_train.fused_attention_gate_train(*args)
                 again = fused_gate_train.fused_attention_gate_train(*args)
@@ -796,21 +818,46 @@ def check_gate_train(dev, fused_gate_train, shapes: list = GATE_SHAPES,
                     row["staged_across_ranks"] = split_row
             if row["ms"] > row["plain_ms"]:
                 slower_than_plain.append(f"{level} {row['dtype']}")
-            # the Function's backward (PyTorch ops), timed as forward +
-            # backward less the forward
-            leaves = [a.detach().requires_grad_() for a in args]
+            # the backward kernel: its ten gradients held to the plain
+            # backward's on the card, its time against that version's and
+            # against its bound (x, shared, dout read, dx and dshared
+            # written once; its six products once each at 3xTF32)
             cot = torch.randn(got[0].shape, generator=gen, device=dev).to(dtype)
-
-            def forward_backward():
-                out = fused_gate_train.fused_attention_gate_train(*leaves)[0]
-                torch.autograd.grad(out, leaves, cot)
-
-            row["backward_ms"] = time_ms(forward_backward) - row["events_ms"]
+            saved = (*args, *got[1:])
+            grads = fused_gate_train._launch_backward(
+                1e-5, cot[None], args[0][None], args[1], *(v[None] for v in saved[2:]))
+            plain_grads = fused_gate_train._gate_backward(1e-5, cot, *saved)
+            torch.cuda.synchronize()
+            top = max(float(v.abs().max()) for v in plain_grads)
+            grad_err = 0.0
+            for i, (g, r) in enumerate(zip(grads, plain_grads)):
+                g, r = g.float().reshape(r.shape), r.float()
+                d = float((g - r).abs().max())
+                # b1, b2: 0 up to rounding (a batch-statistic BN follows)
+                limit = 1e-4 * (top if i in (3, 7) else float(r.abs().max())) + 1e-6
+                if g.dtype != r.dtype or i in (0, 1) and dtype == torch.bfloat16:
+                    limit += float(r.abs().max()) * 2**-7
+                if not d <= limit:
+                    fail(f"fused_attention_gate_train backward {level} {dtype}: gradient {i} "
+                         f"max |diff| {d} from the plain backward")
+                if i not in (3, 7):
+                    grad_err = max(grad_err, d / max(float(r.abs().max()), 1e-30))
+            nbytes_bwd = args[0].element_size() * n * (2 * cin + 3 * c2)
+            flops_bwd = 2.0 * n * ((2 if x_bf16 else 3) * 2 * cin * HIDDEN + 3 * cin * HIDDEN
+                                   + 9 * HIDDEN * c2)
+            row["backward_bound_ms"], row["backward_bound_by"] = bound(
+                nbytes_bwd, flops_bwd, TF32_TC_FLOPS_PER_S)
+            row["backward_ms"] = time_ms(lambda: fused_gate_train._launch_backward(
+                1e-5, cot[None], args[0][None], args[1], *(v[None] for v in saved[2:])))
+            row["backward_plain_ms"] = time_ms(
+                lambda: fused_gate_train._gate_backward(1e-5, cot, *saved), iters=5)
+            row["backward_max_rel_err"] = grad_err
             rows.append(row)
             totals["err"] = max(totals["err"], err)
             if dtype == torch.bfloat16:  # the main path's dtype: 2 tasks per level
                 for k in ("ms", "events_ms", "plain_ms", "bound_ms", "bound_f32_ms",
-                          "bound_design_ms", "backward_ms"):
+                          "bound_design_ms", "backward_ms", "backward_plain_ms",
+                          "backward_bound_ms"):
                     totals[k] += 2 * row[k]
                 by_flops += 2 * tc_flops / TF32_TC_FLOPS_PER_S
                 by_bytes += 2 * nbytes / HBM_BYTES_PER_S
@@ -2771,7 +2818,7 @@ REMAT_CONFIGS = {
 # of block_4's; CSNet: both convs of blocks 3 and 4, per task); no kernel
 # sits in the encoder's blocks or the shared DoubleConvs
 PER_REMAT_STEP = {
-    "mtan": {"fused_attention_gate_train": 32, "confusion_matrix": 1},
+    "mtan": {"fused_attention_gate_train": 32, BACKWARD: 16, "confusion_matrix": 1},
     "basic": {"conv3x3_small": 11, "confusion_matrix": 1},
     "csnet": {"conv3x3_small": 32, "confusion_matrix": 1},
 }
@@ -3233,7 +3280,8 @@ PARALLEL_TIMEOUT_S = 600
 # rank phases (after one untimed)
 RANK_TIMED_CALLS, RANK_PLAIN_CALLS = 5, 3
 # a train step of MTAN under ranks: its 16 gates take B4's staged call
-PER_RANK_TRAIN_STEP = {"fused_attention_gate_train_ranks": 16, "confusion_matrix": 1}
+PER_RANK_TRAIN_STEP = {"fused_attention_gate_train_ranks": 16, BACKWARD: 16,
+                       "confusion_matrix": 1}
 # Predictor(8, mesh=) against the one-process Predictor(8), f32 weights: the
 # ranks' convolutions see 4 images, not 8, and cuDNN may sum in another order
 PARALLEL_DEPTH_TOL = 1e-4
@@ -3487,7 +3535,7 @@ def spatial_gate_step(rows: int) -> dict:
     whole = 2 * sum(level >= first_whole_level(rows) for level in GATE_LEVELS.values())
     return {"fused_attention_gate_train": whole,
             "fused_attention_gate_train_ranks": 2 * len(GATE_LEVELS) - whole,
-            "confusion_matrix": 1}
+            BACKWARD: 2 * len(GATE_LEVELS), "confusion_matrix": 1}
 
 
 def spatial_case(mesh, step, tag: str, case: str, name: str, rows: int, per: dict,
@@ -4127,9 +4175,9 @@ def model_rank(comm, out_dir: str) -> dict:
         "fused_attention_gate_train"
     b4_tasks = "fused_attention_gate_train_ranks" if replicas is not None else \
         "fused_attention_gate_train_tasks"
-    per_step = {"mtan": {b4: 16, "confusion_matrix": 1}, "basic": PER_TRAIN_STEP["basic"],
-                "csnet": PER_TRAIN_STEP["csnet"],
-                "mtan_fold_tasks": {b4_tasks: 8, "confusion_matrix": 1},
+    per_step = {"mtan": {b4: 16, BACKWARD: 16, "confusion_matrix": 1},
+                "basic": PER_TRAIN_STEP["basic"], "csnet": PER_TRAIN_STEP["csnet"],
+                "mtan_fold_tasks": {b4_tasks: 8, BACKWARD: 8, "confusion_matrix": 1},
                 "basic_fold_tail": PER_TRAIN_STEP["basic_fold_tail"]}
 
     def add(counts):
@@ -4845,6 +4893,8 @@ def main(argv: list) -> int:
         "gate_train_bound_design_ms_per_step": gate_train["bound_design_ms"],
         "gate_train_levels_slower_than_plain": gate_train["slower_than_plain"],
         "gate_train_backward_ms_per_step": gate_train["backward_ms"],
+        "gate_train_backward_plain_ms_per_step": gate_train["backward_plain_ms"],
+        "gate_train_backward_bound_ms_per_step": gate_train["backward_bound_ms"],
         "gate_train_share_of_step_events": gate_train["ms"] / mtan_training["step_ms_p50"],
     }
     print(json.dumps({"train": train_line}), flush=True)
@@ -4942,6 +4992,16 @@ def main(argv: list) -> int:
             "launches": launches["fused_attention_gate_train"], "max_abs_err": gate_train["err"],
             "ms": gate_train["ms"], "plain_ms": gate_train["plain_ms"],
             "bound_ms": gate_train["bound_ms"], "bound_by": gate_train["bound_by"],
+            "library_ms": None,
+        },
+        # its backward, per MTAN train step: the 8 levels' bf16 calls, twice
+        {
+            "name": "fused_attention_gate_train_backward", "route": "cuda",
+            "source": "vision_mtl_tpu_torch/csrc/gate_train_backward.cu",
+            "replaces": "no TPU kernel (XLA differentiates fused_gate.py:240,279)",
+            "launches": launches["fused_attention_gate_train_backward"],
+            "ms": gate_train["backward_ms"], "plain_ms": gate_train["backward_plain_ms"],
+            "bound_ms": gate_train["backward_bound_ms"], "bound_by": "operations",
             "library_ms": None,
         },
         # the task axis (fold_tasks): per MTAN forward and train step, the

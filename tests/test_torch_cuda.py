@@ -504,8 +504,9 @@ def test_train_gate_staged_across_ranks(cuda, shape, dtype):
     its passes): with one rank bit for bit the fused call; with two, the
     rows cut in halves, against the plain version on all the rows, the same
     statistics on both ranks; its launches counted by ``ranks``, not by the
-    fused call's counter. (Its backward is PyTorch ops, the plain split's:
-    the CPU tests and chip_smoke.py's two rank processes run it.)"""
+    fused call's counter. (Its backward's staged call with one rank:
+    ``test_train_gate_backward_kernel_bits``; with two, chip_smoke.py's rank
+    processes, since a backward under thread ranks would deadlock.)"""
     from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup
 
     args = _train_gate_args(cuda, dtype, *shape)
@@ -522,6 +523,193 @@ def test_train_gate_staged_across_ranks(cuda, shape, dtype):
     want = fused_gate_train.fused_attention_gate_train_plain(*args)
     _assert_train_gate_close((torch.cat([halves[0][0], halves[1][0]]), *halves[0][1:]), want)
     assert all(torch.equal(a, b) for a, b in zip(halves[0][1:], halves[1][1:]))
+
+
+def clear_of_the_kink(stacked, eps=1e-5):
+    """Moves each task's BN1 beta (``bias1``, in place) so that the relu's
+    threshold of each channel, h^ = -beta / gamma, falls in the middle of
+    the widest gap between that channel's h^ values (f64) within 0.5 of
+    where it was. The gradient jumps where a pixel's h^ meets the
+    threshold, and at a pixel within rounding of it f32 arithmetic of any
+    kind (the kernel's, cuBLAS's) and f64 decide the relu apart; BN1's
+    statistics do not depend on beta. The gaps are 1e-4 and wider at these
+    tests' sizes, against f32 errors near 1e-6."""
+    x, _, w1, b1, scale1, bias1 = stacked[:6]
+    for t in range(x.shape[0]):
+        h = x[t].reshape(-1, x.shape[-1]).double() @ w1[t].double() + b1[t].double()
+        var, mean = torch.var_mean(h, 0, unbiased=False)
+        hhat = ((h - mean) / torch.sqrt(var + eps)).sort(0).values
+        target = -bias1[t].double() / scale1[t].double()
+        gaps, mids = hhat[1:] - hhat[:-1], (hhat[1:] + hhat[:-1]) / 2
+        best = torch.where((mids - target).abs() < 0.5, gaps, 0.0).argmax(0, keepdim=True)
+        if hhat.shape[0] > 1:
+            bias1[t] = (-mids.gather(0, best)[0] * scale1[t].double()).float()
+
+
+def _backward_case(dev, dtype, n_tasks, b, h, w, cin, hidden, c2, seed=0):
+    """The backward kernel's inputs: task-axis x, shared, weights (BN1's
+    beta clear of the relu's kink), the kernel forward's statistics, and a
+    cotangent in shared's dtype."""
+    stacked, _ = _tasks_of(
+        n_tasks, lambda t: _train_gate_args(dev, dtype, b, h, w, cin, hidden, c2, seed=seed + t))
+    clear_of_the_kink(stacked)
+    with torch.no_grad():
+        out, *stats = fused_gate_train.fused_attention_gate_train_tasks(*stacked)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    return dout, stacked, stats
+
+
+def _assert_backward_close(got, want):
+    """The kernel's ten gradients against ``_gate_backward`` in f64. f32
+    results: within 1e-4 of the largest element (the limit of the
+    Function's backward tests; the kernel's products are 3xTF32, its sums
+    f32 within a block and f64 across blocks, in another order than the
+    reference). dx and dshared in bf16: one bf16 rounding step of each
+    element besides. b1 and b2 (indices 3 and 7): 0 up to rounding, as a
+    batch-statistic BN follows them, so bounded by 1e-4 of the largest
+    gradient of the call."""
+    top = max(float(w.abs().max()) for w in want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        a = a.detach().cpu().double().reshape(w.shape)
+        diff = (a - w).abs()
+        if i in (3, 7):
+            assert max(float(a.abs().max()), float(w.abs().max())) <= 1e-4 * top, i
+            continue
+        scale = float(w.abs().max())
+        limit = 1e-4 * scale + 1e-6
+        if got[i].dtype == torch.bfloat16:
+            assert bool((diff <= w.abs() * 2**-7 + limit).all()), i
+        else:
+            assert float(diff.max()) <= limit, (i, float(diff.max()), scale)
+
+
+# ragged N around the 64- and 128-row tiles and the small-N switch (8,320
+# rows: 64-row tiles; 8,321: 128), and at N = 17,407 several tiles a block
+# of the 264; Cin 3 and 33 (x staged element by element, dx written element
+# by element at odd Cin), 640 (five 128-wide columns of dx); C2 4, 12 and
+# 512 (four 128-wide slices of da), hidden 8 and 128
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 5, 7, 3, 8, 4),
+        (2, 9, 13, 33, 128, 12),
+        (1, 31, 1, 640, 128, 256),
+        (3, 3, 11, 64, 8, 512),
+        (1, 1, 129, 64, 128, 32),
+        (1, 1, 8320, 256, 128, 64),
+        (1, 1, 8321, 64, 128, 32),
+        (1, 59, 295, 20, 16, 12),
+    ],
+)
+@pytest.mark.parametrize("n_tasks", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_backward_kernel_matches_f64(cuda, shape, n_tasks, dtype):
+    """The backward kernel's ten gradients against the plain backward in
+    f64 on the CPU, on the kernel forward's statistics; one count of its
+    counter a call."""
+    dout, stacked, stats = _backward_case(cuda, dtype, n_tasks, *shape)
+    before = fused_gate_train.backward.launches.value
+    got = fused_gate_train._launch_backward(1e-5, dout, *stacked, *stats)
+    torch.cuda.synchronize()
+    assert fused_gate_train.backward.launches.value == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    f64 = [v.detach().cpu().double() for v in (dout, *stacked, *stats)]
+    want = fused_gate_train._gate_backward_tasks(1e-5, f64[0], *f64[1:])
+    _assert_backward_close(got, want)
+
+
+# MTAN's eight gates, (Cin, C2), at batch 2 of 128x256's levels
+@pytest.mark.parametrize(
+    "level,cin,c2,h,w",
+    [("enc0", 3, 32, 128, 256), ("enc1", 64, 64, 64, 128), ("enc2", 128, 128, 32, 64),
+     ("enc3", 256, 256, 16, 32), ("dec0", 640, 256, 16, 32), ("dec1", 384, 128, 32, 64),
+     ("dec2", 256, 64, 64, 128), ("dec3", 192, 32, 128, 256)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_backward_kernel_at_mtan_gates(cuda, level, cin, c2, h, w, dtype):
+    dout, stacked, stats = _backward_case(cuda, dtype, 2, 2, h, w, cin, 128, c2)
+    got = fused_gate_train._launch_backward(1e-5, dout, *stacked, *stats)
+    torch.cuda.synchronize()
+    f64 = [v.detach().cpu().double() for v in (dout, *stacked, *stats)]
+    _assert_backward_close(got, fused_gate_train._gate_backward_tasks(1e-5, f64[0], *f64[1:]))
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 13, 33, 128, 12), (1, 1, 8321, 640, 128, 256),
+                                   (2, 64, 128, 3, 128, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_backward_kernel_bits(cuda, shape, dtype):
+    """The same bits from a second call; each task of a T = 3 call bit for
+    bit its own T = 1 call (dshared aside: the tasks' sum); the staged call
+    with one rank bit for bit the fused call."""
+    from vision_mtl_tpu_torch.parallel.multihost import ThreadComm, ThreadGroup
+
+    dout, stacked, stats = _backward_case(cuda, dtype, 3, *shape)
+    got = fused_gate_train._launch_backward(1e-5, dout, *stacked, *stats)
+    again = fused_gate_train._launch_backward(1e-5, dout, *stacked, *stats)
+    one = fused_gate_train._launch_backward(1e-5, dout, *stacked, *stats,
+                                            comm=ThreadComm(ThreadGroup(1), 0, cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+    for t in range(3):
+        alone = fused_gate_train._launch_backward(
+            1e-5, dout[t:t + 1], stacked[0][t:t + 1], stacked[1],
+            *(v[t:t + 1] for v in stacked[2:]), *(s[t:t + 1] for s in stats))
+        for i, (a, b) in enumerate(zip(got, alone)):
+            if i != 1:
+                assert torch.equal(a[t], b[0]), i
+
+
+# dout and shared 1 and 3 elements past a 16-byte boundary: read element by
+# element; x the same: staged element by element
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_gate_backward_kernel_unaligned_views(cuda, offset, dtype):
+    dout, stacked, stats = _backward_case(cuda, dtype, 1, 1, 3, 100, 64, 128, 64)
+    moved = []
+    for v in (dout, stacked[0], stacked[1]):
+        buf = torch.empty(v.numel() + offset, dtype=dtype, device=cuda)
+        view = buf[offset:].view(v.shape)
+        view.copy_(v)
+        moved.append(view)
+    got = fused_gate_train._launch_backward(1e-5, moved[0], moved[1], moved[2], *stacked[2:],
+                                            *stats)
+    want = fused_gate_train._launch_backward(1e-5, dout, *stacked, *stats)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("fold_tasks,per_step", [(False, 16), (True, 8)])
+def test_train_gate_backward_counts_mtan_steps(cuda, fold_tasks, per_step, monkeypatch):
+    """An MTAN train step on the card launches the backward kernel once a
+    gate call: 16 a step (8 gates, 2 tasks), 8 under ``fold_tasks``, as many
+    as the forward's calls; the plain backward never runs."""
+    from vision_mtl_tpu_torch.metrics import init_metrics
+    from vision_mtl_tpu_torch.train.state import create_train_state
+    from vision_mtl_tpu_torch.train.step import make_train_step
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain backward ran for CUDA tensors")
+
+    monkeypatch.setattr(fused_gate_train, "_gate_backward", plain)
+    cfg = fetch_data_cfg("cityscapes")
+    hw = (64, 128)
+    model = build_model("mtan", cfg, dtype=torch.bfloat16, device=cuda, seed=0,
+                        fold_tasks=fold_tasks)
+    state = create_train_state(model, 1e-3, device=cuda)
+    step = make_train_step(device=cuda)
+    rng = np.random.default_rng(5)
+    batch = {"img": torch.from_numpy(rng.integers(0, 256, size=(2, *hw, 3), dtype=np.uint8)),
+             "mask": torch.from_numpy(rng.integers(0, cfg.num_classes, size=(2, *hw))),
+             "depth": torch.from_numpy(rng.uniform(size=(2, *hw, 1)).astype(np.float32))}
+    forward = fused_gate_train.tasks if fold_tasks else fused_gate_train
+    before = fused_gate_train.backward.launches.value, forward.launches.value
+    state, _, losses = step(state, batch, init_metrics(cfg.num_classes, cuda))
+    torch.cuda.synchronize()
+    assert fused_gate_train.backward.launches.value - before[0] == per_step
+    assert forward.launches.value - before[1] == per_step
+    assert all(np.isfinite(float(v)) for v in losses.values())
 
 
 def _assert_conv_close(got, want):

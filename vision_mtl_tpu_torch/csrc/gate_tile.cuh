@@ -1,7 +1,8 @@
 // The tile body of MTAN's attention-gate kernels on Hopper (sm_90a):
 // products in f32 accuracy on the tensor cores (3xTF32), operands staged in
-// shared memory by cp.async. Included by csrc/fused_gate.cu (the eval gate)
-// and csrc/gate_train.cu (the train gate).
+// shared memory by cp.async. Included by csrc/fused_gate.cu (the eval gate),
+// csrc/gate_train.cu (the train gate) and csrc/gate_train_backward.cu (its
+// gradient).
 //
 // 3xTF32. Each f32 operand a is split as it is loaded from shared memory
 // into a_hi, the TF32 rounding of a (cvt.rna), and a_lo, the TF32 rounding
@@ -14,7 +15,10 @@
 //
 // A block is 256 threads: 8 warps, 4 along the rows x 2 along the columns.
 // A warp owns 16 kMt rows x up to 64 columns (kNt n8 tiles), so a block
-// covers up to 128 columns of a product.
+// covers up to 128 columns of a product. The A operand may be read
+// transposed (mma_chunk_strided): the train gate's backward
+// (csrc/gate_train_backward.cu) sums its weight gradients over the rows
+// of row-major tiles.
 
 #pragma once
 
@@ -123,9 +127,13 @@ __device__ __forceinline__ float load_a(const __nv_bfloat16* p) { return __bfloa
 // of kG n8 tiles are issued in phases (every tile's first, then every
 // second, ...), so that the tensor cores see independent products back to
 // back rather than each waiting for the one before.
+//
+// mma_chunk_strided reads A's element (row i, contraction k) at A[i * a_rs
+// + k * a_ks]: mma_chunk is a_rs = lda, a_ks = 1 from column k0.
 template <int kMt, typename TA>
-__device__ __forceinline__ void mma_chunk(float (&acc)[kMt][kNt][4], const TA* A, int lda, int k0,
-                                          const float* B, int k8, int nt, int row0, int col0) {
+__device__ __forceinline__ void mma_chunk_strided(float (&acc)[kMt][kNt][4], const TA* A, int a_rs,
+                                                  int a_ks, const float* B, int k8, int nt,
+                                                  int row0, int col0) {
   constexpr bool kExactA = !std::is_same<TA, float>::value;
   const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
   for (int ks = 0; ks < k8; ++ks) {
@@ -133,9 +141,9 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMt][kNt][4], const TA* A
     uint32_t ahi[kMt][4], alo[kMt][4];
 #pragma unroll
     for (int m = 0; m < kMt; ++m) {
-      const TA* a0 = A + (row0 + m * 16 + g) * lda + k0 + k + tg;
-      const float v[4] = {load_a(a0), load_a(a0 + 8 * lda), load_a(a0 + 4),
-                          load_a(a0 + 8 * lda + 4)};
+      const TA* a0 = A + (row0 + m * 16 + g) * a_rs + (k + tg) * a_ks;
+      const float v[4] = {load_a(a0), load_a(a0 + 8 * a_rs), load_a(a0 + 4 * a_ks),
+                          load_a(a0 + 8 * a_rs + 4 * a_ks)};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (kExactA) {
@@ -187,6 +195,12 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMt][kNt][4], const TA* A
       }
     }
   }
+}
+
+template <int kMt, typename TA>
+__device__ __forceinline__ void mma_chunk(float (&acc)[kMt][kNt][4], const TA* A, int lda, int k0,
+                                          const float* B, int k8, int nt, int row0, int col0) {
+  mma_chunk_strided<kMt>(acc, A + k0, lda, 1, B, k8, nt, row0, col0);
 }
 
 // Stages rows [k0, k0 + kK) x columns [col0, col0 + ncols) of the row-major

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one module each, beside their plain
 PyTorch versions. ``KERNELS`` maps each kernel's name to its module (or, for
-the gates' task-axis launches and the train gate's staged launch across
-ranks, to the module's ``tasks`` or ``ranks`` entry point), whose
+the gates' task-axis launches, the train gate's staged launch across ranks
+and its backward, to the module's ``tasks``, ``ranks`` or ``backward`` entry
+point), whose
 ``SOURCE`` names its ``csrc/<SOURCE>.cu`` (two kernels may share one source)
 and whose ``launches`` counter the wrapper bumps once per launch."""
 
@@ -18,6 +19,7 @@ KERNELS = {
     "fused_attention_gate_tasks": fused_gate.tasks,
     "fused_attention_gate_train_tasks": fused_gate_train.tasks,
     "fused_attention_gate_train_ranks": fused_gate_train.ranks,
+    "fused_attention_gate_train_backward": fused_gate_train.backward,
     "confusion_matrix": confmat,
     "conv3x3_small": small_conv,
 }

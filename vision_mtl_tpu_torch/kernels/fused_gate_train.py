@@ -22,9 +22,8 @@ each task's results are bit for bit those of its own call. The kernel
 has one entry, the task-axis one: :func:`fused_attention_gate_train`
 calls it with T = 1. The plain version,
 :func:`fused_attention_gate_train_tasks_plain`, is the one-task plain
-version task by task, and the backward is the one-task backward task by
-task. ``tasks`` counts the task-axis wrapper's calls, ``launches`` the
-one-task wrapper's.
+version task by task. ``tasks`` counts the task-axis wrapper's calls,
+``launches`` the one-task wrapper's.
 
 Ranks. Under data parallelism (``parallel/multihost.py``) the statistics
 are those of every rank's rows together, as a JAX BatchNorm over a batch
@@ -44,12 +43,20 @@ gate's does (``fused_gate.tf32_matmul``).
 PyTorch ops (and, with ``split=False``, a single TF32 product, which is not
 accurate enough); it is for tests and never on the main path.
 
-:func:`fused_attention_gate_train` is differentiable. Its backward is
-PyTorch ops by design (the JAX package differentiates this chain with XLA and
-has no backward kernel): it recomputes h and a from the saved inputs and the
-saved statistics and applies the BatchNorm gradient with batch statistics.
-Between forward and backward it holds only its inputs and the four
-statistics, never an (N, hidden) or (N, C2) intermediate.
+:func:`fused_attention_gate_train` is differentiable, and its backward is a
+kernel too (``csrc/gate_train_backward.cu``; the JAX package differentiates
+this chain with XLA and has no backward kernel). For CUDA tensors one call
+of it computes all ten gradients of every task, in three passes over row
+tiles with the BatchNorm gradient's sums between them; ``backward`` counts
+its calls. With a ``comm`` of several ranks it runs in stages and the
+wrapper all-reduces each BatchNorm's two per-channel sums between them, as
+the plain backward does. :func:`_gate_backward`, the plain backward in
+PyTorch ops, recomputes h and a from the saved inputs and statistics; it is
+what runs for CPU tensors and the tests' reference, and
+:func:`fused_attention_gate_train_backward_tf32` emulates the kernel's
+3xTF32 products with it, for tests only. Between forward and backward the
+Function holds only its inputs and the four statistics; the kernel's
+(N, hidden) and (N, C2) scratch lives only during the backward call.
 """
 
 from __future__ import annotations
@@ -72,6 +79,9 @@ tasks = EntryPoint(SOURCE)
 #: the staged call across ranks (``vmtl_fused_attention_gate_train_tasks_stage``),
 #: one-task or task-axis: it counts those calls, the two above the fused ones
 ranks = EntryPoint(SOURCE)
+#: the gradient (``csrc/gate_train_backward.cu``): one count per backward
+#: call on CUDA tensors, one-task or task-axis, fused or staged
+backward = EntryPoint("gate_train_backward")
 
 _SIGNATURE = (
     [ctypes.c_void_p] * 13
@@ -81,6 +91,12 @@ _SIGNATURE = (
 )
 _STAGE_SIGNATURE = _SIGNATURE + [ctypes.c_int, ctypes.c_void_p]
 _SCRATCH_SIGNATURE = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_BACKWARD_SIGNATURE = (
+    [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)
+_BACKWARD_STAGE_SIGNATURE = _BACKWARD_SIGNATURE + [ctypes.c_int, ctypes.c_void_p, ctypes.c_double]
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
@@ -262,11 +278,12 @@ def _bn_backward(dy_hat: torch.Tensor, z_hat: torch.Tensor, rstd: torch.Tensor,
 
 
 def _gate_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
-                   m1, v1, m2, v2, comm=None) -> t.Tuple[torch.Tensor, ...]:
+                   m1, v1, m2, v2, comm=None, matmul=torch.matmul) -> t.Tuple[torch.Tensor, ...]:
     """The one-task gate's gradient in its ten tensors, in the compute dtype,
     x's and shared's as rows: recomputes h and a from the inputs and the
     saved statistics and applies the BatchNorm gradient with batch
-    statistics (every rank's, with a ``comm``)."""
+    statistics (every rank's, with a ``comm``). ``matmul`` takes its six
+    products."""
     cd = _compute_dtype(x)
     cin, c2ch = x.shape[-1], shared.shape[-1]
     xf = x.reshape(-1, cin).to(cd)
@@ -275,21 +292,98 @@ def _gate_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, 
     w1, w2, scale1, scale2 = w1.to(cd), w2.to(cd), scale1.to(cd), scale2.to(cd)
     # recompute the forward
     rstd1 = torch.rsqrt(v1.to(cd) + eps)
-    h_hat = (xf @ w1 + b1.to(cd) - m1.to(cd)) * rstd1
+    h_hat = (matmul(xf, w1) + b1.to(cd) - m1.to(cd)) * rstd1
     z1 = h_hat * scale1 + bias1.to(cd)
     r = torch.relu(z1)
     rstd2 = torch.rsqrt(v2.to(cd) + eps)
-    a_hat = (r @ w2 + b2.to(cd) - m2.to(cd)) * rstd2
+    a_hat = (matmul(r, w2) + b2.to(cd) - m2.to(cd)) * rstd2
     attn = torch.sigmoid(a_hat * scale2 + bias2.to(cd))
     # and back
     dz2 = dout * sf * attn * (1.0 - attn)
     da = _bn_backward(dz2 * scale2, a_hat, rstd2, comm)
-    dr = (da @ w2.T) * (z1 > 0)
+    dr = matmul(da, w2.T) * (z1 > 0)
     dh = _bn_backward(dr * scale1, h_hat, rstd1, comm)
     return (
-        dh @ w1.T, dout * attn, xf.T @ dh, dh.sum(0), (dr * h_hat).sum(0), dr.sum(0),
-        r.T @ da, da.sum(0), (dz2 * a_hat).sum(0), dz2.sum(0),
+        matmul(dh, w1.T), dout * attn, matmul(xf.T, dh), dh.sum(0), (dr * h_hat).sum(0),
+        dr.sum(0), matmul(r.T, da), da.sum(0), (dz2 * a_hat).sum(0), dz2.sum(0),
     )
+
+
+def _gate_backward_tasks(eps, dout, x, shared, *saved, comm=None, matmul=torch.matmul):
+    """:func:`_gate_backward` of T tasks (x, dout, the weights and the
+    statistics with a leading task axis), task by task: the ten gradients
+    stacked on the task axis (dx in x's dtype), dshared the tasks' summed in
+    task order."""
+    dshared, by_task = 0.0, []
+    for i in range(x.shape[0]):
+        dx, ds, *dw = _gate_backward(
+            eps, dout[i], x[i], shared, *(v[i] for v in saved), comm=comm, matmul=matmul
+        )
+        dshared = dshared + ds
+        by_task.append((dx.to(x.dtype), *dw))
+    dx, *dw = (torch.stack(parts) for parts in zip(*by_task))
+    return (dx, dshared, *dw)
+
+
+def fused_attention_gate_train_backward_tf32(eps, dout, x, shared, w1, b1, scale1, bias1, w2,
+                                             b2, scale2, bias2, m1, v1, m2, v2, split=True):
+    """The backward kernel's gradient with its six products taken from TF32
+    operands as the kernel takes them (:func:`tf32_matmul`: 3xTF32, the
+    bf16 operand of x w1 and x^T dh exact in TF32; one TF32 product with
+    ``split`` False), the rest :func:`_gate_backward`'s f32 arithmetic.
+    For tests: the CUDA kernel's arithmetic, emulated on the CPU."""
+    return _gate_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
+                          m1, v1, m2, v2, matmul=lambda a, b: tf32_matmul(a, b, split))
+
+
+def _launch_backward(eps, dout, x, shared, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
+                     m1, v1, m2, v2, comm: t.Optional[Comm] = None) -> t.Tuple[torch.Tensor, ...]:
+    """The backward kernel on the forward's checked tensors with a leading
+    task axis (``shared`` without one) and the four saved statistics (T, C):
+    the ten gradients in the inputs' shapes and dtypes, dshared every task's.
+    Without a ``comm``: the fused entry ``vmtl_gate_train_backward``. With
+    one: the staged entry, each BatchNorm's two per-channel sums all-reduced
+    over the ``comm`` between the passes (a ``comm`` of one rank gives the
+    fused call's bits)."""
+    n_tasks, cin = x.shape[0], x.shape[-1]
+    hidden, c2ch = w2.shape[1:]
+    n = x.shape[1:-1].numel()
+    inputs = (dout.to(shared.dtype).contiguous(), x, shared, w1, b1, scale1, bias1, w2, b2,
+              scale2, bias2, *(s.contiguous() for s in (m1, v1, m2, v2)))
+    grads = (torch.empty_like(x), torch.empty_like(shared),
+             *(torch.empty_like(w) for w in (w1, b1, scale1, bias1, w2, b2, scale2, bias2)))
+    nbytes = load(
+        backward.SOURCE, "vmtl_gate_train_backward_scratch_bytes", _SCRATCH_SIGNATURE,
+        restype=ctypes.c_longlong,
+    )(n, cin, hidden, c2ch, n_tasks)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        args = (
+            (ctypes.c_void_p * len(inputs))(*(v.data_ptr() for v in inputs)),
+            (ctypes.c_void_p * len(grads))(*(v.data_ptr() for v in grads)),
+            scratch.data_ptr(), n_tasks, n, cin, hidden, c2ch, eps,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        if comm is None:
+            rc = load(backward.SOURCE, "vmtl_gate_train_backward", _BACKWARD_SIGNATURE)(*args)
+        else:
+            stage = load(backward.SOURCE, "vmtl_gate_train_backward_stage",
+                         _BACKWARD_STAGE_SIGNATURE)
+            n_total = float(n * comm.world)
+            rc = 0
+            for k, ch in ((0, c2ch), (2, hidden)):
+                local = torch.empty((n_tasks, 2, ch), dtype=torch.float64, device=x.device)
+                rc = rc or stage(*args, k, local.data_ptr(), n_total)
+                if rc:
+                    break
+                comm.all_reduce_(local)
+                rc = stage(*args, k + 1, local.data_ptr(), n_total)
+            rc = rc or stage(*args, 4, None, n_total)
+    if rc != 0:
+        raise RuntimeError(f"fused_attention_gate_train backward: kernel launch failed, CUDA "
+                           f"error {rc}")
+    backward.launches.add()
+    return grads
 
 
 class _FusedGateTrain(torch.autograd.Function):
@@ -322,21 +416,16 @@ class _FusedGateTrain(torch.autograd.Function):
     def _backward(ctx, dout):
         saved = ctx.saved_tensors
         x, shared = saved[:2]
-        if x.dim() == 4:
+        if x.device.type != "cpu":  # every task in one call of the kernel
+            if x.dim() == 4:
+                grads = _launch_backward(ctx.eps, dout[None], x[None], shared,
+                                         *(v[None] for v in saved[2:]), comm=ctx.comm)
+            else:
+                grads = _launch_backward(ctx.eps, dout, *saved, comm=ctx.comm)
+        elif x.dim() == 4:
             grads = _gate_backward(ctx.eps, dout, *saved, comm=ctx.comm)
         else:
-            # task by task, so that one task's (N, hidden) and (N, C2)
-            # intermediates are live at a time; every task's gate scales
-            # the one shared map
-            dshared, by_task = 0.0, []
-            for i in range(x.shape[0]):
-                dx, ds, *dw = _gate_backward(
-                    ctx.eps, dout[i], x[i], shared, *(v[i] for v in saved[2:]), comm=ctx.comm
-                )
-                dshared = dshared + ds
-                by_task.append((dx.to(x.dtype), *dw))
-            dx, *dw = (torch.stack(parts) for parts in zip(*by_task))
-            grads = (dx, dshared, *dw)
+            grads = _gate_backward_tasks(ctx.eps, dout, x, shared, *saved[2:], comm=ctx.comm)
         return (*(g.reshape(i.shape).to(i.dtype) for g, i in zip(grads, saved)), None, None)
 
 
