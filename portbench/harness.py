@@ -11,6 +11,9 @@ edits none):
 * ``workloads/<cell>.json``: the limits of the cell's comparison with the
   plain reference, and the readings they were set from.
 * ``metrics/<metric>.py``: one per-layer metric's reader.
+* ``reference/<model>.py``: the plain reference of the configuration's
+  ``model`` (``reference.build``); the program's model comes from the
+  port's registry under the same name (``program_model``).
 """
 
 from __future__ import annotations
@@ -121,6 +124,41 @@ def make_run(bench: t.Mapping[str, t.Any], cell: str, seed: int, seconds: float,
     limits = load_json("workloads", cell)["limits"]
     return Run(cell=cell, config=config, traffic=traffic, limits=limits, chips=entry["chips"],
                seed=seed, seconds=seconds, trace=trace, device=device, t0=t0)
+
+
+#: ``build_model``'s arguments that ``program_model`` sets itself
+SET_HERE = {"model_name", "data_cfg", "dtype", "device", "seed"}
+
+
+def program_model(config: t.Mapping[str, t.Any], device: t.Any, dtype: t.Any = None) -> t.Any:
+    """The program's model for ``config`` on ``device``, in ``dtype``
+    (default: the configuration's ``compute_dtype``), built by the port's
+    registry with the configuration's ``program_options`` (keyword
+    arguments of ``build_model``, such as ``fold_tasks``; none by default).
+    Raises where an option is not one of ``build_model``'s, or where the
+    model's parameter count is not the configuration's ``parameters``."""
+    import inspect
+    import types
+
+    import torch
+
+    from vision_mtl_tpu_torch.models.registry import build_model
+
+    options = dict(config.get("program_options", {}))
+    known = set(inspect.signature(build_model).parameters) - SET_HERE
+    unknown = sorted(set(options) - known)
+    if unknown:
+        raise ValueError(f"program_options {unknown} are not build_model's; "
+                         f"it takes {sorted(known)}")
+    if dtype is None:
+        dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[config["compute_dtype"]]
+    model = build_model(config["model"], types.SimpleNamespace(num_classes=config["num_classes"]),
+                        dtype=dtype, device=device, **options)
+    count = sum(p.numel() for p in model.parameters())
+    if count != config["parameters"]:
+        raise ValueError(f"the program's {config['model']!r} model has {count} parameters; "
+                         f"the configuration states {config['parameters']}")
+    return model
 
 
 def checks(compared: t.Mapping[str, float], limits: t.Mapping[str, float]) -> t.Dict[str, t.Any]:

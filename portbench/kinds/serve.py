@@ -37,23 +37,20 @@ import math
 import random
 import threading
 import time
-import types
 import typing as t
 
 import numpy as np
 import torch
 
 from portbench import compare, reference, seeded
-from portbench.harness import Outcome, Run
+from portbench.harness import Outcome, Run, program_model
 from portbench.readings import Readings
 from portbench.reference.common import F32, calibrate_
 from portbench.reference.steps import decode, full_f32, serve_outputs
 from portbench.trace import sub_window
 from vision_mtl_tpu_torch import kernels
-from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.serving import BatchingServer
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: how long past the close a request may still come
 GRACE_S = 60.0
 #: the fixed generator of the arrival gaps every seed shares
@@ -233,8 +230,7 @@ def build_server(r: Run) -> t.Tuple[BatchingServer, np.ndarray, t.Dict[str, torc
     h, w = cfg["height"], cfg["width"]
     frames = seeded.frames(r.seed, FRAMES, h, w, dev)
     weights = served_weights(r, frames)
-    model = build_model(cfg["model"], types.SimpleNamespace(num_classes=cfg["num_classes"]),
-                        dtype=DTYPES[cfg["compute_dtype"]], device=dev)
+    model = program_model(cfg, dev)
     model.load_state_dict(weights)
     weights = {k: v.cpu() for k, v in weights.items()}
     if dev.type == "cuda":

@@ -19,23 +19,20 @@ Mix keys: ``batch``, ``lr``, ``loss_weights`` (segm, depth),
 from __future__ import annotations
 
 import time
-import types
 import typing as t
 
 import torch
 
 from portbench import compare, seeded
-from portbench.harness import Outcome, Run
+from portbench.harness import Outcome, Run, program_model
 from portbench.readings import Readings
 from portbench.reference.steps import train_steps
 from portbench.trace import sub_window
 from vision_mtl_tpu_torch import kernels
 from vision_mtl_tpu_torch.metrics import init_metrics
-from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.train.state import create_train_state
 from vision_mtl_tpu_torch.train.step import make_train_step
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: distinct seeded batches the window cycles through
 POOL_BATCHES = 8
 #: the steps the comparison follows: every limit in ``workloads/*.json``
@@ -59,8 +56,7 @@ def first_steps(r: Run, pool: t.Sequence[t.Dict[str, torch.Tensor]]) -> t.Tuple[
     cfg, mix, dev = r.config, r.traffic, r.device
     classes = cfg["num_classes"]
     start = seeded.weights(cfg, r.seed, dev)
-    model = build_model(cfg["model"], types.SimpleNamespace(num_classes=classes),
-                        dtype=DTYPES[cfg["compute_dtype"]], device=dev)
+    model = program_model(cfg, dev)
     model.load_state_dict(start)
     state = create_train_state(model, mix["lr"], device=dev)
     step = make_train_step(*mix["loss_weights"], device=dev)

@@ -74,14 +74,11 @@ def launch(args) -> int:
 
 
 def rank_main(args) -> int:
-    import types
-
     import torch
 
     from portbench import harness, seeded, trace
     from portbench.kinds import train
     from vision_mtl_tpu_torch.metrics import init_metrics
-    from vision_mtl_tpu_torch.models.registry import build_model
     from vision_mtl_tpu_torch.parallel import multihost
     from vision_mtl_tpu_torch.parallel.mesh import create_mesh
     from vision_mtl_tpu_torch.train.state import create_train_state
@@ -101,8 +98,7 @@ def rank_main(args) -> int:
     pool = [{k: seeded._pin(v[rows].contiguous()) for k, v in b.items()}
             for b in seeded.train_pool(args.seed, train.POOL_BATCHES, per * world, cfg["height"],
                                        cfg["width"], cfg["num_classes"], dev)]
-    model = build_model(cfg["model"], types.SimpleNamespace(num_classes=cfg["num_classes"]),
-                        dtype=train.DTYPES[cfg["compute_dtype"]], device=dev)
+    model = harness.program_model(cfg, dev)
     model.load_state_dict(seeded.weights(cfg, args.seed, dev))
     state = create_train_state(model, mix["lr"], device=dev)
     step = make_train_step(*mix["loss_weights"], device=dev, mesh=mesh)

@@ -1,30 +1,36 @@
 """The plain reference: each configuration's model, its losses, one Adam
 training step and the served outputs, in plain PyTorch. Nothing here
-imports the program under test."""
+imports the program under test.
+
+A model's reference is the module named after it, ``<model>.py`` here,
+with ``build(config, precision)``: a new model is a new file."""
 
 from __future__ import annotations
 
+import importlib
+import re
 import typing as t
+from pathlib import Path
 
 from torch import nn
 
 from portbench.reference.common import F32, Precision
 
+#: a model's name: one of the benchmark's names (at most 64 characters)
+#: that is also a Python module's, since it names ``reference/<model>.py``
+NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]{0,63}")
+
 
 def build(config: t.Mapping[str, t.Any], precision: Precision = F32) -> nn.Module:
     """The configuration's reference model, its parameters uninitialised
-    (``portbench.seeded.fill``); built on the current default device."""
-    arch = config["architecture"]
-    classes = config["num_classes"]
-    if config["model"] == "mtan":
-        from portbench.reference.mtan import MTAN
-
-        return MTAN({"depth": 1, "segm": classes}, arch["encoder_first_channel"],
-                    arch["encoder_num_channels"], arch["task_subnets_hidden_channels"],
-                    precision=precision)
-    if config["model"] == "basic":
-        from portbench.reference.basic import Basic
-
-        return Basic(classes, arch["decoder_first_channel"], arch["num_decoder_layers"],
-                     precision=precision)
-    raise ValueError(f"no reference for model {config['model']!r}")
+    (``portbench.seeded.weights`` draws them); built on the current default device by
+    ``reference/<config["model"]>.py``'s ``build``."""
+    model = config["model"]
+    if not NAME.fullmatch(model):
+        raise ValueError(f"model name {model!r} is not a name of at most 64 letters, digits "
+                         f"and _ that does not start with a digit")
+    path = Path(__file__).parent / f"{model}.py"
+    if not path.is_file():
+        raise ValueError(f"no reference for model {model!r}: "
+                         f"no file portbench/reference/{model}.py")
+    return importlib.import_module(f"portbench.reference.{model}").build(config, precision)

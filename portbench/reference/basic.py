@@ -184,3 +184,9 @@ class Basic(nn.Module):
     def forward(self, x: torch.Tensor) -> t.Dict[str, torch.Tensor]:
         h = self.backbone(x)
         return {"segm": self.segm_head(h), "depth": self.depth_head(h)}
+
+
+def build(config: t.Mapping[str, t.Any], precision: Precision = F32) -> Basic:
+    arch = config["architecture"]
+    return Basic(config["num_classes"], arch["decoder_first_channel"], arch["num_decoder_layers"],
+                 precision=precision)

@@ -117,3 +117,10 @@ class MTAN(nn.Module):
             shared = out
         return {name: getattr(self, f"head_{name}")(streams[ti])
                 for ti, name in enumerate(self.tasks)}
+
+
+def build(config: t.Mapping[str, t.Any], precision: Precision = F32) -> MTAN:
+    arch = config["architecture"]
+    return MTAN({"depth": 1, "segm": config["num_classes"]}, arch["encoder_first_channel"],
+                arch["encoder_num_channels"], arch["task_subnets_hidden_channels"],
+                precision=precision)

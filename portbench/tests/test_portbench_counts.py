@@ -11,8 +11,9 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench import costs, harness, reference
+from portbench import costs, harness, reference, seeded
 from portbench.readings import Readings
+from portbench.reference.common import init_bounds
 from portbench.tests import tiny
 from portbench.trace import Trace, parse
 
@@ -37,6 +38,24 @@ def test_flops_per_image_recounted(name):
     assert step.get_total_flops() / 2 == cfg["flops_per_image"]["train"]
     params = sum(p.numel() for p in model.parameters())
     assert params == cfg["parameters"]
+
+
+#: per configuration, at ``tiny.SEED`` on the CPU: the leaves drawn from the
+#: seed (those with an init bound) and the sum of the absolute values of all
+#: the weights; read before the reference was found by the model's name, so
+#: the draw's order is held across that move
+WEIGHTS = {"mtan-cityscapes": (142, 182915.46139986732),
+           "basic-cityscapes": (92, 195198.9368976745)}
+
+
+@pytest.mark.parametrize("name", sorted(WEIGHTS))
+def test_seeded_weights_pinned(name):
+    cfg = CONFIGS[name]
+    with torch.device("meta"):
+        drawn = len(init_bounds(reference.build(cfg)))
+    weights = seeded.weights(cfg, tiny.SEED, torch.device("cpu"))
+    total = sum(float(v.double().abs().sum()) for v in weights.values())
+    assert (drawn, total) == (WEIGHTS[name][0], pytest.approx(WEIGHTS[name][1], rel=1e-12))
 
 
 def test_gate_bytes_and_bound_at_batch_32():

@@ -13,7 +13,12 @@ from portbench import control, harness
 from portbench.kinds import serve, train
 from portbench.tests import tiny
 
-TRAIN_CELLS = ["mtan-cityscapes.train-b32", "basic-cityscapes.train-b256"]
+BENCH = harness.load_benchmark(tiny.ROOT)
+#: every cell by its traffic's kind
+KINDS = {w["name"]: harness.load_json("traffic", w["traffic"])["kind"]
+         for w in BENCH["workloads"]}
+TRAIN_CELLS = [c for c, kind in KINDS.items() if kind == "train"]
+SERVE_CELLS = [c for c, kind in KINDS.items() if kind == "serve"]
 
 
 def _train_outcome(cell, monkeypatch, wrap):
@@ -58,9 +63,12 @@ def test_broken_train_step_is_not_correct(cell, fault, monkeypatch):
     assert list(line)[-1] == "checks"
 
 
-def test_altered_answer_is_not_correct(monkeypatch):
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_altered_answer_is_not_correct(cell, monkeypatch):
     """Each batch's first answer has its classes shifted by one where the
     predictor fetches it."""
+    r = tiny.run(cell)
+    classes = r.config["num_classes"]
     real_init = serve.BatchingServer.__init__
 
     def init(self, *args, **kwargs):
@@ -71,21 +79,20 @@ def test_altered_answer_is_not_correct(monkeypatch):
             def altered(out, n, original=original):
                 host = original(out, n)
                 host["segm"] = host["segm"].copy()
-                host["segm"][0] = (host["segm"][0].astype(np.int64) + 1) % 19
+                host["segm"][0] = (host["segm"][0].astype(np.int64) + 1) % classes
                 return host
 
             pred.fetch = altered
 
     monkeypatch.setattr(serve.BatchingServer, "__init__", init)
-    r = tiny.run("mtan-cityscapes.serve-over")
     line = tiny.result(r, serve.run(r))
     assert line["correct"] is False, line["checks"]
 
 
-@pytest.mark.parametrize("cell", TRAIN_CELLS + ["mtan-cityscapes.serve-over"])
+@pytest.mark.parametrize("cell", TRAIN_CELLS + SERVE_CELLS)
 def test_float8_control_is_not_correct(cell):
     r = tiny.run(cell)
-    readings = (control.train_readings if r.traffic["kind"] == "train"
+    readings = (control.train_readings if KINDS[cell] == "train"
                 else control.serve_readings)(r, program=False)
     gaps, _ = readings["control"]
     assert not harness.is_correct(harness.checks(gaps, r.limits), 0), gaps

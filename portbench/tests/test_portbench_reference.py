@@ -1,44 +1,39 @@
 """The plain reference agrees with the port at a small size in float32:
 the same seeded weights give the same forward, eval and train mode, and
-the same first training step."""
+the same first training step. Every configuration of ``BENCHMARK.json``,
+the program's model built by ``harness.program_model``."""
 
 from __future__ import annotations
-
-import types
 
 import pytest
 import torch
 
-from portbench import compare, reference, seeded
+from portbench import compare, harness, reference, seeded
 from portbench.reference.common import calibrate_
 from portbench.reference.steps import decode, train_steps
 from portbench.tests import tiny
-from vision_mtl_tpu_torch.models.registry import build_model
 from vision_mtl_tpu_torch.train.step import make_predict_step
 
-CELLS = {"mtan": "mtan-cityscapes.train-b32", "basic": "basic-cityscapes.train-b256"}
+CONFIGS = [c["name"] for c in harness.load_benchmark(tiny.ROOT)["configs"]]
 
 
-def _models(name, height=32):
-    r = tiny.run(CELLS[name], height=height)
-    with torch.device("meta"):
-        spec = reference.build(r.config)
-    weights = seeded.state_dict(spec, r.seed, torch.device("cpu"))
-    ref = reference.build(r.config)
-    ref.load_state_dict(weights)
-    port = build_model(name, types.SimpleNamespace(num_classes=19), dtype=torch.float32,
-                       device="cpu")
-    port.load_state_dict(weights)
-    pool = seeded.train_pool(r.seed, 1, 2, r.config["height"], r.config["width"], 19,
-                             torch.device("cpu"))
-    return r, ref, port, pool
-
-
-@pytest.mark.parametrize("name", sorted(CELLS))
-def test_forward_matches_the_port(name):
+def _models(name):
     # at 64 rows basic's stride-32 map is 2x4: at 32 its head BatchNorm would
     # see 4 values a channel, whose statistics amplify rounding
-    r, ref, port, pool = _models(name, height=64)
+    cfg = tiny.config(name, height=64)
+    weights = seeded.weights(cfg, tiny.SEED, torch.device("cpu"))
+    ref = reference.build(cfg)
+    ref.load_state_dict(weights)
+    port = harness.program_model(cfg, "cpu", torch.float32)
+    port.load_state_dict(weights)
+    pool = seeded.train_pool(tiny.SEED, 1, 2, cfg["height"], cfg["width"], cfg["num_classes"],
+                             torch.device("cpu"))
+    return cfg, ref, port, pool
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_forward_matches_the_port(name):
+    _, ref, port, pool = _models(name)
     img = decode(pool[0], torch.device("cpu"))["img"]
     calibrate_(ref, img)  # the served cell's statistics, also in the port
     port.load_state_dict(ref.state_dict())
@@ -55,18 +50,20 @@ def test_forward_matches_the_port(name):
                 assert agree > 0.999
 
 
-@pytest.mark.parametrize("name", sorted(CELLS))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_first_train_step_matches_the_port(name):
     from vision_mtl_tpu_torch.metrics import init_metrics
     from vision_mtl_tpu_torch.train.state import create_train_state
     from vision_mtl_tpu_torch.train.step import make_train_step
 
-    r, ref, port, pool = _models(name, height=64)
+    cfg, ref, port, pool = _models(name)
+    classes = cfg["num_classes"]
     weights = {k: v.clone() for k, v in ref.state_dict().items()}
-    want = train_steps(ref, pool, 0.005, 1.0, 1.0, 19, torch.device("cpu"))
+    want = train_steps(ref, pool, 0.005, 1.0, 1.0, classes, torch.device("cpu"))
     state = create_train_state(port, 0.005, device="cpu")
     named = dict(port.named_parameters())
-    state, mstate, ls = make_train_step(device="cpu")(state, pool[0], init_metrics(19, "cpu"))
+    state, mstate, ls = make_train_step(device="cpu")(state, pool[0],
+                                                      init_metrics(classes, "cpu"))
     got = {"loss": [float(ls["loss"])],
            "grad_norm": {k: float(v) for k, v in
                          compare.program_grad_norms(named, state.optimizer).items()},
